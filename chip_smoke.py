@@ -3,24 +3,38 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Drives radiativetransfer_tpu_torch's mode-9 path (UVB-only diffuse
-transfer + equilibrium chemistry) through its public API and checks the
-hand-written sweep kernel against its plain PyTorch version.  Phases, one
+Drives radiativetransfer_tpu_torch's paths through their public entry
+points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
+8 (point sources + UVB), the roofline script and the bench -- and holds
+each hand-written kernel against its plain PyTorch version.  Phases, one
 line or more each; any failure raises and the script exits non-zero:
 
 1. probe: torch, CUDA, the device, its power limit, nvcc, triton;
-2. build the kernel from radiativetransfer_tpu_torch/csrc/ (timed);
-3. kernel vs plain version on the device, float32 (and float64), both
+2. build both kernel sources from radiativetransfer_tpu_torch/csrc/, one
+   nvcc each, started together (timed);
+3. sweep kernel vs plain version on the device, float32 (and float64), both
    logmean forms, both plane memories, up to 128^3 x 192 directions;
-4. the 24^3 anchor: one f32 mode-9 step, neutral fraction 0.044220 +-1e-4;
-5. the main path at 128^3 x 192 directions: initialize_equilibrium and 3
+4. the 24^3 mode-9 anchor: one f32 step, neutral fraction 0.044220 +-1e-4;
+5. the mode-9 path at 128^3 x 192 directions: initialize_equilibrium and 3
    steps, each timed, with the kernel's launch count; step 1 against the
    plain slab scan;
 6. the sweep alone at 128^3 and 256^3 x 192 directions, kernel and plain
-   version, in cells*angles/s.
+   version, in cells*angles/s;
+7. the probe kernel vs its plain version for every body at 64^3, then the
+   roofline script (python -m radiativetransfer_tpu_torch.roofline_sweep)
+   at 256^3: stream GB/s, the exp, div and fma rates, the sweep's bound;
+   every probe's output at 256^3 against its plain version's there, and
+   the bounds' per-step instruction counts against the kernel's SASS;
+8. the 24^3 mode-8 anchor: one f32 step, neutral fraction 0.033307 +-1e-4,
+   exactly one sweep launch;
+9. the mode-8 path at 128^3 x 192 directions with 8 sources: 3 steps, each
+   timed, the tracer timed apart, peak device memory, the sweep's launch
+   count; step 1 against the plain slab scan;
+10. the port's bench (python -m radiativetransfer_tpu_torch.bench): its
+    three JSON lines, sweep, rays and step.
 
 The last lines are the card's name and power limit, one JSON object of
-the kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
+every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
 without a CUDA device.  Needs no JAX and no network.
 """
 
@@ -34,22 +48,21 @@ import time
 import numpy as np
 import torch
 
-# the anchor: one f32 mode-9 step, 24^3, 200 kpc, level 1, z = 6.55,
-# reionization model 10, uniform nh = 1e-4, T = 2e4 (MULTICHIP_r05.json)
+# the anchors: one f32 step, 24^3, 200 kpc, level 1, z = 6.55, reionization
+# model 10, uniform nh = 1e-4, T = 2e4 (MULTICHIP_r05.json); mode 9, and
+# mode 8 with 11 sources from seed 0 at maxPixelLevel 2
 ANCHOR_NF = 0.044220
+ANCHOR8_NF = 0.033307
 ANCHOR_RTOL = 1e-4
 # the main path's size: the 128^3 base grid of the production deep-AMR run
 # at the reference's 192 directions; the sweep is also timed at 256^3
 DEVICE = "cuda"
 MAIN_N, MAIN_LEVEL = 128, 3
 TIMING_NS = (128, 256)
-
-
-def _nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+# the probes' comparison size and the roofline's (the JAX scripts' N)
+PROBE_N, ROOF_N = 64, 256
+# the mode-8 path: bench.py::bench_step's configuration
+MODE8_SOURCES = 8
 
 
 def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -70,27 +83,14 @@ def _kappa(n: int, dtype=torch.float32, seed: int = 42) -> torch.Tensor:
     return torch.tensor(k, dtype=dtype, device=DEVICE)
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps runs after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_probe() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke test needs a CUDA device")
-    from radiativetransfer_tpu_torch.core import sweep_cuda
-    smi = _nvidia_smi()
-    nvcc = sweep_cuda._find_nvcc()
+    from radiativetransfer_tpu_torch.core import cuda_build
+    from radiativetransfer_tpu_torch.roofline_sweep import nvidia_smi
+    smi = nvidia_smi()
+    nvcc = cuda_build.find_nvcc()
     nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True,
                                   text=True, check=True).stdout.strip()
     try:
@@ -107,14 +107,18 @@ def phase_probe() -> str:
 
 
 def phase_build() -> None:
-    from radiativetransfer_tpu_torch.core import sweep_cuda
+    from radiativetransfer_tpu_torch.core import cuda_build
     t0 = time.perf_counter()
-    sweep_cuda.build()
+    cuda_build.build()
     dt = time.perf_counter() - t0
-    print(f"[2 build] {sweep_cuda.library_path().name} in {dt:.2f} s")
-    for line in sweep_cuda.BUILD_LOG.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            print(f"[2 build] {line.strip()}")
+    names = ", ".join(cuda_build.library_path(n).name
+                      for n in cuda_build.SOURCES)
+    print(f"[2 build] {names} in {dt:.2f} s")
+    for name, log in cuda_build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "ptxas info" in line and ("Used" in line
+                                         or "Compiling" in line):
+                print(f"[2 build] {name}: {line.strip()}")
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -250,14 +254,15 @@ def phase_main_path() -> int:
 def phase_timings(smi: str) -> dict:
     from radiativetransfer_tpu_torch.constants import KPC
     from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
     uvb = np.array([1.0, 0.5, 0.25])
     out = {}
     for n in TIMING_NS:
         plan = sweep.build_sweep_plan(MAIN_LEVEL, n)
         kappa = _kappa(n)
-        ms = _time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
+        ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
             kappa, plan, uvb, KPC, "clamped"), reps=5)
-        plain_ms = _time_ms(lambda: sweep_cuda.diffuse_sweep_merged_reference(
+        plain_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_merged_reference(
             kappa, plan, uvb, KPC, "clamped"), reps=2)
         cells_angles = n ** 3 * plan.n_directions
         err_abs, err_rel = _rel_err(
@@ -275,27 +280,265 @@ def phase_timings(smi: str) -> dict:
     return out
 
 
+def phase_probes() -> dict:
+    from radiativetransfer_tpu_torch import roofline_sweep
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import probes_cuda, sweep_cuda
+    # kernel vs plain on the same inputs; a contraction (exp, div), an
+    # affine map (fma) and one add keep the chains' rounding from growing,
+    # so 4e-6 relative covers the IEEE expf and division of the kernel
+    # against PyTorch's own on the card (and 1/x taken as a reciprocal)
+    x = roofline_sweep.bench_kappa(PROBE_N) * (2000.0 / PROBE_N) * KPC
+    errs = {}
+    for body, depth in (probes_cuda.EXP8, *probes_cuda.PLANE_PROBES):
+        out = probes_cuda.chain(x, body, depth)
+        torch.cuda.synchronize()
+        ref = probes_cuda.chain_reference(x, body, depth)
+        err_abs, err_rel = _rel_err(out, ref)
+        print(f"[7 probes] {body} x{depth} at {PROBE_N}^3: max abs "
+              f"{err_abs:.3e} max rel {err_rel:.3e} (tol 4e-6)")
+        assert torch.isfinite(out).all() and err_rel <= 4e-6, (body, err_rel)
+        errs[(body, depth)] = err_abs
+
+    # at ROOF_N, where the grid is capped and every thread walks the
+    # grid-stride loop ~3 times: roofline_sweep.probe holds each kernel's
+    # output against the plain version's (the run that times the plain
+    # version) on the same field, with the same tolerance; the #4 probe at
+    # the bench's shape first (the roofline script runs #5 only)
+    xb = roofline_sweep.bench_kappa(ROOF_N) * (2000.0 / ROOF_N) * KPC
+    exp8 = roofline_sweep.probe(xb, *probes_cuda.EXP8, reps=20)
+    print(f"[7 probes] exp x8 at {ROOF_N}^3: {exp8['ms']:.4f} ms, "
+          f"{exp8['per_s']:.4e} exp/s; plain {exp8['plain_ms']:.3f} ms; "
+          f"max abs {exp8['max_abs_err']:.3e} max rel "
+          f"{exp8['max_rel_err']:.3e} (tol 4e-6)")
+    del xb
+
+    probes_cuda.LAUNCHES.clear()
+    sweep_cuda.LAUNCHES = 0
+    roof = roofline_sweep.main(ROOF_N, MAIN_LEVEL)
+    launches = dict(probes_cuda.LAUNCHES)
+    sweep_launches = sweep_cuda.LAUNCHES
+    print(f"[7 probes] roofline_sweep launches {launches}, sweep "
+          f"{sweep_launches}")
+    for key in probes_cuda.PLANE_PROBES:
+        assert launches.get(key, 0) > 0, f"roofline did not launch {key}"
+    assert sweep_launches > 0, "roofline did not launch the sweep"
+    at_roof = {probes_cuda.EXP8: exp8,
+               **{key: roof[key[0]] for key in probes_cuda.PLANE_PROBES}}
+    for (body, depth), r in at_roof.items():
+        print(f"[7 probes] {body} x{depth} at {ROOF_N}^3: max abs "
+              f"{r['max_abs_err']:.3e} max rel {r['max_rel_err']:.3e} "
+              f"(tol 4e-6)")
+        assert r["max_rel_err"] <= 4e-6, (body, depth, r["max_rel_err"])
+        errs[(body, depth)] = max(errs[(body, depth)], r["max_abs_err"])
+    # the per-step instruction counts of the bounds, against the SASS
+    for body, m in roof["sass"].items():
+        assert m["mufu"] > 0 and m["fp32_per_mufu"] == \
+            probes_cuda.FP32_PER_STEP[body], (body, m)
+    assert sweep_cuda.FP32_PER_EXPF == probes_cuda.FP32_PER_STEP["exp"]
+    return {"errs": errs, "roof": roof, "exp8": exp8,
+            "launches": launches, "sweep_launches": sweep_launches}
+
+
+def _mode8_model(n, level, box_kpc, n_src, pos, pop, max_pixel_level,
+                 **cfg_kw):
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch.config import (
+        MODE_BOTH_STELLAR_UVB_TRANSFER)
+    from radiativetransfer_tpu_torch.constants import KPC, MYR
+    from radiativetransfer_tpu_torch.core.rays import SourceBatch
+    from radiativetransfer_tpu_torch.core.step import StellarContext
+    cfg = rt.RunConfig(mode=MODE_BOTH_STELLAR_UVB_TRANSFER,
+                       current_redshift=6.55, n_angular_level=level,
+                       reionization_model=10, **cfg_kw)
+    geom = rt.GridGeometry(n, n, n, box_kpc * KPC)
+    model = rt.RTModel.setup(cfg, geom, torch.float32, DEVICE)
+    batch = SourceBatch(position=pos, weight=np.ones(n_src),
+                        table_idx=np.zeros(n_src, np.int32))
+    ctx = StellarContext.build(pop, batch, geom, 10.0 * MYR,
+                               metal_coefs=[(0, 0.0)],
+                               max_pixel_level=max_pixel_level,
+                               dtype=torch.float32, device=DEVICE)
+    return model, ctx
+
+
+def phase_anchor8() -> None:
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch.core import sweep_cuda
+    from radiativetransfer_tpu_torch.tables import stellar
+    # the JAX package's dry run: 8 devices + 3 = 11 sources, not snapped
+    pos = np.random.default_rng(0).uniform(0.2, 0.8, (11, 3))
+    model, ctx = _mode8_model(24, 1, 200.0, 11, pos,
+                              stellar.blackbody_population(), 2)
+    state = rt.uniform_state(24, nh=1e-4, tgas=2e4, dtype=torch.float32,
+                             device=DEVICE)
+    before = sweep_cuda.LAUNCHES
+    out, diag = model.make_step(ctx)(state)
+    nf = model.neutral_fraction(out)
+    rel = abs(nf - ANCHOR8_NF) / ANCHOR8_NF
+    print(f"[8 anchor] 24^3 level 1 f32 mode 8, 11 sources: neutral "
+          f"fraction {nf:.7f} vs {ANCHOR8_NF} (rel {rel:.2e}, tol "
+          f"{ANCHOR_RTOL:g}); sweep launches "
+          f"{sweep_cuda.LAUNCHES - before}")
+    assert sweep_cuda.LAUNCHES - before == 1
+    assert bool(torch.isfinite(diag.ndot_remaining).all())
+    assert rel <= ANCHOR_RTOL, (nf, rel)
+
+
+def phase_mode8() -> int:
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch.bench import bench_sources
+    from radiativetransfer_tpu_torch.core import rays, sweep_cuda
+    from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
+    from radiativetransfer_tpu_torch.tables import stellar
+    n, level, box = MAIN_N, MAIN_LEVEL, 2000.0
+    pos = bench_sources(n, MODE8_SOURCES).position
+    pop = stellar.blackbody_population(q_ionizing=1.0e51)
+    model, ctx = _mode8_model(n, level, box, MODE8_SOURCES, pos, pop, 6)
+    state = rt.uniform_state(n, nh=2e-4, tgas=1.5e4, dtype=torch.float32,
+                             device=DEVICE)
+    init_state = state
+    step = model.make_step(ctx)
+    torch.cuda.reset_peak_memory_stats()
+    sweep_cuda.LAUNCHES = 0
+    nfs = []
+    for it in range(1, 4):
+        before = sweep_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        state, diag = step(state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        nf = model.neutral_fraction(state)
+        nfs.append(nf)
+        print(f"[9 mode8] {n}^3 x {model.sweep_plan.n_directions} dirs "
+              f"f32 mode 8, {MODE8_SOURCES} sources: step {it} neutral "
+              f"fraction {nf:.7f} wall {dt:.4f} s, sweep_cuda.LAUNCHES "
+              f"{sweep_cuda.LAUNCHES}")
+        assert np.isfinite(nf) and 0.0 <= nf <= 1.0, nf
+        assert bool(torch.isfinite(state.HI).all())
+        assert bool(torch.isfinite(diag.ndot_remaining).all())
+        assert sweep_cuda.LAUNCHES == before + 1, "the step did not launch"
+    launches = sweep_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the tracer apart, on the state of step 3, by CUDA events
+    s0 = state.zero_rates()
+    tracer_ms = time_ms(lambda: rays.trace_point_sources(
+        s0, model.geom, ctx.sources, ctx.tables,
+        max_pixel_level=ctx.max_pixel_level, dtype=torch.float32), reps=1)
+    print(f"[9 mode8] tracer alone (state after step 3): {tracer_ms:.3f} ms;"
+          f" peak device memory over the 3 steps {peak:.3f} GiB")
+
+    scan, _ = _mode8_model(n, level, box, MODE8_SOURCES, pos, pop, 6,
+                           use_pallas_sweep=False)
+    t0 = time.perf_counter()
+    out, _ = scan.make_step(ctx)(init_state)
+    nf_scan = scan.neutral_fraction(out)
+    dt = time.perf_counter() - t0
+    rel = abs(nfs[0] - nf_scan) / nf_scan
+    print(f"[9 mode8] step 1 with the plain slab scan (exact logmean): "
+          f"neutral fraction {nf_scan:.7f} wall {dt:.3f} s; kernel step "
+          f"rel {rel:.2e} (tol 1e-4)")
+    assert rel <= 1e-4, (nfs[0], nf_scan)
+    return launches
+
+
+def phase_bench() -> dict:
+    from radiativetransfer_tpu_torch import bench
+    from radiativetransfer_tpu_torch.core import probes_cuda, sweep_cuda
+    sweep_cuda.LAUNCHES = 0
+    probes_cuda.LAUNCHES.clear()
+    records = bench.main()
+    launches = {"sweep": sweep_cuda.LAUNCHES,
+                "probes": dict(probes_cuda.LAUNCHES)}
+    print(f"[10 bench] {len(records)} lines; launches {launches}")
+    assert [r["unit"] for r in records] == ["cells*angles/s", "rays/s",
+                                            "cells/s"]
+    assert all(np.isfinite(r["value"]) and r["value"] > 0 for r in records)
+    assert launches["sweep"] > 0
+    assert launches["probes"].get(probes_cuda.EXP8, 0) > 0
+    return {"records": records, "launches": launches}
+
+
 def main() -> None:
     smi = phase_probe()
     phase_build()
     errs = phase_kernel_vs_plain()
     phase_anchor()
-    launches = phase_main_path()
+    launches9 = phase_main_path()
     times = phase_timings(smi)
+    probes = phase_probes()
+    phase_anchor8()
+    launches8 = phase_mode8()
+    bench_out = phase_bench()
+    # the sweep kernel's launches on each path that runs it, each count
+    # set to 0 just before its path
+    sweep_paths = {"mode9": launches9, "mode8": launches8,
+                   "roofline": probes["sweep_launches"],
+                   "bench": bench_out["launches"]["sweep"]}
     print(smi)
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"kernels": _kernels_line(errs, times, probes,
+                                               sweep_paths, bench_out)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
+    from radiativetransfer_tpu_torch.core import probes_cuda, sweep, sweep_cuda
+    counts = sweep_cuda.work_counts(sweep.build_sweep_plan(MAIN_LEVEL,
+                                                           MAIN_N))
+    b = probes_cuda.sweep_bound(counts, probes["roof"]["exp"]["per_s"])
+    print(f"sweep_merged bound at {MAIN_N}^3: {b['bound_ms']:.4f} ms set by "
+          f"{b['binding']} (bytes {b['bytes_ms']:.4f}, exp "
+          f"{b['exp_ms']:.4f} at the MUFU rate, {b['exp_measured_ms']:.4f} "
+          f"at the measured expf rate, fp32 {b['fp32_ms']:.4f} ms); kernel "
+          f"{times[MAIN_N][0]:.3f} ms, "
+          f"{100 * b['bound_ms'] / times[MAIN_N][0]:.1f}% of the bound")
+    probe_src = "radiativetransfer_tpu_torch/csrc/probes.cu"
+    bench_probes = bench_out["launches"]["probes"]
+    line = [{
         "name": "sweep_merged",
         "route": "cuda",
         "source": "radiativetransfer_tpu_torch/csrc/sweep_merged.cu",
         "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:287",
-        "launches": launches,
+        "launches": sum(sweep_paths.values()),
+        "launches_by_path": sweep_paths,
         "max_abs_err": errs["clamped"],
         "ms": times[MAIN_N][0],
         "plain_ms": times[MAIN_N][1],
-    }]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,
+    }]
+    exp8 = probes["exp8"]
+    line.append({
+        "name": "chain_exp8", "route": "cuda", "source": probe_src,
+        "replaces": "bench.py:270",
+        "launches": bench_probes[probes_cuda.EXP8],
+        "launches_by_path": {"bench": bench_probes[probes_cuda.EXP8]},
+        "max_abs_err": probes["errs"][probes_cuda.EXP8],
+        "ms": exp8["ms"], "plain_ms": exp8["plain_ms"],
+        "bound_ms": exp8["bound_ms"], "bound_by": exp8["bound_by"],
+        "library_ms": None})
+    roof = probes["roof"]
+    for key in probes_cuda.PLANE_PROBES:
+        body, depth = key
+        r = roof[body]
+        paths = {"roofline": probes["launches"][key]}
+        if key in bench_probes:
+            paths["bench"] = bench_probes[key]
+        line.append({
+            "name": f"plane_{body}{depth if depth > 1 else ''}",
+            "route": "cuda", "source": probe_src,
+            "replaces": "scripts/roofline_sweep.py:65",
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": probes["errs"][key],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms")})
+    return line
 
 
 if __name__ == "__main__":

@@ -1,15 +1,15 @@
 """The main iteration: transport + chemistry cycle, and the model setup.
 
 Mirrors the reference's driver flow (equiSources.f90:1230-1843):
-  zero rates -> [opacities + diffuse sweep] -> equilibrium chemistry ->
-  neutral-fraction log.
+  zero rates -> [point-source ray trace] -> [opacities + diffuse sweep] ->
+  equilibrium chemistry -> neutral-fraction log.
 
 `RTModel.setup()` performs the table initialization the reference does before
 the loop (calc_rates, uniformTable, UVB amplitudes, powerSpectrumIndex,
 uvbBetaTable; equiSources.f90:172-289) on the host and keeps the device
-tables as buffers of the module.  This slice of the port covers the uniform
-grid in modes 6 and 9 on one device; the point-source tracer (ROADMAP item
-7) and the distributed sweep strategies (item 15) raise
+tables as buffers of the module.  The port covers the uniform grid in
+modes 1, 6, 8 and 9 on one device; the compacting tracer (ROADMAP item 7)
+and the distributed sweep and tracer strategies (item 15) raise
 NotImplementedError.
 """
 
@@ -35,8 +35,84 @@ from ..constants import (
     NU3,
 )
 from ..tables import chemistry_rates, spectral, uvb_models
-from . import chemistry, opacity, sweep, sweep_cuda
+from ..tables import stellar as stellar_tables
+from . import chemistry, opacity, rays, sweep, sweep_cuda
 from .state import FieldState, GridGeometry
+
+# the six point-source deposit fields, in RateFields order
+_RATE_FIELDS = ("krate24", "krate25", "krate26", "crate24", "crate25",
+                "crate26")
+
+
+@dataclasses.dataclass
+class StellarContext:
+    """Point-source transfer inputs for one iteration.
+
+    The reference rebuilds the 11^4 attenuation tables per source
+    (equiSources.f90:1298); here sources sharing an (age, metallicity)
+    bucket share a table and the tables are stacked on a leading bucket
+    axis for per-ray gathering.  The tables are tensors on the run's device.
+    """
+    population: "stellar_tables.StellarPopulation"
+    sources: rays.SourceBatch
+    tables: dict         # reaction_log/energy_log (B,3,11^4), quad_*, output_*
+    n_stars_specific_age: int
+    dust_approximation: int = 0
+    max_pixel_level: int = 6
+
+    @classmethod
+    def build(cls, population, sources: rays.SourceBatch, geom: GridGeometry,
+              age_s: float, metal_coefs: list[tuple[int, float]],
+              n_stars_specific_age: int | None = None,
+              dust_approximation: int = 0, max_pixel_level: int = 6,
+              dust=None, noneq: bool = False, *,
+              dtype: torch.dtype = torch.float32,
+              device: torch.device | str = "cuda") -> "StellarContext":
+        """Build stacked tables for the metallicity buckets at a fixed age
+        slice (the reference uses timeReadTable = 10 Myr,
+        equiSources.f90:1236), as `dtype` tensors on `device`.
+
+        The tables are divided by the cell volume (in float64, on the host)
+        so the ray deposits are volumetric rates [1/s/cm^3]: CGS cell
+        volumes overflow float32 on the device.
+        """
+        if noneq:
+            raise NotImplementedError(
+                "the non-equilibrium deposit weights (noneq=True) are not "
+                "ported yet: ROADMAP item 9")
+        i_spec, coef_spec = population.age_bracket(age_s)
+        log_vol = float(np.log(geom.cell_volume))
+        reaction, energy, quad_w = [], [], []
+        out = quad_a = None
+        for i_metal, coef_metal in metal_coefs:
+            t = stellar_tables.build_source_tables(
+                population, i_spec, coef_spec, i_metal, coef_metal, dust=dust)
+            reaction.append(t.reaction_log - log_vol)
+            energy.append(t.energy_log - log_vol)
+            out = t
+            quad_a, w = stellar_tables.quadrature_arrays(
+                population, i_spec, coef_spec, i_metal, coef_metal, dust=dust)
+            quad_w.append(w / geom.cell_volume)
+        host = {
+            "reaction_log": np.stack(reaction),
+            "energy_log": np.stack(energy),
+            # direct-quadrature factors: the tracer's default path
+            # (core.rays._deposit_quadrature)
+            "quad_A": quad_a,
+            "quad_W": np.stack(quad_w),
+            "output_freq": out.output_freq,
+            "output_sigma24": out.output_sigma24,
+            "output_sigma25": out.output_sigma25,
+            "output_sigma26": out.output_sigma26,
+            "output_sigma_dust": out.output_sigma_dust,
+        }
+        tables = {k: torch.as_tensor(v, dtype=dtype, device=device)
+                  for k, v in host.items()}
+        return cls(population=population, sources=sources, tables=tables,
+                   n_stars_specific_age=(n_stars_specific_age
+                                         or int(sources.weight.sum())),
+                   dust_approximation=dust_approximation,
+                   max_pixel_level=max_pixel_level)
 
 
 class RTModel(nn.Module):
@@ -193,22 +269,50 @@ class RTModel(nn.Module):
 
     # ----- the iteration -------------------------------------------------
 
-    @staticmethod
-    def _check_supported(stellar, mesh) -> None:
-        if stellar is not None:
-            raise NotImplementedError(
-                "point-source transfer (StellarContext) is not ported yet: "
-                "ROADMAP item 7")
+    def _check_supported(self, stellar, mesh) -> None:
+        cfg = self.config
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet: ROADMAP item 15")
+        if stellar is None:
+            return
+        if cfg.tracer_compact:
+            raise NotImplementedError(
+                "tracer_compact=True (the compacting tracer) is not ported "
+                "yet: ROADMAP item 7")
+        if cfg.tracer_strategy == "domain":
+            raise NotImplementedError(
+                "tracer_strategy='domain' (the domain-decomposed tracer) is "
+                "not ported yet: ROADMAP item 15")
 
-    def transport_chemistry_step(self, state: FieldState, stellar=None,
-                                 mesh=None) -> FieldState:
+    def trace(self, state: FieldState, stellar: StellarContext
+              ) -> tuple[FieldState, rays.RayDiagnostics]:
+        """The point-source phase: trace every source and put the six
+        deposit fields into the (zero-rate) state."""
+        rf, diag = rays.trace_point_sources(
+            state, self.geom, stellar.sources, stellar.tables,
+            dust_approximation=stellar.dust_approximation,
+            max_pixel_level=stellar.max_pixel_level,
+            dtype=state.rho.dtype)
+        shape = state.shape
+        state = dataclasses.replace(
+            state, **{name: getattr(rf, name).reshape(shape)
+                      for name in _RATE_FIELDS})
+        return state, diag
+
+    def transport_chemistry_step(self, state: FieldState,
+                                 stellar: StellarContext | None = None,
+                                 mesh=None):
         """One full transport + chemistry iteration (a function of state;
-        the input state is not modified)."""
+        the input state is not modified).  With a StellarContext in a
+        point-source mode the tracer runs first and (state, RayDiagnostics)
+        is returned; else the state alone."""
         self._check_supported(stellar, mesh)
-        return self._sweep_and_chemistry(state.zero_rates())
+        state = state.zero_rates()
+        if not (self.config.run_stellar_transfer and stellar is not None):
+            return self._sweep_and_chemistry(state)
+        state, diag = self.trace(state, stellar)
+        return self._sweep_and_chemistry(state), diag
 
     def _run_sweep(self, kappa: torch.Tensor) -> torch.Tensor:
         """The "auto" sweep on one device: the hand-written CUDA kernel for
@@ -244,11 +348,19 @@ class RTModel(nn.Module):
             run_uvb_transfer=cfg.run_uvb_transfer,
             n_iter=110 if state.rho.dtype == torch.float64 else 60)
 
-    def make_step(self, stellar=None, mesh=None):
-        """The iteration step: the plain eager function (PyTorch has no
-        jit to apply here)."""
+    def make_step(self, stellar: StellarContext | None = None, mesh=None):
+        """The iteration step, a plain eager function (PyTorch has no jit
+        to apply here): state -> state, or with a StellarContext
+        state -> (state, RayDiagnostics), tracing whatever the mode."""
         self._check_supported(stellar, mesh)
-        return self.transport_chemistry_step
+        if stellar is None:
+            return self.transport_chemistry_step
+
+        def step(state: FieldState):
+            state, diag = self.trace(state.zero_rates(), stellar)
+            return self._sweep_and_chemistry(state), diag
+
+        return step
 
     def neutral_fraction(self, state: FieldState) -> float:
         """Global neutral-hydrogen mass fraction (computeMass,

@@ -1,19 +1,22 @@
-"""Profile mode-9 steps of the port on one CUDA device.
+"""Profile steps of the port on one CUDA device, layer by layer.
 
-    python3 -m radiativetransfer_tpu_torch.profile_step [n] [level]
+    python3 -m radiativetransfer_tpu_torch.profile_step [n] [level] [mode]
 
-Builds the synthetic galaxy of chip_smoke.py (n^3, default 128, angular
-level default 3), runs initialize_equilibrium and one warm-up step, then
-times each layer of a step with CUDA events (opacity, sweep, chemistry)
-and traces two steps with torch.profiler: the device kernels by total
-time, the device-busy share of the traced wall time, and the peak device
-memory.  Needs a CUDA device; prints the card's name and power limit.
+Mode 9 (the default) builds the synthetic galaxy of chip_smoke.py (n^3,
+default 128, angular level default 3) and runs initialize_equilibrium.
+Mode 8 runs bench.py's step configuration: a uniform box (nH = 2e-4,
+T = 1.5e4, 2000 kpc) with 8 sources from seed 0 at maxPixelLevel 6.
+Either then runs one warm-up step, times each layer of a step with CUDA
+events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
+per march step), and traces two steps with torch.profiler: the device
+kernels by total time, the device-busy share of the traced wall time, the
+kernel launches per step and the peak device memory.  Needs a CUDA
+device; prints the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import subprocess
 import sys
 import time
 
@@ -22,10 +25,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from . import GridGeometry, RTModel, RunConfig, make_state
-from .config import MODE_UVB_TRANSFER_ONLY
-from .constants import KPC, MH, PSI
-from .core import chemistry, opacity
+from . import GridGeometry, RTModel, RunConfig, make_state, uniform_state
+from .config import MODE_BOTH_STELLAR_UVB_TRANSFER, MODE_UVB_TRANSFER_ONLY
+from .constants import KPC, MH, MYR, PSI
+from .core import chemistry, opacity, rays
+from .roofline_sweep import nvidia_smi
 
 
 def galaxy_state(n: int, box_kpc: float, device):
@@ -52,25 +56,58 @@ def _event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def main(n: int = 128, level: int = 3) -> None:
+def _setup(n: int, level: int, mode: int):
+    """(model, first state, StellarContext or None) of the profiled run."""
+    if mode == MODE_UVB_TRANSFER_ONLY:
+        box = 300.0
+        cfg = RunConfig(mode=mode, current_redshift=6.55,
+                        n_angular_level=level, reionization_model=10,
+                        self_shielding_threshold_kpc=0.1)
+        model = RTModel.setup(cfg, GridGeometry(n, n, n, box * KPC),
+                              torch.float32, "cuda")
+        return (model, model.initialize_equilibrium(
+            galaxy_state(n, box, "cuda")), None)
+    if mode != MODE_BOTH_STELLAR_UVB_TRANSFER:
+        raise SystemExit(f"profile_step profiles modes 8 and 9, not {mode}")
+    from .bench import bench_sources
+    from .core.step import StellarContext
+    from .tables import stellar
+    cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
+                    reionization_model=10)
+    geom = GridGeometry(n, n, n, 2000.0 * KPC)
+    model = RTModel.setup(cfg, geom, torch.float32, "cuda")
+    ctx = StellarContext.build(
+        stellar.blackbody_population(q_ionizing=1.0e51),
+        bench_sources(n, 8), geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
+        dtype=torch.float32, device="cuda")
+    state = uniform_state(n, nh=2e-4, tgas=1.5e4, dtype=torch.float32,
+                          device="cuda")
+    return model, state, ctx
+
+
+def main(n: int = 128, level: int = 3, mode: int = 9) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    box = 300.0
-    cfg = RunConfig(mode=MODE_UVB_TRANSFER_ONLY, current_redshift=6.55,
-                    n_angular_level=level, reionization_model=10,
-                    self_shielding_threshold_kpc=0.1)
-    model = RTModel.setup(cfg, GridGeometry(n, n, n, box * KPC),
-                          torch.float32, "cuda")
-    state = model.initialize_equilibrium(galaxy_state(n, box, "cuda"))
-    step = model.make_step()
-    state = step(state)
+    smi = nvidia_smi()
+    model, state, ctx = _setup(n, level, mode)
+    cfg = model.config
+    step = model.make_step(ctx)
+
+    def run(s):
+        return step(s)[0] if ctx is not None else step(s)
+
+    state = run(state)
     torch.cuda.synchronize()
 
     # per layer, CUDA events around each phase of one step
     s0 = state.zero_rates()
+    layers = []
+    if ctx is not None:
+        steps0 = rays.MARCH_STEPS
+        (s0, _), t_tr = _event_ms(lambda: model.trace(s0, ctx))
+        march = rays.MARCH_STEPS - steps0
+        layers.append(f"tracer {t_tr:.3f} ms ({march} march steps, "
+                      f"{t_tr / max(march, 1):.4f} ms per step)")
     kappa, t_op = _event_ms(lambda: opacity.compute_opacities(
         s0.HI, s0.HeI, s0.HeII, model.opacity_coef))
     jmean, t_sw = _event_ms(lambda: model._run_sweep(kappa))
@@ -80,16 +117,17 @@ def main(n: int = 128, level: int = 3) -> None:
         gamma_thin=model.gamma_thin,
         self_shielding_threshold=cfg.self_shielding_threshold,
         run_uvb_transfer=True, n_iter=60))
-    print(f"layers at {n}^3 x {model.sweep_plan.n_directions} dirs f32: "
-          f"opacity {t_op:.3f} ms, sweep {t_sw:.3f} ms, chemistry "
-          f"{t_ch:.3f} ms; card {smi}")
+    layers += [f"opacity {t_op:.3f} ms", f"sweep {t_sw:.3f} ms",
+               f"chemistry {t_ch:.3f} ms"]
+    print(f"mode {mode} layers at {n}^3 x {model.sweep_plan.n_directions} "
+          f"dirs f32: {', '.join(layers)}; card {smi}")
 
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            state = step(state)
+            state = run(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device busy: the union of the kernels' intervals on the device
@@ -100,11 +138,12 @@ def main(n: int = 128, level: int = 3) -> None:
         device_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=12))
-    print(f"2 steps: wall {wall * 1e3:.3f} ms, device busy "
+                                    row_limit=15))
+    print(f"mode {mode}, 2 steps: wall {wall * 1e3:.3f} ms, device busy "
           f"{device_us / 1e3:.3f} ms ({100 * device_us / 1e6 / wall:.1f}% "
-          f"of wall), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; card {smi}")
+          f"of wall), {len(spans) / 2:.0f} device kernels per step, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB; card {smi}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""PyTorch port on a CUDA device: the hand-written sweep kernel against its
-plain PyTorch version, and the mode-9 step through it.  Every test needs a
+"""PyTorch port on a CUDA device: the hand-written sweep and probe kernels
+against their plain PyTorch versions, the tracer against its CPU run, and
+the mode-9 and mode-8 steps through the sweep kernel.  Every test needs a
 card and skips without one.  This file imports no JAX, so on a machine
 without it run it past tests/conftest.py:
 
@@ -11,9 +12,18 @@ import pytest
 import torch
 
 import radiativetransfer_tpu_torch as rt
-from radiativetransfer_tpu_torch.config import MODE_UVB_TRANSFER_ONLY
-from radiativetransfer_tpu_torch.constants import KPC
-from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
+from radiativetransfer_tpu_torch.config import (
+    MODE_BOTH_STELLAR_UVB_TRANSFER,
+    MODE_UVB_TRANSFER_ONLY,
+)
+from radiativetransfer_tpu_torch.constants import KPC, MYR
+from radiativetransfer_tpu_torch.core import (
+    probes_cuda,
+    rays,
+    sweep,
+    sweep_cuda,
+)
+from radiativetransfer_tpu_torch.tables import stellar
 
 pytestmark = pytest.mark.cuda
 
@@ -23,7 +33,7 @@ UVB = np.array([1.0, 0.5, 0.25])
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -77,3 +87,76 @@ def test_mode9_step_launches_kernel(card):
     nf = model.neutral_fraction(model.make_step()(state))
     assert sweep_cuda.LAUNCHES == before + 1
     assert nf == pytest.approx(0.044220, rel=1e-4)
+
+
+@pytest.mark.parametrize("numel", [3 * 16 ** 3, 1001, 3 * 256 ** 3 + 3])
+@pytest.mark.parametrize("body,depth", [probes_cuda.EXP8,
+                                        *probes_cuda.PLANE_PROBES])
+def test_probe_matches_plain_version(card, body, depth, numel):
+    # 1001 values: a ragged float4 tail; 3 * 256^3 + 3: the roofline's
+    # shape, where the grid is capped and each thread walks the grid-stride
+    # loop ~3 times, plus a ragged tail.  4e-6: the kernel's IEEE expf and
+    # division against PyTorch's own on the card; the chains contract
+    # (exp, div) or stay affine (fma), so rounding does not grow
+    gen = torch.Generator(device=card).manual_seed(1)
+    x = torch.empty(numel, device=card).log_normal_(0.0, 1.0, generator=gen)
+    before = probes_cuda.LAUNCHES[(body, depth)]
+    out = probes_cuda.chain(x, body, depth)
+    torch.cuda.synchronize()
+    assert probes_cuda.LAUNCHES[(body, depth)] == before + 1
+    ref = probes_cuda.chain_reference(x, body, depth)
+    torch.testing.assert_close(out, ref, rtol=4e-6, atol=0.0)
+
+
+def test_probe_rejects_what_it_does_not_take(card):
+    x = torch.ones(64, device=card)
+    with pytest.raises(TypeError):
+        probes_cuda.chain(x.double(), "exp", 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        probes_cuda.chain(torch.ones(8, 8, device=card).t(), "exp", 8)
+    with pytest.raises(ValueError, match="aligned"):
+        probes_cuda.chain(x[1:], "exp", 8)
+
+
+def _mode8(card, n=24):
+    cfg = rt.RunConfig(mode=MODE_BOTH_STELLAR_UVB_TRANSFER,
+                       current_redshift=6.55, n_angular_level=1,
+                       reionization_model=10)
+    geom = rt.GridGeometry(n, n, n, 200.0 * KPC)
+    pos = np.random.default_rng(0).uniform(0.2, 0.8, (11, 3))
+    batch = rays.SourceBatch(position=pos, weight=np.ones(11),
+                             table_idx=np.zeros(11, np.int32))
+    ctx = rt.StellarContext.build(stellar.blackbody_population(), batch,
+                                  geom, 10.0 * MYR, [(0, 0.0)],
+                                  max_pixel_level=2, device=card)
+    return rt.RTModel.setup(cfg, geom, torch.float32, card), ctx
+
+
+def test_mode8_step_launches_kernel(card):
+    model, ctx = _mode8(card)
+    state = rt.uniform_state(24, nh=1e-4, tgas=2e4, device=card)
+    before = sweep_cuda.LAUNCHES
+    out, diag = model.make_step(ctx)(state)
+    assert sweep_cuda.LAUNCHES == before + 1
+    assert out.HI.is_cuda and diag.ndot_remaining.is_cuda
+    assert model.neutral_fraction(out) == pytest.approx(0.033307, rel=1e-4)
+
+
+def test_tracer_on_card_matches_cpu(card):
+    # float64 on both devices: the same operations, the deposits summed by
+    # atomics in another order on the card
+    model, ctx = _mode8(card)
+    state = rt.uniform_state(24, nh=1e-4, tgas=2e4, dtype=torch.float64,
+                             device=card)
+    tables = {k: v.double() for k, v in ctx.tables.items()}
+    out = [rays.trace_point_sources(s, model.geom, ctx.sources, t,
+                                    max_pixel_level=2)
+           for s, t in ((state, tables),
+                        (rt.uniform_state(24, nh=1e-4, tgas=2e4,
+                                          dtype=torch.float64, device="cpu"),
+                         {k: v.cpu() for k, v in tables.items()}))]
+    (g_rf, g_diag), (c_rf, c_diag) = out
+    for a, b in ((g_rf, c_rf), (g_diag, c_diag)):
+        for name in vars(a):
+            x, y = getattr(a, name).cpu().numpy(), getattr(b, name).numpy()
+            assert np.abs(x - y).max() <= 1e-9 * np.abs(y).max(), name

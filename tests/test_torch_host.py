@@ -120,11 +120,27 @@ def test_octant_rotations_torch(izone):
         toctants.rotate_blocks_from_sweep(rb, izone).numpy(), blocks)
 
 
+_PORT_MODULES = (
+    "radiativetransfer_tpu_torch",
+    "radiativetransfer_tpu_torch.bench",
+    "radiativetransfer_tpu_torch.roofline_sweep",
+    "radiativetransfer_tpu_torch.profile_step",
+    "radiativetransfer_tpu_torch.core.cuda_build",
+    "radiativetransfer_tpu_torch.core.probes_cuda",
+    "radiativetransfer_tpu_torch.core.rays",
+    "radiativetransfer_tpu_torch.core.step",
+    "radiativetransfer_tpu_torch.core.sweep_cuda",
+    "radiativetransfer_tpu_torch.tables.dust",
+    "radiativetransfer_tpu_torch.tables.stellar",
+)
+
+
 def test_package_imports_no_jax():
-    code = ("import sys, radiativetransfer_tpu_torch; "
-            "import radiativetransfer_tpu_torch.core.sweep_cuda; "
-            "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'radiativetransfer_tpu' not in sys.modules")
+    code = ("import importlib, sys\n"
+            f"for m in {_PORT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'radiativetransfer_tpu' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], check=True)
 
 

@@ -1,6 +1,7 @@
-"""PyTorch port, the mode-9 slice through the public API: RTModel.setup ->
+"""PyTorch port through the public API: RTModel.setup ->
 initialize_equilibrium -> make_step() -> step -> neutral_fraction, against
-the JAX package's RTModel on the same NumPy state."""
+the JAX package's RTModel on the same NumPy state; mode 9, and modes 8 and
+1 with a StellarContext (make_step(stellar))."""
 
 import dataclasses
 
@@ -10,18 +11,26 @@ import pytest
 import torch
 
 import radiativetransfer_tpu_torch as rt
+from radiativetransfer_tpu.core import rays as jrays
 from radiativetransfer_tpu.core import state as jstate
 from radiativetransfer_tpu.core import step as jstep
+from radiativetransfer_tpu.tables import stellar as jstellar
 from radiativetransfer_tpu_torch.config import (
+    MODE_BOTH_STELLAR_UVB_TRANSFER,
     MODE_NO_STARS_THIN_UVB,
+    MODE_STELLAR_TRANSFER_THIN_UVB,
     MODE_UVB_TRANSFER_ONLY,
     RunConfig,
 )
-from radiativetransfer_tpu_torch.constants import KPC, MH, PSI
+from radiativetransfer_tpu_torch.constants import KPC, MH, MYR, PSI
+from radiativetransfer_tpu_torch.core import rays as trays
+from radiativetransfer_tpu_torch.tables import stellar as tstellar
 
-# neutral fraction of one f32 mode-9 step on the 24^3 anchor setup, as the
-# JAX package's 8-device dry run records it (MULTICHIP_r05.json)
+# neutral fractions of one f32 step on the 24^3 anchor setup, as the JAX
+# package's 8-device dry run records them (MULTICHIP_r05.json): mode 9, and
+# mode 8 with 11 sources
 ANCHOR_NF = 0.044220
+ANCHOR8_NF = 0.033307
 
 
 def _cfg(mode=MODE_UVB_TRANSFER_ONLY, level=1, **kw):
@@ -122,13 +131,25 @@ def test_unported_paths_raise():
     geom = rt.GridGeometry(4, 4, 4, 50.0 * KPC)
     tm = rt.RTModel.setup(_cfg(), geom, torch.float64, "cpu")
     state = rt.uniform_state(4, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tm.make_step(stellar=object())
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tm.transport_chemistry_step(state, mesh=object())
-    tm.config = dataclasses.replace(tm.config, sweep_strategy="zones")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        tm.make_step(stellar=object(), mesh=object())
+    base = tm.config
+    tm.config = dataclasses.replace(base, tracer_compact=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        tm.make_step(stellar=object())
+    tm.config = dataclasses.replace(base, tracer_strategy="domain")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        tm.make_step(stellar=object())
+    tm.config = dataclasses.replace(base, sweep_strategy="zones")
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tm.make_step()(state)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        rt.StellarContext.build(tstellar.blackbody_population(),
+                                _batch(trays, np.full((1, 3), 0.5)), geom,
+                                10.0 * MYR, [(0, 0.0)], noneq=True,
+                                device="cpu")
 
 
 def test_state_numpy_round_trip():
@@ -141,3 +162,136 @@ def test_state_numpy_round_trip():
     for f in dataclasses.fields(s):
         a, b = getattr(s, f.name), getattr(back, f.name)
         assert (a is None and b is None) or torch.equal(a, b), f.name
+
+
+# ---------------------------------------------------------------------------
+# Point sources: StellarContext and the mode-8 (and mode-1) step
+# ---------------------------------------------------------------------------
+
+
+def _batch(mod, pos):
+    n_src = len(pos)
+    return mod.SourceBatch(position=pos, weight=np.ones(n_src),
+                           table_idx=np.zeros(n_src, np.int32))
+
+
+def _anchor8_inputs(n=24, mode=MODE_BOTH_STELLAR_UVB_TRANSFER):
+    """The JAX package's dry-run mode-8 setup (__graft_entry__.py:96-113)
+    on one device: 11 sources from seed 0, not snapped, maxPixelLevel 2."""
+    pos = np.random.default_rng(0).uniform(0.2, 0.8, (11, 3))
+    return _cfg(mode), rt.GridGeometry(n, n, n, 200.0 * KPC), pos
+
+
+def _contexts(geom, pos, dtype, **kw):
+    jctx = jstep.StellarContext.build(
+        jstellar.blackbody_population(), _batch(jrays, pos), geom,
+        10.0 * MYR, metal_coefs=[(0, 0.0)], max_pixel_level=2, **kw)
+    tctx = rt.StellarContext.build(
+        tstellar.blackbody_population(), _batch(trays, pos), geom,
+        10.0 * MYR, metal_coefs=[(0, 0.0)], max_pixel_level=2, dtype=dtype,
+        device="cpu", **kw)
+    return jctx, tctx
+
+
+def test_stellar_context_tables_identical():
+    _, geom, pos = _anchor8_inputs()
+    jctx, tctx = _contexts(geom, pos, torch.float64, dust_approximation=1)
+    assert tctx.tables.keys() == jctx.tables.keys()
+    for k, v in jctx.tables.items():
+        assert tctx.tables[k].dtype == torch.float64
+        np.testing.assert_array_equal(tctx.tables[k].numpy(), np.asarray(v),
+                                      err_msg=k)
+    assert (tctx.n_stars_specific_age, tctx.dust_approximation,
+            tctx.max_pixel_level) == (jctx.n_stars_specific_age,
+                                      jctx.dust_approximation,
+                                      jctx.max_pixel_level)
+    # the device defaults to the card: no silent CPU fallback
+    assert "device" in rt.StellarContext.build.__kwdefaults__
+    assert rt.StellarContext.build.__kwdefaults__["device"] == "cuda"
+
+
+@pytest.fixture(scope="module")
+def mode8_runs():
+    """One mode-8 step of each package on the 24^3 anchor setup, float32
+    and float64, each neutral fraction summed in float64."""
+    cfg, geom, pos = _anchor8_inputs()
+    out = {}
+    for jd, td in ((jnp.float32, torch.float32), (jnp.float64, torch.float64)):
+        jctx, tctx = _contexts(geom, pos, td)
+        jm = jstep.RTModel.setup(cfg, geom, dtype=jd)
+        js, jdiag = jm.make_step(jctx)(jstate.uniform_state(
+            24, nh=1e-4, tgas=2e4, dtype=jd))
+        tm = rt.RTModel.setup(cfg, geom, td, "cpu")
+        ts, tdiag = tm.make_step(tctx)(rt.uniform_state(
+            24, nh=1e-4, tgas=2e4, dtype=td, device="cpu"))
+        out[td] = dict(nf_jax=_nf64(js.HI, js.nh),
+                       nf=_nf64(ts.HI.numpy(), ts.nh.numpy()),
+                       nf_model=tm.neutral_fraction(ts), ts=ts,
+                       jdiag=jdiag, tdiag=tdiag)
+    return out
+
+
+def test_mode8_step_matches_jax_f64(mode8_runs):
+    r = mode8_runs[torch.float64]
+    # 1e-7: the JAX tracer computes the cell faces in float32 even in a
+    # float64 run (ROADMAP section 4), the port in float64; at n = 24 that
+    # moves the faces by ~6e-8 and the deposits by ~5e-6 of their largest
+    # value (with the float32 faces emulated the two agree to ~2e-16)
+    assert r["nf"] == pytest.approx(r["nf_jax"], rel=1e-7)
+    assert r["ts"].HI.dtype == torch.float64
+    for f in dataclasses.fields(r["jdiag"]):
+        np.testing.assert_allclose(getattr(r["tdiag"], f.name).numpy(),
+                                   np.asarray(getattr(r["jdiag"], f.name)),
+                                   rtol=1e-9, atol=1e-300, err_msg=f.name)
+
+
+def test_mode8_step_fields_match_jax_f64():
+    # the fields themselves, cell by cell: n = 16 keeps the cell faces
+    # exact in float32, so the two steps agree to rounding (~6e-13 of a
+    # field's largest value) and an error that cancels in the neutral
+    # fraction's sum still shows
+    cfg, geom, pos = _anchor8_inputs(16)
+    jctx, tctx = _contexts(geom, pos, torch.float64)
+    jm = jstep.RTModel.setup(cfg, geom, dtype=jnp.float64)
+    tm = rt.RTModel.setup(cfg, geom, torch.float64, "cpu")
+    js, _ = jm.make_step(jctx)(jstate.uniform_state(
+        16, nh=1e-4, tgas=2e4, dtype=jnp.float64))
+    ts, _ = tm.make_step(tctx)(rt.uniform_state(
+        16, nh=1e-4, tgas=2e4, dtype=torch.float64, device="cpu"))
+    j_np, t_np = _to_numpy(js), ts.to_numpy()
+    for name in ("HI", "HeI", "HeII", "krate24", "krate25", "krate26",
+                 "crate24", "crate25", "crate26"):
+        np.testing.assert_allclose(t_np[name], j_np[name], rtol=1e-9,
+                                   atol=1e-9 * np.abs(j_np[name]).max(),
+                                   err_msg=name)
+    assert float(ts.krate24.sum()) > 0.0 and float(ts.crate24.sum()) > 0.0
+
+
+def test_mode8_anchor_f32(mode8_runs):
+    r = mode8_runs[torch.float32]
+    assert r["ts"].HI.dtype == torch.float32
+    # summed in float64 as the mode-9 anchor test does
+    assert r["nf"] == pytest.approx(r["nf_jax"], rel=1e-5)
+    assert r["nf_model"] == pytest.approx(ANCHOR8_NF, rel=1e-4)
+
+
+def test_mode1_step_matches_jax_f64():
+    # mode 1: point sources under the optically thin uniform UVB with the
+    # self-shielding switch; no sweep.  n = 16 keeps the cell faces exact in
+    # float32, so the two tracers agree to rounding
+    cfg, geom, pos = _anchor8_inputs(16, MODE_STELLAR_TRANSFER_THIN_UVB)
+    assert cfg.run_stellar_transfer and not cfg.run_uvb_transfer
+    jctx, tctx = _contexts(geom, pos, torch.float64)
+    jm = jstep.RTModel.setup(cfg, geom, dtype=jnp.float64)
+    tm = rt.RTModel.setup(cfg, geom, torch.float64, "cpu")
+    js, _ = jm.transport_chemistry_step(
+        jstate.uniform_state(16, nh=1e-3, tgas=2e4, dtype=jnp.float64), jctx)
+    ts, _ = tm.transport_chemistry_step(
+        rt.uniform_state(16, nh=1e-3, tgas=2e4, dtype=torch.float64,
+                         device="cpu"), tctx)
+    j_np, t_np = _to_numpy(js), ts.to_numpy()
+    for name in ("HI", "HeI", "HeII", "krate24", "crate24", "krate26"):
+        np.testing.assert_allclose(t_np[name], j_np[name], rtol=1e-9,
+                                   atol=1e-9 * np.abs(j_np[name]).max(),
+                                   err_msg=name)
+    assert float(ts.krate24.sum()) > 0.0
