@@ -31,7 +31,24 @@ line or more each; any failure raises and the script exits non-zero:
    timed, the tracer timed apart, peak device memory, the sweep's launch
    count; step 1 against the plain slab scan;
 10. the port's bench (python -m radiativetransfer_tpu_torch.bench): its
-    three JSON lines, sweep, rays and step.
+    three JSON lines, sweep, rays and step;
+11. the per-zone sweep (diffuse_sweep_zones_kernel, kernel #2) against the
+    plain slab scan at level 1 n 8 and level 2 n 6 (f32, f64), and at 128^3
+    x 192 against its plain version and the slab scan, one launch per zone;
+    the 24 zone kernels timed alone on fields rotated beforehand, beside
+    the wrapper with its rotations and the merged kernel;
+12. the two-slab sweep (kernel #6) against its plain version at 64^3 and
+    128^3 x 192, then python -m radiativetransfer_tpu_torch.exp_sweep_pair
+    at 256^3, where the kernel's global-scratch planes are held to its
+    plain version too;
+13. every lean variant (kernel #7) against its plain version at 64^3 and
+    128^3 x 192, then python -m radiativetransfer_tpu_torch.
+    exp_sweep_variants at 256^3, every variant held to its plain version
+    there too, with the FP32 instructions per MUFU of expf and exp2f in
+    the SASS checked against the bounds' counts;
+14. the row scatter (kernel #8) through python -m
+    radiativetransfer_tpu_torch.exp_row_scatter: against a float64
+    np.add.at and index_add_ at every M, beside index_add_'s times.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -66,14 +83,11 @@ MODE8_SOURCES = 8
 
 
 def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
-    """(max abs error, max elementwise relative error).  Elements below
-    1e-30 of the largest are held to absolute error at that floor: float32
-    keeps fewer digits toward its subnormal range (from 1.2e-38), where
-    the attenuation through ~100 optically thick cells lands at 256^3."""
-    diff = (out - ref).abs()
-    floor = float(ref.abs().max()) * 1e-30
-    rel = diff / ref.abs().clamp(min=max(floor, torch.finfo(ref.dtype).tiny))
-    return float(diff.max()), float(rel.max())
+    """(max abs error, max elementwise relative error, below 1e-30 of the
+    largest element, and in float32 below 1e-30, held to absolute error at
+    that floor)."""
+    from radiativetransfer_tpu_torch.core.probes_cuda import rel_err
+    return rel_err(out, ref)
 
 
 def _kappa(n: int, dtype=torch.float32, seed: int = 42) -> torch.Tensor:
@@ -460,6 +474,172 @@ def phase_bench() -> dict:
     return {"records": records, "launches": launches}
 
 
+def phase_zones() -> dict:
+    """11: the per-zone sweep (kernel #2) against the plain slab scan."""
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
+    uvb = np.array([1.0, 0.5, 0.25])
+    # the same function as the slab scan, the lengths times the cell size
+    # rounded once (f32 1e-5: phase 3's tolerance for atomic sums)
+    for level, n in [(1, 8), (2, 6)]:
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            kappa = _kappa(n, dtype)
+            plan = sweep.build_sweep_plan(level, n)
+            out = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, uvb, KPC)
+            torch.cuda.synchronize()
+            ref = sweep.diffuse_sweep(kappa, plan, uvb, KPC)
+            err_abs, err_rel = _rel_err(out, ref)
+            print(f"[11 zones] level {level} n {n} {dtype}: max abs "
+                  f"{err_abs:.3e} max rel {err_rel:.3e} (rtol {rtol:g})")
+            assert err_rel <= rtol, (level, n, dtype, err_rel)
+
+    n, level = MAIN_N, MAIN_LEVEL
+    plan = sweep.build_sweep_plan(level, n)
+    kappa = _kappa(n)
+    sweep_cuda.ZONE_LAUNCHES = 0
+    out = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, uvb, KPC)
+    torch.cuda.synchronize()
+    launches = sweep_cuda.ZONE_LAUNCHES
+    assert launches == len(plan.zones), (launches, len(plan.zones))
+    # against the plain version (1e-5: phase 3's tolerance for atomic
+    # sums), and against the slab scan, whose float32 lengths times the
+    # cell size round once more (1e-4, the steps' tolerance: 1.1e-5 at 64^3
+    # on the card)
+    ref = sweep_cuda.diffuse_sweep_zones_reference(kappa, plan, uvb, KPC)
+    err_abs, err_rel = _rel_err(out, ref)
+    assert torch.isfinite(out).all() and err_rel <= 1e-5, err_rel
+    scan_abs, scan_rel = _rel_err(out, sweep.diffuse_sweep(kappa, plan, uvb,
+                                                           KPC))
+    assert scan_rel <= 1e-4, scan_rel
+    # the 24 zone kernels alone (sweep_zone_kernel on fields rotated
+    # beforehand) and their plain versions on the same fields; the
+    # wrapper's time adds its 48 rotations, copies and Jmean sums
+    krots = [sweep_cuda.rotate_to_zone(kappa, zone) for zone in plan.zones]
+
+    def every_zone(zone_fn):
+        return lambda: [zone_fn(krot, zone, uvb, KPC, plan.weight)
+                        for krot, zone in zip(krots, plan.zones)]
+
+    ms = time_ms(every_zone(sweep_cuda.sweep_zone_kernel), reps=3)
+    plain_ms = time_ms(every_zone(sweep_cuda.sweep_zone_reference), reps=1,
+                       warmup=False)
+    del krots
+    wrapper_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_zones_kernel(
+        kappa, plan, uvb, KPC), reps=3)
+    merged_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
+        kappa, plan, uvb, KPC, "exact"), reps=3)
+    ca = n ** 3 * plan.n_directions
+    print(f"[11 zones] {n}^3 x {plan.n_directions} dirs f32: "
+          f"{launches} zone launches (zones {len(plan.zones)}); vs the plain "
+          f"version max abs {err_abs:.3e} max rel {err_rel:.3e} (tol 1e-5), "
+          f"vs the slab scan max abs {scan_abs:.3e} max rel {scan_rel:.3e} "
+          f"(tol 1e-4); the 24 zone kernels {ms:.3f} ms = "
+          f"{ca / ms * 1e3:.4e} cells*angles/s (plain versions "
+          f"{plain_ms:.3f} ms), diffuse_sweep_zones_kernel with its "
+          f"rotations {wrapper_ms:.3f} ms, merged kernel (exact) "
+          f"{merged_ms:.3f} ms")
+    return {"launches": launches, "max_abs_err": err_abs, "ms": ms,
+            "wrapper_ms": wrapper_ms, "merged_ms": merged_ms,
+            "plain_ms": plain_ms}
+
+
+def _check_at_main_widths(name, kernel, plain) -> float:
+    """A sweep experiment's kernel against its plain version at 64^3 and
+    128^3 x 192 directions (1e-5: phase 3's tolerance for atomic sums);
+    returns the largest abs error."""
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import sweep
+    uvb = np.array([1.0, 0.5, 0.25])
+    worst = 0.0
+    for n in (PROBE_N, MAIN_N):
+        plan = sweep.build_sweep_plan(MAIN_LEVEL, n)
+        kappa = _kappa(n)
+        out = kernel(kappa, plan, uvb, KPC)
+        torch.cuda.synchronize()
+        err_abs, err_rel = _rel_err(out, plain(kappa, plan, uvb, KPC))
+        print(f"[{name}] {n}^3 x {plan.n_directions} dirs f32: max abs "
+              f"{err_abs:.3e} max rel {err_rel:.3e} (tol 1e-5)")
+        assert torch.isfinite(out).all() and err_rel <= 1e-5, (name, n,
+                                                              err_rel)
+        worst = max(worst, err_abs)
+    return worst
+
+
+def phase_pair() -> dict:
+    """12: the two-slab sweep (kernel #6), then its experiment at 256^3."""
+    from radiativetransfer_tpu_torch import exp_sweep_pair
+    from radiativetransfer_tpu_torch.core import sweep_cuda, variants_cuda
+    err = _check_at_main_widths("12 pair", variants_cuda.sweep_pair,
+                                variants_cuda.sweep_pair_reference)
+    variants_cuda.LAUNCHES.clear()
+    sweep_cuda.LAUNCHES = 0
+    res = exp_sweep_pair.main(ROOF_N, MAIN_LEVEL)
+    launches = variants_cuda.LAUNCHES["pair"]
+    # at ROOF_N the planes no longer fit shared memory: the experiment's
+    # plain run holds the kernel's global-scratch branch to the same 1e-5
+    print(f"[12 pair] exp_sweep_pair launches: pair {launches}, merged "
+          f"{sweep_cuda.LAUNCHES}; at {ROOF_N}^3 vs the plain version max "
+          f"rel {res['max_rel_err']:.3e} (tol 1e-5)")
+    assert launches > 0 and sweep_cuda.LAUNCHES > 0
+    assert res["max_rel_err"] <= 1e-5, res["max_rel_err"]
+    return {**res, "launches": launches, "sweep_launches": sweep_cuda.LAUNCHES,
+            "max_abs_err": max(err, res["max_abs_err"])}
+
+
+def phase_variants() -> dict:
+    """13: every lean variant (kernel #7), then the experiment at 256^3 and
+    the FP32 instructions per MUFU of expf and exp2f in the SASS."""
+    import functools
+
+    from radiativetransfer_tpu_torch import exp_sweep_variants
+    from radiativetransfer_tpu_torch.core import (
+        probes_cuda,
+        sweep_cuda,
+        variants_cuda,
+    )
+    errs = {}
+    for v in variants_cuda.VARIANTS:
+        errs[v] = _check_at_main_widths(
+            f"13 {v}", functools.partial(variants_cuda.lean_sweep, variant=v),
+            functools.partial(variants_cuda.lean_sweep_reference, variant=v))
+    variants_cuda.LAUNCHES.clear()
+    sweep_cuda.LAUNCHES = 0
+    res = exp_sweep_variants.main(ROOF_N, MAIN_LEVEL)
+    launches = {v: variants_cuda.LAUNCHES[v] for v in variants_cuda.VARIANTS}
+    print(f"[13 variants] exp_sweep_variants launches {launches}, merged "
+          f"{sweep_cuda.LAUNCHES}")
+    assert all(c > 0 for c in launches.values())
+    for body, m in res["sass_probes"].items():
+        assert m["mufu"] > 0 and m["fp32_per_mufu"] == \
+            probes_cuda.FP32_PER_STEP[body], (body, m)
+    for v, r in res["variants"].items():
+        print(f"[13 variants] {v} at {ROOF_N}^3 (global-scratch planes) vs "
+              f"its plain version: max rel {r['max_rel_err']:.3e} (tol 1e-5)")
+        assert r["max_rel_err"] <= 1e-5, (v, r["max_rel_err"])
+        errs[v] = max(errs[v], r["max_abs_err"])
+    return {**res, "launches": launches, "errs": errs,
+            "sweep_launches": sweep_cuda.LAUNCHES}
+
+
+def phase_scatter() -> dict:
+    """14: the row scatter (kernel #8) through its experiment."""
+    from radiativetransfer_tpu_torch import exp_row_scatter
+    from radiativetransfer_tpu_torch.core import scatter_cuda
+    scatter_cuda.LAUNCHES = 0
+    res = exp_row_scatter.main()
+    launches = scatter_cuda.LAUNCHES
+    print(f"[14 scatter] exp_row_scatter launches {launches}")
+    assert launches > 0
+    for m, r in res["m"].items():
+        print(f"[14 scatter] M={m}: kernel vs float64 np.add.at max abs "
+              f"{r['max_abs_err']:.3e}, vs index_add_ "
+              f"{r['max_abs_err_vs_plain']:.3e} (tol 1e-5)")
+        assert r["max_abs_err"] <= 1e-5 and r["max_abs_err_vs_plain"] <= \
+            1e-5, (m, r)
+    return {**res, "launches": launches}
+
+
 def main() -> None:
     smi = phase_probe()
     phase_build()
@@ -471,14 +651,21 @@ def main() -> None:
     phase_anchor8()
     launches8 = phase_mode8()
     bench_out = phase_bench()
+    zones = phase_zones()
+    pair = phase_pair()
+    variants = phase_variants()
+    scatter = phase_scatter()
     # the sweep kernel's launches on each path that runs it, each count
     # set to 0 just before its path
     sweep_paths = {"mode9": launches9, "mode8": launches8,
                    "roofline": probes["sweep_launches"],
-                   "bench": bench_out["launches"]["sweep"]}
+                   "bench": bench_out["launches"]["sweep"],
+                   "exp_sweep_pair": pair["sweep_launches"],
+                   "exp_sweep_variants": variants["sweep_launches"]}
+    line = _kernels_line(errs, times, probes, sweep_paths, bench_out)
+    line += _new_kernels(zones, pair, variants, scatter)
     print(smi)
-    print(json.dumps({"kernels": _kernels_line(errs, times, probes,
-                                               sweep_paths, bench_out)}))
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -538,6 +725,59 @@ def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms")})
+    return line
+
+
+def _new_kernels(zones, pair, variants, scatter) -> list:
+    """The kernels line's entries of kernels #2, #6, #7 and #8."""
+    from radiativetransfer_tpu_torch.core import (
+        probes_cuda,
+        scatter_cuda,
+        sweep,
+        sweep_cuda,
+    )
+    src = "radiativetransfer_tpu_torch/csrc/sweep_variants.cu"
+    b = probes_cuda.sweep_bound(sweep_cuda.work_counts(
+        sweep.build_sweep_plan(MAIN_LEVEL, MAIN_N)), probes_cuda.MUFU_PER_S)
+    line = [{
+        "name": "sweep_zone", "route": "cuda", "source": src,
+        "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:65",
+        "launches": zones["launches"],
+        "launches_by_path": {"zones": zones["launches"]},
+        "max_abs_err": zones["max_abs_err"], "ms": zones["ms"],
+        "plain_ms": zones["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"], "library_ms": None,
+    }, {
+        "name": "sweep_pair", "route": "cuda", "source": src,
+        "replaces": "scripts/exp_sweep_pair.py:53",
+        "launches": pair["launches"],
+        "launches_by_path": {"exp_sweep_pair": pair["launches"]},
+        "max_abs_err": pair["max_abs_err"], "ms": pair["ms"],
+        "plain_ms": pair["plain_ms"], "bound_ms": pair["bound_ms"],
+        "bound_by": pair["bound_by"], "library_ms": None,
+    }]
+    for v, r in variants["variants"].items():
+        line.append({
+            "name": f"sweep_lean_{v}", "route": "cuda", "source": src,
+            "replaces": "scripts/exp_sweep_variants.py:71",
+            "launches": variants["launches"][v],
+            "launches_by_path": {"exp_sweep_variants":
+                                 variants["launches"][v]},
+            "max_abs_err": variants["errs"][v], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    top = scatter["m"][max(scatter["m"])]
+    line.append({
+        "name": "scatter_rows", "route": "cuda",
+        "source": "radiativetransfer_tpu_torch/csrc/scatter_rows.cu",
+        "replaces": "scripts/exp_pallas_scatter.py:45",
+        "launches": scatter["launches"],
+        "launches_by_path": {"exp_row_scatter": scatter["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in scatter["m"].values()),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": "bytes",
+        "library_ms": top["library_ms"]})
+    assert scatter_cuda.BYTES_PER_ROW == 100
     return line
 
 

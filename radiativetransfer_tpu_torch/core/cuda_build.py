@@ -22,6 +22,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "sweep_merged": _PKG / "csrc" / "sweep_merged.cu",
     "probes": _PKG / "csrc" / "probes.cu",
+    "sweep_variants": _PKG / "csrc" / "sweep_variants.cu",
+    "scatter_rows": _PKG / "csrc" / "scatter_rows.cu",
 }
 BUILD_DIR = _PKG / "_build"
 # IEEE expf and division (never --use_fast_math), and -fmad=false so each

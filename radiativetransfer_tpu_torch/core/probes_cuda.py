@@ -30,7 +30,7 @@ import torch
 
 from . import cuda_build
 
-BODIES = {"exp": 0, "stream": 1, "div": 2, "fma": 3}
+BODIES = {"exp": 0, "stream": 1, "div": 2, "fma": 3, "exp2": 4}
 # the probes the JAX package ran: (body, depth)
 EXP8 = ("exp", 8)                     # bench.py:270 _exp_kernel
 PLANE_PROBES = (("stream", 1), ("exp", 64), ("div", 64), ("fma", 64))
@@ -38,9 +38,11 @@ PLANE_PROBES = (("stream", 1), ("exp", 64), ("div", 64), ("fma", 64))
 # (sass_loop_mix; nvcc 12.9): FP32 ones (FADD, FMUL, FFMA) and
 # special-function ones (MUFU).  exp: IEEE expf, the FP32 range reduction
 # around one MUFU.EX2; div: x + 1.5, then one MUFU.RCP and its 3-instruction
-# Newton correction; fma: a separate FMUL and FADD under -fmad=false
-FP32_PER_STEP = {"exp": 6, "stream": 1, "div": 4, "fma": 2}
-MUFU_PER_STEP = {"exp": 1, "stream": 0, "div": 1, "fma": 0}
+# Newton correction; fma: a separate FMUL and FADD under -fmad=false;
+# exp2: exp2f (no fast math), the exp2 sweep variant's exp, one MUFU.EX2
+# and the FMULs that scale an argument below -126 around it
+FP32_PER_STEP = {"exp": 6, "stream": 1, "div": 4, "fma": 2, "exp2": 2}
+MUFU_PER_STEP = {"exp": 1, "stream": 0, "div": 1, "fma": 0, "exp2": 1}
 
 # published peaks of one H100 SXM at 700 W: HBM 3.35 TB/s and FP32
 # 67 TFLOP/s (NVIDIA's data sheet), where an FMA counts 2: 132 SMs x 128
@@ -61,6 +63,8 @@ _LIB = None
 def _step(acc, body: str):
     if body == "exp":
         return torch.exp(-acc)
+    if body == "exp2":
+        return torch.exp2(-acc)
     if body == "stream":
         return acc + 1.0
     if body == "div":
@@ -139,6 +143,23 @@ def time_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max elementwise relative error) of a kernel's output
+    against its plain version's.  Elements below 1e-30 of the largest, and
+    in float32 below 1e-30, are held to absolute error at that floor: the
+    attenuation through ~100 optically thick cells reaches float32's
+    subnormal range (below 1.2e-38) at 256^3, where the sweeps' Jmean
+    atomicAdd flushes each deposit to zero (PTX atom.add.f32) and the plain
+    version's sum keeps it: at most ~200 deposits of < 1.2e-38 a cell,
+    which 1e-5 of 1e-30 covers."""
+    diff = (out - ref).abs()
+    floor = max(float(ref.abs().max()) * 1e-30,
+                1e-30 if ref.dtype == torch.float32
+                else torch.finfo(ref.dtype).tiny)
+    rel = diff / ref.abs().clamp(min=floor)
+    return float(diff.max()), float(rel.max())
 
 
 def chain_bound_ms(numel: int, body: str, depth: int) -> tuple[float, str]:

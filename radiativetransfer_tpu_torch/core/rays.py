@@ -126,8 +126,7 @@ class RayDiagnostics:
     ndot_spectrum: torch.Tensor    # (S, nenergy)
 
     @classmethod
-    def zeros(cls, n_sources: int, dtype=torch.float32,
-              device="cpu") -> "RayDiagnostics":
+    def zeros(cls, n_sources: int, dtype, device) -> "RayDiagnostics":
         def z(k):
             return torch.zeros((n_sources, k), dtype=dtype, device=device)
         return cls(ndot_remaining=z(N_RADIUS), ndot_boundary=z(N_RADIUS),

@@ -7,6 +7,8 @@
 // * scripts/roofline_sweep.py::_plane_call (one elementwise body per
 //   element over a (3, N, N, N) field): v + 1 at depth 1 (the HBM stream),
 //   and 64-deep chains of exp(-x), 1/(x + 1.5) and x*1.0000001 + 0.1.
+// A fifth body, exp2(-x), is exp2f as csrc/sweep_variants.cu's exp2 variant
+// issues it: its SASS gives that variant's FP32 count per exp.
 //
 // One kernel, x -> o over a contiguous float32 array, with the body a
 // template parameter and the depth a run-time one.  Each step of a chain
@@ -32,11 +34,12 @@
 
 namespace {
 
-enum Body : int { kExp = 0, kStream = 1, kDiv = 2, kFma = 3 };
+enum Body : int { kExp = 0, kStream = 1, kDiv = 2, kFma = 3, kExp2 = 4 };
 
 template <int BODY>
 __device__ __forceinline__ float step(float acc) {
   if (BODY == kExp) return expf(-acc);
+  if (BODY == kExp2) return exp2f(-acc);
   if (BODY == kStream) return acc + 1.0f;
   if (BODY == kDiv) return 1.0f / (acc + 1.5f);
   return acc * 1.0000001f + 0.1f;
@@ -99,7 +102,8 @@ cudaError_t launch(const float* x, float* o, long long n, int depth,
 extern "C" {
 
 // o = depth-fold body(x), elementwise over n float32 values on `stream`.
-// body: 0 exp(-v), 1 v + 1, 2 1/(v + 1.5), 3 v*1.0000001 + 0.1.  x and o
+// body: 0 exp(-v), 1 v + 1, 2 1/(v + 1.5), 3 v*1.0000001 + 0.1,
+// 4 exp2(-v).  x and o
 // must be 16-byte aligned.  Returns the cudaError_t of the launch (0 on
 // success); the kernel runs asynchronously.
 int rt_chain(int body, int depth, const float* x, float* o, long long n,
@@ -111,6 +115,7 @@ int rt_chain(int body, int depth, const float* x, float* o, long long n,
     case kStream: return launch<kStream>(x, o, n, depth, s);
     case kDiv: return launch<kDiv>(x, o, n, depth, s);
     case kFma: return launch<kFma>(x, o, n, depth, s);
+    case kExp2: return launch<kExp2>(x, o, n, depth, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -76,12 +76,12 @@ def probe(x: torch.Tensor, body: str, depth: int, reps: int,
             "max_rel_err": float(rel.max())}
 
 
-def sass_per_step() -> dict:
-    """FP32 instructions per MUFU in the innermost loop of the exp and div
-    chain kernels, counted in the SASS of the built probe library."""
+def sass_per_step(bodies=("exp", "div")) -> dict:
+    """FP32 instructions per MUFU in the innermost loop of the named chain
+    kernels, counted in the SASS of the built probe library."""
     mix = probes_cuda.sass_loop_mix(cuda_build.sass("probes"))
     out = {}
-    for body in ("exp", "div"):
+    for body in bodies:
         tag = f"chain_kernelILi{probes_cuda.BODIES[body]}E"
         out[body] = probes_cuda.per_mufu(
             next(c for name, c in mix.items() if tag in name))

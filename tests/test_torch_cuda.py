@@ -1,6 +1,7 @@
-"""PyTorch port on a CUDA device: the hand-written sweep and probe kernels
-against their plain PyTorch versions, the tracer against its CPU run, and
-the mode-9 and mode-8 steps through the sweep kernel.  Every test needs a
+"""PyTorch port on a CUDA device: the hand-written sweep, per-zone sweep,
+sweep-experiment, scatter and probe kernels against their plain PyTorch
+versions, the tracer against its CPU run, and the mode-9 and mode-8 steps
+through the sweep kernel.  Every test needs a
 card and skips without one.  This file imports no JAX, so on a machine
 without it run it past tests/conftest.py:
 
@@ -20,8 +21,10 @@ from radiativetransfer_tpu_torch.constants import KPC, MYR
 from radiativetransfer_tpu_torch.core import (
     probes_cuda,
     rays,
+    scatter_cuda,
     sweep,
     sweep_cuda,
+    variants_cuda,
 )
 from radiativetransfer_tpu_torch.tables import stellar
 
@@ -91,7 +94,8 @@ def test_mode9_step_launches_kernel(card):
 
 @pytest.mark.parametrize("numel", [3 * 16 ** 3, 1001, 3 * 256 ** 3 + 3])
 @pytest.mark.parametrize("body,depth", [probes_cuda.EXP8,
-                                        *probes_cuda.PLANE_PROBES])
+                                        *probes_cuda.PLANE_PROBES,
+                                        ("exp2", 64)])
 def test_probe_matches_plain_version(card, body, depth, numel):
     # 1001 values: a ragged float4 tail; 3 * 256^3 + 3: the roofline's
     # shape, where the grid is capped and each thread walks the grid-stride
@@ -160,3 +164,113 @@ def test_tracer_on_card_matches_cpu(card):
         for name in vars(a):
             x, y = getattr(a, name).cpu().numpy(), getattr(b, name).numpy()
             assert np.abs(x - y).max() <= 1e-9 * np.abs(y).max(), name
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("plane_memory", ["shared", "global"])
+@pytest.mark.parametrize("level,n", [(1, 8), (2, 6)])
+def test_zone_kernel_matches_plain_version(card, level, n, plane_memory,
+                                           dtype, rtol):
+    # rtol: the same ops per cell, the directions summed by atomics
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(level, n)
+    before = sweep_cuda.ZONE_LAUNCHES
+    j = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, UVB, KPC,
+                                              plane_memory=plane_memory)
+    torch.cuda.synchronize()
+    assert sweep_cuda.ZONE_LAUNCHES == before + len(plan.zones)
+    ref = sweep_cuda.diffuse_sweep_zones_reference(kappa, plan, UVB, KPC)
+    np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("plane_memory", ["shared", "global"])
+@pytest.mark.parametrize("level,n", [(1, 8), (2, 6)])
+def test_pair_kernel_matches_plain_version(card, level, n, plane_memory,
+                                           dtype, rtol):
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(level, n)
+    before = variants_cuda.LAUNCHES["pair"]
+    j = variants_cuda.sweep_pair(kappa, plan, UVB, KPC,
+                                 plane_memory=plane_memory)
+    torch.cuda.synchronize()
+    assert variants_cuda.LAUNCHES["pair"] == before + 1
+    ref = variants_cuda.sweep_pair_reference(kappa, plan, UVB, KPC)
+    np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("plane_memory", ["shared", "global"])
+@pytest.mark.parametrize("variant", list(variants_cuda.VARIANTS))
+def test_lean_kernel_matches_plain_version(card, variant, plane_memory):
+    n = 8
+    kappa = _kappa(n, torch.float32, card)
+    plan = sweep.build_sweep_plan(2, n)
+    before = variants_cuda.LAUNCHES[variant]
+    j = variants_cuda.lean_sweep(kappa, plan, UVB, KPC, variant,
+                                 plane_memory=plane_memory)
+    torch.cuda.synchronize()
+    assert variants_cuda.LAUNCHES[variant] == before + 1
+    ref = variants_cuda.lean_sweep_reference(kappa, plan, UVB, KPC, variant)
+    np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=2e-6)
+
+
+def test_variant_kernels_reject_what_they_do_not_take(card):
+    plan = sweep.build_sweep_plan(1, 8)
+    with pytest.raises(TypeError):
+        variants_cuda.lean_sweep(_kappa(8, torch.float64, card), plan, UVB,
+                                 KPC)
+    with pytest.raises(ValueError, match="odd"):
+        variants_cuda.sweep_pair(_kappa(5, torch.float32, card),
+                                 sweep.build_sweep_plan(1, 5), UVB, KPC)
+    with pytest.raises(ValueError, match="shape"):
+        variants_cuda.sweep_pair(_kappa(6, torch.float32, card), plan, UVB,
+                                 KPC)
+
+
+@pytest.mark.parametrize("m", [1, 1000, 98304])
+def test_scatter_kernel_matches_plain_version(card, m):
+    nc = 4096
+    rng = np.random.default_rng(m)
+    idx_np = rng.integers(0, nc, m)
+    vals_np = rng.normal(0, 1, (m, 8)).astype(np.float32)
+    idx = torch.tensor(idx_np, dtype=torch.int32, device=card)
+    vals = torch.tensor(vals_np, device=card)
+    acc0 = torch.tensor(rng.normal(0, 1, (nc, 8)), dtype=torch.float32,
+                        device=card)
+    before = scatter_cuda.LAUNCHES
+    out = scatter_cuda.scatter_rows(acc0.clone(), idx, vals)
+    torch.cuda.synchronize()
+    assert scatter_cuda.LAUNCHES == before + 1
+    ref = scatter_cuda.scatter_rows_reference(acc0.clone(), idx, vals)
+    # rows that share a cell add in another order (atomics)
+    assert float((out - ref).abs().max()) <= 1e-5
+    ref64 = acc0.cpu().double().numpy()
+    np.add.at(ref64, idx_np, vals_np.astype(np.float64))
+    assert np.abs(out.cpu().numpy() - ref64).max() <= 1e-5
+
+
+def test_scatter_drops_rows_outside_the_accumulator(card):
+    acc = torch.zeros(16, 8, device=card)
+    idx = torch.tensor([-1, 3, 16, 1 << 30], dtype=torch.int32, device=card)
+    vals = torch.ones(4, 8, device=card)
+    scatter_cuda.scatter_rows(acc, idx, vals)
+    ref = torch.zeros(16, 8)
+    ref[3] = 1.0
+    assert torch.equal(acc.cpu(), ref)
+
+
+def test_scatter_rejects_what_it_does_not_take(card):
+    acc = torch.zeros(16, 8, device=card)
+    idx = torch.zeros(4, dtype=torch.int32, device=card)
+    vals = torch.ones(4, 8, device=card)
+    with pytest.raises(TypeError):
+        scatter_cuda.scatter_rows(acc, idx.long(), vals)
+    with pytest.raises(TypeError):
+        scatter_cuda.scatter_rows(acc.double(), idx, vals.double())
+    with pytest.raises(ValueError, match="shapes"):
+        scatter_cuda.scatter_rows(acc, idx, vals[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_cuda.scatter_rows(acc, idx,
+                                  torch.ones(8, 4, device=card).t())

@@ -273,3 +273,12 @@ def test_opaque_box_absorbs_ionizing_photons():
     k = rf.krate24.numpy().reshape(N, N, N)
     c = N // 2
     assert k[c, c, c] > 0.5 * absorbed
+
+
+def test_ray_diagnostics_need_a_device():
+    # no constructor of the port lands on the CPU unless asked
+    with pytest.raises(TypeError):
+        trays.RayDiagnostics.zeros(2, torch.float32)
+    diag = trays.RayDiagnostics.zeros(2, torch.float64, "cpu")
+    assert diag.ndot_remaining.shape == (2, trays.N_RADIUS)
+    assert diag.ndot_spectrum.dtype == torch.float64

@@ -136,9 +136,9 @@ def _emulate_kernel_launch(kappa, plan, uvb, cell_size, logmean):
     on the tables and permuted buffers the wrapper hands the kernel: a CPU
     check of the host-side packing (permutations, flips, slab order,
     channel scaling) and of the gather back to grid order."""
-    perms, meta, lens, chains = sweep_cuda._kernel_tables(
+    perms, meta, lens, chains = sweep_cuda.kernel_tables(
         plan, cell_size, kappa.dtype, kappa.device)
-    jmean, kperm, ikperm, jperm = sweep_cuda._launch_buffers(kappa, logmean,
+    jmean, kperm, ikperm, jperm = sweep_cuda.launch_buffers(kappa, logmean,
                                                              perms)
     eps = tsweep._tau_eps(kappa.dtype)
     nslab, ny, nz = kperm[0].shape[1:]
@@ -178,7 +178,7 @@ def _emulate_kernel_launch(kappa, plan, uvb, cell_size, logmean):
                               ln[k], ln[4 + k])
                 jacc = jacc + lm
             jperm[p][:, s] += plan.weight * (ln[3] * jacc)
-    return sweep_cuda._gather_jmean(jmean, jperm, perms)
+    return sweep_cuda.gather_jmean(jmean, jperm, perms)
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
@@ -188,7 +188,7 @@ def _emulate_kernel_launch(kappa, plan, uvb, cell_size, logmean):
 def test_kernel_host_packing_emulated(level, n, logmean, dtype, rtol):
     kappa = torch.from_numpy(_kappa(n)).to(dtype)
     plan = tsweep.build_sweep_plan(level, n)
-    perms, meta, lens, chains = sweep_cuda._kernel_tables(plan, KPC, dtype,
+    perms, meta, lens, chains = sweep_cuda.kernel_tables(plan, KPC, dtype,
                                                           "cpu")
     assert meta.shape[0] == plan.n_directions == lens.shape[0]
     assert lens.shape == (plan.n_directions, n, 8) and lens.dtype == dtype
