@@ -5,12 +5,13 @@
 
 Drives radiativetransfer_tpu_torch's paths through their public entry
 points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
-8 (point sources + UVB), the roofline script and the bench -- and holds
-each hand-written kernel against its plain PyTorch version.  Phases, one
+8 (point sources + UVB), the roofline script, the bench and mode 9 on a
+1-D grid mesh -- and holds each hand-written kernel against its plain
+PyTorch version.  Phases, one
 line or more each; any failure raises and the script exits non-zero:
 
 1. probe: torch, CUDA, the device, its power limit, nvcc, triton;
-2. build both kernel sources from radiativetransfer_tpu_torch/csrc/, one
+2. build every kernel source of radiativetransfer_tpu_torch/csrc/, one
    nvcc each, started together (timed);
 3. sweep kernel vs plain version on the device, float32 (and float64), both
    logmean forms, both plane memories, up to 128^3 x 192 directions;
@@ -48,7 +49,17 @@ line or more each; any failure raises and the script exits non-zero:
     the SASS checked against the bounds' counts;
 14. the row scatter (kernel #8) through python -m
     radiativetransfer_tpu_torch.exp_row_scatter: against a float64
-    np.add.at and index_add_ at every M, beside index_add_'s times.
+    np.add.at and index_add_ at every M, beside index_add_'s times;
+15. the mesh path, P virtual ranks on the card: the 24^3 anchor through
+    the ring sweep (kernel #3) on 4 ranks; the ring at level 1 and 2, n 8,
+    P = 1, 2, 4, 8 against the pipelined plain version and the slab scan;
+    at 128^3 x 192 (P = 1, 2, 4) and 256^3 (P = 4) against its plain
+    version, its 24 kernels timed alone beside the wrapper, the merged
+    kernel and the per-zone sweep; 3 mode-9 steps at 128^3 x 192 on 4
+    ranks through the ring (24 launches each), step 1 against the same
+    step on one rank and against one device's; one step each of the
+    pipelined and zones strategies at 64^3, held the same way; and a ring
+    that cannot be co-resident, refused.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -640,6 +651,237 @@ def phase_scatter() -> dict:
     return {**res, "launches": launches}
 
 
+def _mesh_zone_runs(fn, blocks, plan, uvb, **kw):
+    """A callable running fn on every zone's blocks (fn(blocks, zone, uvb,
+    cell, weight)), and the list its last run fills."""
+    from radiativetransfer_tpu_torch.constants import KPC
+    outs = []
+
+    def run():
+        outs[:] = [fn(b, zone, uvb, KPC, plan.weight, **kw)
+                   for b, zone in zip(blocks, plan.zones)]
+    return run, outs
+
+
+def _mesh_sweep_at(n: int, p: int, smi: str, time_all: bool) -> dict:
+    """The ring kernel's 24 launches alone on blocks split beforehand,
+    against their plain versions (the pipelined scan on the kernel's
+    tables, timed once), and the whole wrapper."""
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
+    from radiativetransfer_tpu_torch.parallel import mesh as pmesh
+    from radiativetransfer_tpu_torch.parallel import sweep_rdma
+    uvb = np.array([1.0, 0.5, 0.25])
+    plan = sweep.build_sweep_plan(MAIN_LEVEL, n)
+    kappa = _kappa(n)
+    mesh = pmesh.make_grid_mesh(p, device=DEVICE)
+    blocks = [pmesh.to_blocks(sweep_cuda.rotate_to_zone(kappa, zone), mesh)
+              for zone in plan.zones]
+    status = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    kernel, outs = _mesh_zone_runs(sweep_rdma.sweep_zone_rdma_kernel, blocks,
+                                   plan, uvb, status=status)
+    ms = time_ms(kernel, reps=3)
+    sweep_rdma.check_status(status)
+    plain, refs = _mesh_zone_runs(sweep_rdma.sweep_zone_rdma_reference,
+                                  blocks, plan, uvb)
+    plain_ms = time_ms(plain, reps=1, warmup=False)
+    errs = [_rel_err(o, r) for o, r in zip(outs, refs)]
+    err_abs, err_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    assert all(torch.isfinite(o).all() for o in outs)
+    assert err_rel <= 1e-5, (n, p, err_rel)
+    planes = sweep_cuda.plane_memory_for(n, torch.float32, n // p)
+    out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err_abs}
+    del blocks, outs, refs
+    line = (f"[15 mesh] ring sweep {n}^3 x {plan.n_directions} dirs f32, P "
+            f"{p} ({planes} planes): the {len(plan.zones)} kernels alone "
+            f"{ms:.3f} ms = {n ** 3 * plan.n_directions / ms * 1e3:.4e} "
+            f"cells*angles/s; their plain versions {plain_ms:.1f} ms; max "
+            f"abs {err_abs:.3e} max rel {err_rel:.3e} (tol 1e-5)")
+    if time_all:
+        out["wrapper_ms"] = time_ms(lambda: sweep_rdma.diffuse_sweep_rdma(
+            kappa, plan, uvb, KPC, mesh), reps=3)
+        line += f"; diffuse_sweep_rdma {out['wrapper_ms']:.3f} ms"
+    print(f"{line}; card {smi}")
+    return out
+
+
+def _mesh_step_check(label, model, out, init, one_device, tol=1e-4) -> None:
+    """A mesh step's output against the same strategy on one rank (the
+    same arithmetic and tables, no halo: Jmean within tol elementwise) and
+    against one device's "auto" step with the exact logmean (the neutral
+    fraction within tol relative, Jmean within tol of its peak: the merged
+    kernel rounds the exact logmean's (1 - a)/tau otherwise, and in
+    float32 an ulp of exp over a tau just above 1e-4 is ~6e-4 of one
+    segment's emission, ROADMAP section 4)."""
+    from radiativetransfer_tpu_torch.parallel import mesh as pmesh
+    one_rank = model.make_step(mesh=pmesh.make_grid_mesh(1, device=DEVICE))(
+        init)
+    r_abs, r_rel = _rel_err(out.Jmean, one_rank.Jmean)
+    nf, nf_ref = (model.neutral_fraction(out),
+                  model.neutral_fraction(one_device))
+    rel = abs(nf - nf_ref) / nf_ref
+    j_abs, j_rel = _rel_err(out.Jmean, one_device.Jmean)
+    peak = float(one_device.Jmean.abs().max())
+    print(f"[15 mesh] {label}: Jmean vs one rank max abs {r_abs:.3e} max "
+          f"rel {r_rel:.3e} (tol {tol:g}); vs one device's step: neutral "
+          f"fraction {nf:.7f} vs {nf_ref:.7f} (rel {rel:.2e}, tol {tol:g}), "
+          f"Jmean max abs {j_abs:.3e} = {j_abs / peak:.2e} of the peak "
+          f"(tol {tol:g}), max rel {j_rel:.3e}")
+    assert bool(torch.isfinite(out.HI).all())
+    assert r_rel <= tol and rel <= tol and j_abs <= tol * peak, (
+        label, r_rel, rel, j_abs / peak)
+
+
+def phase_mesh(smi: str) -> dict:
+    """15: the mode-9 path on a 1-D mesh of P ranks on the card, with the
+    ring sweep (kernel #3), the pipelined and the zones strategies."""
+    import dataclasses
+
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import probes_cuda, sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
+    from radiativetransfer_tpu_torch.parallel import mesh as pmesh
+    from radiativetransfer_tpu_torch.parallel import sweep_dist, sweep_rdma
+    from radiativetransfer_tpu_torch.profile_step import galaxy_state
+    uvb = np.array([1.0, 0.5, 0.25])
+    mesh4 = pmesh.make_grid_mesh(4, device=DEVICE)
+
+    # the 24^3 anchor through the ring on 4 ranks
+    model = _rtmodel(24, 1, 200.0, DEVICE, sweep_strategy="rdma")
+    state = pmesh.shard_state(rt.uniform_state(
+        24, nh=1e-4, tgas=2e4, dtype=torch.float32, device=DEVICE), mesh4)
+    before = sweep_rdma.RDMA_LAUNCHES
+    nf = model.neutral_fraction(model.make_step(mesh=mesh4)(state))
+    rel = abs(nf - ANCHOR_NF) / ANCHOR_NF
+    launches = sweep_rdma.RDMA_LAUNCHES - before
+    print(f"[15 mesh] 24^3 level 1 f32 mode 9, rdma on 4 ranks: neutral "
+          f"fraction {nf:.7f} vs {ANCHOR_NF} (rel {rel:.2e}, tol "
+          f"{ANCHOR_RTOL:g}); ring launches {launches}")
+    assert launches == len(model.sweep_plan.zones) and rel <= ANCHOR_RTOL
+
+    # small grids at P = 1, 2, 4, 8 against the pipelined plain version
+    # and the slab scan
+    worst = 0.0
+    for level, n in [(1, 8), (2, 8)]:
+        plan = sweep.build_sweep_plan(level, n)
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            kappa = _kappa(n, dtype)
+            scan = sweep.diffuse_sweep(kappa, plan, uvb, KPC)
+            for p in (1, 2, 4, 8):
+                mesh = pmesh.make_grid_mesh(p, device=DEVICE)
+                out = sweep_rdma.diffuse_sweep_rdma(kappa, plan, uvb, KPC,
+                                                    mesh)
+                pipe = sweep_dist.diffuse_sweep_pipelined(kappa, plan, uvb,
+                                                          KPC, mesh)
+                e_pipe, e_scan = _rel_err(out, pipe), _rel_err(out, scan)
+                print(f"[15 mesh] ring level {level} n {n} {dtype} P {p}: "
+                      f"vs pipelined max rel {e_pipe[1]:.3e}, vs slab scan "
+                      f"{e_scan[1]:.3e} (rtol {rtol:g})")
+                assert max(e_pipe[1], e_scan[1]) <= rtol, (level, p, dtype)
+                worst = max(worst, e_pipe[0])
+
+    # full width: 128^3 x 192 at P = 1, 2, 4 and 256^3 at P = 4 (its rank
+    # planes sit in shared memory), each against its plain version
+    sweep_rdma.RDMA_LAUNCHES = 0
+    full = {p: _mesh_sweep_at(MAIN_N, p, smi, True) for p in (1, 2, 4)}
+    full["big"] = _mesh_sweep_at(TIMING_NS[-1], 4, smi, False)
+    sweep_launches = sweep_rdma.RDMA_LAUNCHES
+    n, level = MAIN_N, MAIN_LEVEL
+    plan = sweep.build_sweep_plan(level, n)
+    kappa = _kappa(n)
+    zones_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_zones_kernel(
+        kappa, plan, uvb, KPC), reps=3)
+    merged_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
+        kappa, plan, uvb, KPC, "exact"), reps=3)
+    print(f"[15 mesh] {n}^3 x {plan.n_directions} beside the ring: the "
+          f"merged kernel (exact) {merged_ms:.3f} ms, the per-zone sweep "
+          f"(diffuse_sweep_zones_kernel) {zones_ms:.3f} ms; ring launches "
+          f"{sweep_launches}")
+    del kappa
+
+    # the mode-9 step at 128^3 x 192 on 4 ranks through the ring, against
+    # one rank's and one device's "auto" step (the exact logmean, the
+    # ring's)
+    box = 300.0
+    model = _rtmodel(n, level, box, DEVICE, self_shielding_threshold_kpc=0.1,
+                     sweep_strategy="rdma")
+    one = _rtmodel(n, level, box, DEVICE, self_shielding_threshold_kpc=0.1,
+                   sweep_logmean="exact")
+    init = model.initialize_equilibrium(galaxy_state(n, box, DEVICE))
+    state = pmesh.shard_state(init, mesh4)
+    step = model.make_step(mesh=mesh4)
+    sweep_rdma.RDMA_LAUNCHES = 0
+    for it in range(1, 4):
+        before = sweep_rdma.RDMA_LAUNCHES
+        t0 = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"[15 mesh] {n}^3 x {plan.n_directions} f32 mode 9, rdma on 4 "
+              f"ranks: step {it} neutral fraction "
+              f"{model.neutral_fraction(state):.7f} wall {dt:.4f} s, ring "
+              f"launches {sweep_rdma.RDMA_LAUNCHES - before}")
+        assert sweep_rdma.RDMA_LAUNCHES - before == len(plan.zones)
+        if it == 1:
+            first = state
+    step_launches = sweep_rdma.RDMA_LAUNCHES
+    _mesh_step_check(f"{n}^3 step 1, rdma on 4 ranks", model, first, init,
+                     one.make_step()(init))
+
+    # the other strategies, one step each at 64^3 on the same mesh
+    n64 = PROBE_N
+    one = _rtmodel(n64, level, box, DEVICE, self_shielding_threshold_kpc=0.1,
+                   sweep_logmean="exact")
+    init = one.initialize_equilibrium(galaxy_state(n64, box, DEVICE))
+    ref = one.make_step()(init)
+    zone_launches = {}
+    for strategy in ("pipelined", "zones"):
+        other = _rtmodel(n64, level, box, DEVICE,
+                         self_shielding_threshold_kpc=0.1,
+                         sweep_strategy=strategy)
+        sweep_cuda.ZONE_LAUNCHES = 0
+        out = other.make_step(mesh=mesh4)(pmesh.shard_state(init, mesh4))
+        zone_launches[strategy] = sweep_cuda.ZONE_LAUNCHES
+        _mesh_step_check(f"{n64}^3 step, {strategy} on 4 ranks (zone "
+                         f"launches {zone_launches[strategy]})", other, out,
+                         init, ref)
+    assert zone_launches == {"pipelined": 0, "zones": len(plan.zones)}
+
+    # a ring that cannot be co-resident is refused, never launched: 2 ranks
+    # of a 128^3 float64 field at level 4 (3 planes of 128 x 64 fill one
+    # SM's shared memory; zone 1's 31 directions x 3 bands x 2 ranks = 186
+    # CTAs)
+    zone = sweep.build_sweep_plan(4, n).zones[0]
+    blocks = torch.rand((2, n, 3, n, n // 2), dtype=torch.float64,
+                        device=DEVICE)
+    before = sweep_rdma.RDMA_LAUNCHES
+    try:
+        sweep_rdma.sweep_zone_rdma_kernel(blocks, zone, uvb, KPC, 1 / 768,
+                                          plane_memory="shared")
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a ring of 186 CTAs of 192 KiB each ran")
+    assert "co-resident" in refused and sweep_rdma.RDMA_LAUNCHES == before
+    print(f"[15 mesh] refused as it should be: {refused}")
+
+    counts = dict(sweep_cuda.work_counts(plan))
+    counts["bytes"] += sweep_rdma.halo_bytes(plan, 4, n, 4)
+    bound = probes_cuda.sweep_bound(counts, probes_cuda.MUFU_PER_S)
+    print(f"[15 mesh] ring bound at {n}^3, P 4: {bound['bound_ms']:.4f} ms "
+          f"set by {bound['binding']} (bytes with the halo lines "
+          f"{bound['bytes_ms']:.4f} ms); kernels {full[4]['ms']:.3f} ms, "
+          f"{100 * bound['bound_ms'] / full[4]['ms']:.1f}% of the bound")
+    return {"full": full, "bound": bound, "zones_ms": zones_ms,
+            "merged_ms": merged_ms, "zone_launches": zone_launches["zones"],
+            "launches": {"rdma_sweep": sweep_launches,
+                         "mode9_mesh": step_launches},
+            "max_abs_err": max(worst, *(r["max_abs_err"]
+                                        for r in full.values()))}
+
+
 def main() -> None:
     smi = phase_probe()
     phase_build()
@@ -655,6 +897,7 @@ def main() -> None:
     pair = phase_pair()
     variants = phase_variants()
     scatter = phase_scatter()
+    mesh = phase_mesh(smi)
     # the sweep kernel's launches on each path that runs it, each count
     # set to 0 just before its path
     sweep_paths = {"mode9": launches9, "mode8": launches8,
@@ -663,7 +906,7 @@ def main() -> None:
                    "exp_sweep_pair": pair["sweep_launches"],
                    "exp_sweep_variants": variants["sweep_launches"]}
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)
-    line += _new_kernels(zones, pair, variants, scatter)
+    line += _new_kernels(zones, pair, variants, scatter, mesh)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
@@ -728,8 +971,8 @@ def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
     return line
 
 
-def _new_kernels(zones, pair, variants, scatter) -> list:
-    """The kernels line's entries of kernels #2, #6, #7 and #8."""
+def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
+    """The kernels line's entries of kernels #2, #6, #7, #8 and #3."""
     from radiativetransfer_tpu_torch.core import (
         probes_cuda,
         scatter_cuda,
@@ -742,8 +985,9 @@ def _new_kernels(zones, pair, variants, scatter) -> list:
     line = [{
         "name": "sweep_zone", "route": "cuda", "source": src,
         "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:65",
-        "launches": zones["launches"],
-        "launches_by_path": {"zones": zones["launches"]},
+        "launches": zones["launches"] + mesh["zone_launches"],
+        "launches_by_path": {"zones": zones["launches"],
+                             "mode9_mesh_zones": mesh["zone_launches"]},
         "max_abs_err": zones["max_abs_err"], "ms": zones["ms"],
         "plain_ms": zones["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "library_ms": None,
@@ -778,6 +1022,16 @@ def _new_kernels(zones, pair, variants, scatter) -> list:
         "bound_ms": top["bound_ms"], "bound_by": "bytes",
         "library_ms": top["library_ms"]})
     assert scatter_cuda.BYTES_PER_ROW == 100
+    ring = mesh["full"][4]
+    line.append({
+        "name": "sweep_zone_rdma", "route": "cuda",
+        "source": "radiativetransfer_tpu_torch/csrc/sweep_rdma.cu",
+        "replaces": "radiativetransfer_tpu/parallel/sweep_rdma.py:64",
+        "launches": sum(mesh["launches"].values()),
+        "launches_by_path": mesh["launches"],
+        "max_abs_err": mesh["max_abs_err"], "ms": ring["ms"],
+        "plain_ms": ring["plain_ms"], "bound_ms": mesh["bound"]["bound_ms"],
+        "bound_by": mesh["bound"]["bound_by"], "library_ms": None})
     return line
 
 

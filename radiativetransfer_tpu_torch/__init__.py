@@ -6,6 +6,10 @@ sources + UVB) and 1 (point sources under the thin UVB) on a uniform grid
 on one device.  The diffuse sweep runs as a hand-written CUDA kernel on a
 CUDA device (core/sweep_cuda.py) and as a plain PyTorch slab scan on the
 CPU (core/sweep.py); the point-source tracer (core/rays.py) is PyTorch.
+Modes 9 and 6 also run on a 1-D grid mesh of P ranks on one device
+(parallel/mesh.py), with the pipelined, zones or ring sweep
+(parallel/sweep_dist.py, parallel/sweep_rdma.py; the ring is a CUDA
+kernel on the card).
 The measuring entry points are `python -m radiativetransfer_tpu_torch.bench`
 and `python -m radiativetransfer_tpu_torch.roofline_sweep`.
 

@@ -24,6 +24,7 @@ SOURCES = {
     "probes": _PKG / "csrc" / "probes.cu",
     "sweep_variants": _PKG / "csrc" / "sweep_variants.cu",
     "scatter_rows": _PKG / "csrc" / "scatter_rows.cu",
+    "sweep_rdma": _PKG / "csrc" / "sweep_rdma.cu",
 }
 BUILD_DIR = _PKG / "_build"
 # IEEE expf and division (never --use_fast_math), and -fmad=false so each

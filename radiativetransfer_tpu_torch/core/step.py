@@ -8,14 +8,16 @@ Mirrors the reference's driver flow (equiSources.f90:1230-1843):
 the loop (calc_rates, uniformTable, UVB amplitudes, powerSpectrumIndex,
 uvbBetaTable; equiSources.f90:172-289) on the host and keeps the device
 tables as buffers of the module.  The port covers the uniform grid in
-modes 1, 6, 8 and 9 on one device; the compacting tracer (ROADMAP item 7)
-and the distributed sweep and tracer strategies (item 15) raise
-NotImplementedError.
+modes 1, 6, 8 and 9 on one device, and modes 6 and 9 on a 1-D grid mesh
+of P ranks on one device (parallel/mesh.py) with every sweep strategy;
+the compacting tracer (ROADMAP item 7) and the distributed tracers (item
+15) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -34,6 +36,8 @@ from ..constants import (
     NU2,
     NU3,
 )
+from ..parallel import sweep_dist, sweep_rdma
+from ..parallel.mesh import GridMesh
 from ..tables import chemistry_rates, spectral, uvb_models
 from ..tables import stellar as stellar_tables
 from . import chemistry, opacity, rays, sweep, sweep_cuda
@@ -271,11 +275,16 @@ class RTModel(nn.Module):
 
     def _check_supported(self, stellar, mesh) -> None:
         cfg = self.config
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet: ROADMAP item 15")
+        if mesh is not None and not isinstance(mesh, GridMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.GridMesh, got "
+                            f"{type(mesh).__name__}")
         if stellar is None:
             return
+        if mesh is not None:
+            raise NotImplementedError(
+                "point sources on a mesh (the distributed tracers, "
+                "parallel/rays_dist.py and rays_domain.py) are not ported "
+                "yet: ROADMAP item 15")
         if cfg.tracer_compact:
             raise NotImplementedError(
                 "tracer_compact=True (the compacting tracer) is not ported "
@@ -310,35 +319,55 @@ class RTModel(nn.Module):
         self._check_supported(stellar, mesh)
         state = state.zero_rates()
         if not (self.config.run_stellar_transfer and stellar is not None):
-            return self._sweep_and_chemistry(state)
+            return self._sweep_and_chemistry(state, mesh)
         state, diag = self.trace(state, stellar)
         return self._sweep_and_chemistry(state), diag
 
-    def _run_sweep(self, kappa: torch.Tensor) -> torch.Tensor:
-        """The "auto" sweep on one device: the hand-written CUDA kernel for
-        a CUDA tensor (cfg.use_pallas_sweep), else the plain slab scan."""
+    def _run_sweep(self, kappa: torch.Tensor, mesh=None) -> torch.Tensor:
+        """Dispatch cfg.sweep_strategy.  The explicit strategies need a 1-D
+        `mesh`: "pipelined" (the plain halo-line scan) and "rdma" (the ring
+        kernel on a CUDA tensor) sweep each rank's k-block, "zones" deals
+        the octant zones to the ranks (parallel/sweep_dist.py,
+        parallel/sweep_rdma.py).  "auto" is the sweep on one device, mesh
+        or not (all ranks share it): the hand-written CUDA kernel for a
+        CUDA tensor (cfg.use_pallas_sweep), else the plain slab scan."""
         cfg = self.config
-        if cfg.sweep_strategy != "auto":
-            raise NotImplementedError(
-                f"sweep_strategy={cfg.sweep_strategy!r} is not ported yet: "
-                f"ROADMAP item 15")
+        strategy = cfg.sweep_strategy
+        if strategy != "auto" and mesh is None:
+            raise ValueError(f"sweep_strategy={strategy!r} needs a mesh")
         cell = self.geom.cell_size
+        plan = self.sweep_plan
+        if strategy == "pipelined":
+            return sweep_dist.diffuse_sweep_pipelined(kappa, plan, self.uvb,
+                                                      cell, mesh)
+        if strategy == "zones":
+            return sweep_dist.diffuse_sweep_zone_parallel(kappa, plan,
+                                                          self.uvb, cell, mesh)
+        if strategy == "rdma":
+            return sweep_rdma.diffuse_sweep_rdma(kappa, plan, self.uvb, cell,
+                                                 mesh)
+        if strategy != "auto":
+            raise ValueError(f"unknown sweep_strategy {strategy!r}")
         if cfg.use_pallas_sweep and kappa.is_cuda:
             lm = cfg.sweep_logmean
             if lm == "auto":
                 # clamped in f32 (per-iteration neutral-fraction deltas
                 # <= 8e-7 in the JAX package's A/B), exact in f64
                 lm = "clamped" if kappa.dtype == torch.float32 else "exact"
-            return sweep_cuda.diffuse_sweep_kernel(
-                kappa, self.sweep_plan, self.uvb, cell, logmean=lm)
-        return sweep.diffuse_sweep(kappa, self.sweep_plan, self.uvb, cell)
+            return sweep_cuda.diffuse_sweep_kernel(kappa, plan, self.uvb,
+                                                   cell, logmean=lm)
+        return sweep.diffuse_sweep(kappa, plan, self.uvb, cell)
 
-    def _sweep_and_chemistry(self, state: FieldState) -> FieldState:
+    def _sweep_and_chemistry(self, state: FieldState,
+                             mesh=None) -> FieldState:
+        """Opacities, the sweep and chemistry; all but the sweep are
+        elementwise and run on the whole field, mesh or not."""
         cfg = self.config
         if cfg.run_uvb_transfer:
             kappa = opacity.compute_opacities(state.HI, state.HeI, state.HeII,
                                               self.opacity_coef)
-            state = dataclasses.replace(state, Jmean=self._run_sweep(kappa))
+            state = dataclasses.replace(state,
+                                        Jmean=self._run_sweep(kappa, mesh))
 
         return chemistry.solve_rate_equations(
             state, self.geom, self.dev_tables,
@@ -351,10 +380,13 @@ class RTModel(nn.Module):
     def make_step(self, stellar: StellarContext | None = None, mesh=None):
         """The iteration step, a plain eager function (PyTorch has no jit
         to apply here): state -> state, or with a StellarContext
-        state -> (state, RayDiagnostics), tracing whatever the mode."""
+        state -> (state, RayDiagnostics), tracing whatever the mode.  With
+        a `mesh` (parallel.mesh.GridMesh; no StellarContext) the sweep runs
+        the configured strategy on it."""
         self._check_supported(stellar, mesh)
         if stellar is None:
-            return self.transport_chemistry_step
+            return functools.partial(self.transport_chemistry_step,
+                                     mesh=mesh)
 
         def step(state: FieldState):
             state, diag = self.trace(state.zero_rates(), stellar)

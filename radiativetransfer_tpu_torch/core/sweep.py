@@ -116,26 +116,32 @@ def _shift_k(x, boundary):
     return torch.cat([boundary, x[..., :, :-1]], dim=-1)
 
 
-def sweep_zone(kappa_rot, zone: ZoneBatch, uvb, cell_size, weight):
+def sweep_zone(kappa_rot, zone: ZoneBatch, uvb, cell_size, weight,
+               shift_k=_shift_k):
     """Sweep all directions of one zone over a rotated opacity field.
 
     Args:
-      kappa_rot: (nslab, 3, ny, nz) opacity in sweep orientation [1/cm].
+      kappa_rot: (nslab, 3, ny, nz) opacity in sweep orientation [1/cm];
+        or (nslab, P, 3, ny, nz/P), P k-blocks swept in lockstep, with a
+        `shift_k` that crosses the blocks (parallel/sweep_dist.py).
       zone: the zone's per-slab templates, each (ndir, nslab).
       uvb: (3,) tensor of boundary intensities of the three bands.
       cell_size: base-cell physical size [cm].
       weight: per-direction angular weight.
+      shift_k: (x, boundary) -> the yz-segment upwind shift of x along
+        axis -1.
     Returns:
-      j_rot: (nslab, 3, ny, nz) accumulated weighted mean intensity.
+      j_rot: kappa_rot's shape, accumulated weighted mean intensity.
     """
-    nslab, nb, ny, nz = kappa_rot.shape
+    nslab, *plane_shape = kappa_rot.shape                     # [P,] 3, ny, nz
     ndir = zone.ndir
     dtype, device = kappa_rot.dtype, kappa_rot.device
+    ones = (1,) * len(plane_shape)
 
     def table(x, dt=dtype):
-        # (ndir, nslab) -> (nslab, ndir, 1, 1, 1) for broadcasting
+        # (ndir, nslab) -> (nslab, ndir, 1, ...) for broadcasting
         return torch.as_tensor(np.ascontiguousarray(x.T), device=device).to(
-            dt)[:, :, None, None, None]
+            dt).reshape(nslab, ndir, *ones)
 
     len_xy, len_xz, len_yz = (table(zone.len_xy), table(zone.len_xz),
                               table(zone.len_yz))
@@ -143,14 +149,15 @@ def sweep_zone(kappa_rot, zone: ZoneBatch, uvb, cell_size, weight):
     chain3 = table(zone.chain3, torch.int64)
     n_act = table(zone.n_active)
 
-    uvb_cell = uvb.to(dtype)[None, :, None, None]             # (1,3,1,1)
-    i_top = uvb_cell.expand(ndir, nb, ny, nz)
-    uvb_j = uvb_cell.expand(ndir, nb, 1, nz)
-    uvb_k = uvb_cell.expand(ndir, nb, ny, 1)
+    uvb_cell = uvb.to(dtype).reshape(*ones[:-3], 3, 1, 1)    # ([1,]3,1,1)
+    shape = (ndir, *plane_shape)
+    i_top = uvb_cell.expand(shape)
+    uvb_j = uvb_cell.expand(*shape[:-2], 1, shape[-1])
+    uvb_k = uvb_cell.expand(*shape[:-1], 1)
 
     out = []
     for i in range(nslab):
-        kappa = kappa_rot[i][None]                            # (1,3,ny,nz)
+        kappa = kappa_rot[i][None]                            # (1,[P,]3,ny,nz)
 
         def seg_tau(length):
             # (ndir,1,1,1) lengths -> (ndir,3,ny,nz) optical depth
@@ -163,7 +170,7 @@ def sweep_zone(kappa_rot, zone: ZoneBatch, uvb, cell_size, weight):
         is2_xz = chain2[i] == SEG_XZ
         act2 = chain2[i] != 0
         i_in2 = torch.where(is2_xz, _shift_j(i_out1, uvb_j),
-                            _shift_k(i_out1, uvb_k))
+                            shift_k(i_out1, uvb_k))
         len2 = torch.where(is2_xz, len_xz[i], len_yz[i])
         i_out2, lm2 = _attenuate(i_in2, seg_tau(len2))
 
@@ -171,13 +178,13 @@ def sweep_zone(kappa_rot, zone: ZoneBatch, uvb, cell_size, weight):
         is3_xz = chain3[i] == SEG_XZ
         act3 = chain3[i] != 0
         i_in3 = torch.where(is3_xz, _shift_j(i_out2, uvb_j),
-                            _shift_k(i_out2, uvb_k))
+                            shift_k(i_out2, uvb_k))
         len3 = torch.where(is3_xz, len_xz[i], len_yz[i])
         i_out3, lm3 = _attenuate(i_in3, seg_tau(len3))
 
         j_slab = (lm1 + torch.where(act2, lm2, 0.0)
                   + torch.where(act3, lm3, 0.0)) / n_act[i]
-        out.append(weight * torch.sum(j_slab, dim=0))         # (3,ny,nz)
+        out.append(weight * torch.sum(j_slab, dim=0))         # ([P,]3,ny,nz)
 
         i_top = torch.where(n_act[i] == 3, i_out3,
                             torch.where(n_act[i] == 2, i_out2, i_out1))

@@ -1,11 +1,14 @@
 """Profile steps of the port on one CUDA device, layer by layer.
 
-    python3 -m radiativetransfer_tpu_torch.profile_step [n] [level] [mode]
+    python3 -m radiativetransfer_tpu_torch.profile_step [n] [level] [mode] \
+        [ranks]
 
 Mode 9 (the default) builds the synthetic galaxy of chip_smoke.py (n^3,
 default 128, angular level default 3) and runs initialize_equilibrium.
 Mode 8 runs bench.py's step configuration: a uniform box (nH = 2e-4,
 T = 1.5e4, 2000 kpc) with 8 sources from seed 0 at maxPixelLevel 6.
+ranks > 0 (mode 9 only) runs the step on a 1-D mesh of that many ranks on
+the card, the sweep through the ring kernel (sweep_strategy "rdma").
 Either then runs one warm-up step, times each layer of a step with CUDA
 events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
 per march step), and traces two steps with torch.profiler: the device
@@ -29,6 +32,7 @@ from . import GridGeometry, RTModel, RunConfig, make_state, uniform_state
 from .config import MODE_BOTH_STELLAR_UVB_TRANSFER, MODE_UVB_TRANSFER_ONLY
 from .constants import KPC, MH, MYR, PSI
 from .core import chemistry, opacity, rays
+from .parallel.mesh import make_grid_mesh
 from .roofline_sweep import nvidia_smi
 
 
@@ -56,19 +60,21 @@ def _event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def _setup(n: int, level: int, mode: int):
+def _setup(n: int, level: int, mode: int, ranks: int):
     """(model, first state, StellarContext or None) of the profiled run."""
     if mode == MODE_UVB_TRANSFER_ONLY:
         box = 300.0
         cfg = RunConfig(mode=mode, current_redshift=6.55,
                         n_angular_level=level, reionization_model=10,
-                        self_shielding_threshold_kpc=0.1)
+                        self_shielding_threshold_kpc=0.1,
+                        sweep_strategy="rdma" if ranks else "auto")
         model = RTModel.setup(cfg, GridGeometry(n, n, n, box * KPC),
                               torch.float32, "cuda")
         return (model, model.initialize_equilibrium(
             galaxy_state(n, box, "cuda")), None)
-    if mode != MODE_BOTH_STELLAR_UVB_TRANSFER:
-        raise SystemExit(f"profile_step profiles modes 8 and 9, not {mode}")
+    if mode != MODE_BOTH_STELLAR_UVB_TRANSFER or ranks:
+        raise SystemExit(f"profile_step profiles modes 8 and 9 (on a mesh "
+                         f"9 only), not {mode} on {ranks} ranks")
     from .bench import bench_sources
     from .core.step import StellarContext
     from .tables import stellar
@@ -85,13 +91,14 @@ def _setup(n: int, level: int, mode: int):
     return model, state, ctx
 
 
-def main(n: int = 128, level: int = 3, mode: int = 9) -> None:
+def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
-    model, state, ctx = _setup(n, level, mode)
+    model, state, ctx = _setup(n, level, mode, ranks)
     cfg = model.config
-    step = model.make_step(ctx)
+    mesh = make_grid_mesh(ranks) if ranks else None
+    step = model.make_step(ctx, mesh=mesh)
 
     def run(s):
         return step(s)[0] if ctx is not None else step(s)
@@ -110,7 +117,7 @@ def main(n: int = 128, level: int = 3, mode: int = 9) -> None:
                       f"{t_tr / max(march, 1):.4f} ms per step)")
     kappa, t_op = _event_ms(lambda: opacity.compute_opacities(
         s0.HI, s0.HeI, s0.HeII, model.opacity_coef))
-    jmean, t_sw = _event_ms(lambda: model._run_sweep(kappa))
+    jmean, t_sw = _event_ms(lambda: model._run_sweep(kappa, mesh))
     s1 = dataclasses.replace(s0, Jmean=jmean)
     _, t_ch = _event_ms(lambda: chemistry.solve_rate_equations(
         s1, model.geom, model.dev_tables, ksi_matrix=model.ksi_matrix,
@@ -119,8 +126,10 @@ def main(n: int = 128, level: int = 3, mode: int = 9) -> None:
         run_uvb_transfer=True, n_iter=60))
     layers += [f"opacity {t_op:.3f} ms", f"sweep {t_sw:.3f} ms",
                f"chemistry {t_ch:.3f} ms"]
-    print(f"mode {mode} layers at {n}^3 x {model.sweep_plan.n_directions} "
-          f"dirs f32: {', '.join(layers)}; card {smi}")
+    where = f" on {ranks} ranks (rdma)" if ranks else ""
+    print(f"mode {mode}{where} layers at {n}^3 x "
+          f"{model.sweep_plan.n_directions} dirs f32: {', '.join(layers)}; "
+          f"card {smi}")
 
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
@@ -139,10 +148,11 @@ def main(n: int = 128, level: int = 3, mode: int = 9) -> None:
         reach = max(reach, end)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=15))
-    print(f"mode {mode}, 2 steps: wall {wall * 1e3:.3f} ms, device busy "
-          f"{device_us / 1e3:.3f} ms ({100 * device_us / 1e6 / wall:.1f}% "
-          f"of wall), {len(spans) / 2:.0f} device kernels per step, peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+    print(f"mode {mode}{where}, 2 steps: wall {wall * 1e3:.3f} ms, device "
+          f"busy {device_us / 1e3:.3f} ms "
+          f"({100 * device_us / 1e6 / wall:.1f}% of wall), "
+          f"{len(spans) / 2:.0f} device kernels per step, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
           f"GiB; card {smi}")
 
 

@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA device: the hand-written sweep, per-zone sweep,
-sweep-experiment, scatter and probe kernels against their plain PyTorch
-versions, the tracer against its CPU run, and the mode-9 and mode-8 steps
-through the sweep kernel.  Every test needs a
+ring sweep, sweep-experiment, scatter and probe kernels against their plain
+PyTorch versions, the tracer against its CPU run, and the mode-9 and mode-8
+steps through the sweep kernel (mode 9 also on a mesh through the ring
+kernel).  Every test needs a
 card and skips without one.  This file imports no JAX, so on a machine
 without it run it past tests/conftest.py:
 
@@ -26,6 +27,8 @@ from radiativetransfer_tpu_torch.core import (
     sweep_cuda,
     variants_cuda,
 )
+from radiativetransfer_tpu_torch.parallel import mesh as pmesh
+from radiativetransfer_tpu_torch.parallel import sweep_rdma
 from radiativetransfer_tpu_torch.tables import stellar
 
 pytestmark = pytest.mark.cuda
@@ -274,3 +277,62 @@ def test_scatter_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         scatter_cuda.scatter_rows(acc, idx,
                                   torch.ones(8, 4, device=card).t())
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("level,n,p", [(1, 8, 1), (1, 8, 2), (2, 6, 3),
+                                       (2, 8, 4)])
+def test_rdma_kernel_matches_plain_version(card, level, n, p, dtype, rtol):
+    # rtol: the same ops per cell, the directions summed by atomics
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(level, n)
+    mesh = pmesh.make_grid_mesh(p)
+    before = sweep_rdma.RDMA_LAUNCHES
+    j = sweep_rdma.diffuse_sweep_rdma(kappa, plan, UVB, KPC, mesh)
+    torch.cuda.synchronize()
+    assert sweep_rdma.RDMA_LAUNCHES == before + len(plan.zones)
+    ref = sweep_rdma.diffuse_sweep_rdma_reference(kappa, plan, UVB, KPC, mesh)
+    np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("plane_memory", ["shared", "global"])
+def test_rdma_kernel_plane_memory(card, plane_memory):
+    kappa = _kappa(8, torch.float32, card)
+    plan = sweep.build_sweep_plan(2, 8)
+    mesh = pmesh.make_grid_mesh(2)
+    j = sweep_rdma.diffuse_sweep_rdma(kappa, plan, UVB, KPC, mesh,
+                                      plane_memory=plane_memory)
+    ref = sweep_rdma.diffuse_sweep_rdma_reference(kappa, plan, UVB, KPC, mesh)
+    np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=2e-6)
+
+
+def test_rdma_kernel_refuses_grid_that_cannot_be_resident(card):
+    # 2 ranks of a 128^3 float64 field at level 4: 3 planes of 128 x 64
+    # take 192 KiB of shared memory, one CTA per SM, and zone 1's 31
+    # directions x 3 bands x 2 ranks are 186 CTAs > the card's 132 SMs
+    zone = sweep.build_sweep_plan(4, 128).zones[0]
+    blocks = torch.rand((2, 128, 3, 128, 64), dtype=torch.float64,
+                        device=card)
+    before = sweep_rdma.RDMA_LAUNCHES
+    with pytest.raises(RuntimeError, match="co-resident"):
+        sweep_rdma.sweep_zone_rdma_kernel(blocks, zone, UVB, KPC, 1 / 768,
+                                          plane_memory="shared")
+    assert sweep_rdma.RDMA_LAUNCHES == before
+
+
+@pytest.mark.parametrize("strategy", ["rdma", "pipelined", "zones"])
+def test_mode9_step_on_mesh(card, strategy):
+    cfg = rt.RunConfig(mode=MODE_UVB_TRANSFER_ONLY, current_redshift=6.55,
+                       n_angular_level=1, reionization_model=10,
+                       sweep_strategy=strategy)
+    model = rt.RTModel.setup(cfg, rt.GridGeometry(24, 24, 24, 200.0 * KPC),
+                             torch.float32, card)
+    mesh = pmesh.make_grid_mesh(4)
+    state = pmesh.shard_state(rt.uniform_state(24, nh=1e-4, tgas=2e4,
+                                               device="cpu"), mesh)
+    before = sweep_rdma.RDMA_LAUNCHES
+    nf = model.neutral_fraction(model.make_step(mesh=mesh)(state))
+    assert sweep_rdma.RDMA_LAUNCHES == before + (
+        len(model.sweep_plan.zones) if strategy == "rdma" else 0)
+    assert nf == pytest.approx(0.044220, rel=1e-4)

@@ -135,6 +135,9 @@ _PORT_MODULES = (
     "radiativetransfer_tpu_torch.core.step",
     "radiativetransfer_tpu_torch.core.sweep_cuda",
     "radiativetransfer_tpu_torch.core.variants_cuda",
+    "radiativetransfer_tpu_torch.parallel.mesh",
+    "radiativetransfer_tpu_torch.parallel.sweep_dist",
+    "radiativetransfer_tpu_torch.parallel.sweep_rdma",
     "radiativetransfer_tpu_torch.tables.dust",
     "radiativetransfer_tpu_torch.tables.stellar",
 )

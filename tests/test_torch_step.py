@@ -24,6 +24,7 @@ from radiativetransfer_tpu_torch.config import (
 )
 from radiativetransfer_tpu_torch.constants import KPC, MH, MYR, PSI
 from radiativetransfer_tpu_torch.core import rays as trays
+from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
 
 # neutral fractions of one f32 step on the 24^3 anchor setup, as the JAX
@@ -131,10 +132,15 @@ def test_unported_paths_raise():
     geom = rt.GridGeometry(4, 4, 4, 50.0 * KPC)
     tm = rt.RTModel.setup(_cfg(), geom, torch.float64, "cpu")
     state = rt.uniform_state(4, dtype=torch.float64, device="cpu")
+    # a 1-D mesh runs (tests/test_torch_parallel.py); point sources on a
+    # mesh and 2-D meshes are item 15
+    mesh = make_grid_mesh(2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        tm.make_step(stellar=object(), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        make_grid_mesh(shape=(2, 2), device="cpu")
+    with pytest.raises(TypeError, match="GridMesh"):
         tm.transport_chemistry_step(state, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tm.make_step(stellar=object(), mesh=object())
     base = tm.config
     tm.config = dataclasses.replace(base, tracer_compact=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
@@ -143,7 +149,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tm.make_step(stellar=object())
     tm.config = dataclasses.replace(base, sweep_strategy="zones")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tm.make_step()(state)
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         rt.StellarContext.build(tstellar.blackbody_population(),
