@@ -13,14 +13,23 @@ line or more each; any failure raises and the script exits non-zero:
 1. probe: torch, CUDA, the device, its power limit, nvcc, triton;
 2. build every kernel source of radiativetransfer_tpu_torch/csrc/, one
    nvcc each, started together (timed);
-3. sweep kernel vs plain version on the device, float32 (and float64), both
-   logmean forms, both plane memories, up to 128^3 x 192 directions;
-4. the 24^3 mode-9 anchor: one f32 step, neutral fraction 0.044220 +-1e-4;
+3. the sweep kernels vs their plain version on the device, float32 and
+   float64, both logmean forms: the plane kernel (csrc/sweep_merged.cu)
+   in both plane memories and at 128^3 and 256^3 x 192 directions; the
+   cluster kernel (csrc/sweep_cluster.cu) in every launch shape that
+   fits, at small sizes with ragged row bands and groups, and at 128^3
+   and 256^3 x 192; both at 128^3 x 192 in float64;
+4. the 24^3 mode-9 anchor: one f32 step, neutral fraction 0.044220 +-1e-4,
+   through the cluster kernel;
 5. the mode-9 path at 128^3 x 192 directions: initialize_equilibrium and 3
-   steps, each timed, with the kernel's launch count; step 1 against the
+   steps, each timed, with the cluster kernel's launch count (and none of
+   the plane kernel's); step 1 against the
    plain slab scan;
-6. the sweep alone at 128^3 and 256^3 x 192 directions, kernel and plain
-   version, in cells*angles/s;
+6. the sweep alone at 128^3 and 256^3 x 192 directions in float32 and at
+   128^3 in float64: the plane kernel and the cluster kernel in the size
+   rule's shape timed in turns (plane, cluster, cluster, plane), every
+   launch shape that fits with its resident clusters and waves, and the
+   plain version, in cells*angles/s;
 7. the probe kernel vs its plain version for every body at 64^3, then the
    roofline script (python -m radiativetransfer_tpu_torch.roofline_sweep)
    at 256^3: stream GB/s, the exp, div and fma rates, the sweep's bound;
@@ -37,7 +46,7 @@ line or more each; any failure raises and the script exits non-zero:
     plain slab scan at level 1 n 8 and level 2 n 6 (f32, f64), and at 128^3
     x 192 against its plain version and the slab scan, one launch per zone;
     the 24 zone kernels timed alone on fields rotated beforehand, beside
-    the wrapper with its rotations and the merged kernel;
+    the wrapper with its rotations and the shipped sweep;
 12. the two-slab sweep (kernel #6) against its plain version at 64^3 and
     128^3 x 192, then python -m radiativetransfer_tpu_torch.exp_sweep_pair
     at 256^3, where the kernel's global-scratch planes are held to its
@@ -54,8 +63,8 @@ line or more each; any failure raises and the script exits non-zero:
     the ring sweep (kernel #3) on 4 ranks; the ring at level 1 and 2, n 8,
     P = 1, 2, 4, 8 against the pipelined plain version and the slab scan;
     at 128^3 x 192 (P = 1, 2, 4) and 256^3 (P = 4) against its plain
-    version, its 24 kernels timed alone beside the wrapper, the merged
-    kernel and the per-zone sweep; 3 mode-9 steps at 128^3 x 192 on 4
+    version, its 24 kernels timed alone beside the wrapper, the shipped
+    sweep and the per-zone sweep; 3 mode-9 steps at 128^3 x 192 on 4
     ranks through the ring (24 launches each), step 1 against the same
     step on one rank and against one device's; one step each of the
     pipelined and zones strategies at 64^3, held the same way; and a ring
@@ -68,6 +77,7 @@ without a CUDA device.  Needs no JAX and no network.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -131,7 +141,27 @@ def phase_probe() -> str:
     return smi
 
 
+def _ptxas_kernels(log: str) -> dict[str, tuple[int, int]]:
+    """{mangled kernel name: (registers, spill store bytes)} of nvcc's
+    -Xptxas -v output."""
+    import re
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+    return out
+
+
 def phase_build() -> None:
+    import re
+
     from radiativetransfer_tpu_torch.core import cuda_build
     t0 = time.perf_counter()
     cuda_build.build()
@@ -140,6 +170,20 @@ def phase_build() -> None:
                       for n in cuda_build.SOURCES)
     print(f"[2 build] {names} in {dt:.2f} s")
     for name, log in cuda_build.BUILD_LOG.items():
+        if name == "sweep_cluster":
+            # one entry per <dtype, clamped, G, cells per thread>
+            cells = []
+            for kname, (regs, spill) in _ptxas_kernels(log).items():
+                m = re.search(r"sweep_cluster_kernelI([fd])Lb([01])ELi(\d+)"
+                              r"ELi(\d+)E", kname)
+                if m:
+                    t, cl, g, cpt = m.groups()
+                    cells.append(f"{'f32' if t == 'f' else 'f64'}"
+                                 f"{' clamped' if cl == '1' else ''} G{g} "
+                                 f"CPT{cpt}: {regs} regs, {spill} B spill")
+            print(f"[2 build] sweep_cluster ({len(cells)} kernels): "
+                  f"{'; '.join(cells)}")
+            continue
         for line in log.splitlines():
             if "ptxas info" in line and ("Used" in line
                                          or "Compiling" in line):
@@ -148,8 +192,14 @@ def phase_build() -> None:
 
 def phase_kernel_vs_plain() -> dict:
     from radiativetransfer_tpu_torch.constants import KPC
-    from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.core import (
+        sweep,
+        sweep_cluster,
+        sweep_cuda,
+    )
+    from radiativetransfer_tpu_torch.exp_sweep_cluster import shapes_at
     uvb = np.array([1.0, 0.5, 0.25])
+    # the plane kernel (csrc/sweep_merged.cu), both plane memories
     cases = []
     for level, n in [(1, 8), (2, 6)]:
         for lm in ("exact", "clamped"):
@@ -159,15 +209,41 @@ def phase_kernel_vs_plain() -> dict:
     for level, n, dtype, lm, mem, rtol in cases:
         kappa = _kappa(n, dtype)
         plan = sweep.build_sweep_plan(level, n)
-        out = sweep_cuda.diffuse_sweep_kernel(kappa, plan, uvb, KPC, lm,
-                                              plane_memory=mem)
+        out = sweep_cuda.diffuse_sweep_plane_kernel(kappa, plan, uvb, KPC, lm,
+                                                    plane_memory=mem)
         torch.cuda.synchronize()
         ref = sweep_cuda.diffuse_sweep_merged_reference(kappa, plan, uvb, KPC,
                                                         lm)
         err_abs, err_rel = _rel_err(out, ref)
-        print(f"[3 kernel] level {level} n {n} {dtype} {lm} {mem}: max abs "
-              f"{err_abs:.3e} max rel {err_rel:.3e} (rtol {rtol:g})")
+        print(f"[3 kernel] plane kernel level {level} n {n} {dtype} {lm} "
+              f"{mem}: max abs {err_abs:.3e} max rel {err_rel:.3e} (rtol "
+              f"{rtol:g})")
         assert err_rel <= rtol, (level, n, dtype, lm, mem, err_rel)
+
+    # the cluster kernel in every launch shape that fits, ragged row bands
+    # (n 6, 7) and ragged groups included
+    cluster_abs = 0.0
+    for level, n in [(1, 8), (2, 6), (2, 7)]:
+        plan = sweep.build_sweep_plan(level, n)
+        for dtype, rtol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
+            kappa = _kappa(n, dtype)
+            for lm in ("exact", "clamped"):
+                ref = sweep_cuda.diffuse_sweep_merged_reference(
+                    kappa, plan, uvb, KPC, lm)
+                worst = (0.0, 0.0)
+                shapes = shapes_at(n, dtype)
+                for shape in shapes:
+                    out = sweep_cluster.diffuse_sweep_cluster_kernel(
+                        kappa, plan, uvb, KPC, lm, shape)
+                    torch.cuda.synchronize()
+                    e = _rel_err(out, ref)
+                    assert e[1] <= rtol, (level, n, dtype, lm, shape, e)
+                    worst = max(worst, e, key=lambda x: x[1])
+                cluster_abs = max(cluster_abs, worst[0])
+                print(f"[3 kernel] cluster kernel level {level} n {n} "
+                      f"{dtype} {lm}, {len(shapes)} launch shapes: max abs "
+                      f"{worst[0]:.3e} max rel {worst[1]:.3e} (rtol "
+                      f"{rtol:g})")
 
     # transparent box: Jmean == uvb in every cell and band
     n = 6
@@ -176,29 +252,49 @@ def phase_kernel_vs_plain() -> dict:
     ref = torch.tensor(uvb, dtype=torch.float32, device=DEVICE)[
         :, None, None, None].expand(3, n, n, n)
     for lm, tol in (("exact", 1e-5), ("clamped", 2e-4)):
-        out = sweep_cuda.diffuse_sweep_kernel(kappa, plan, uvb, KPC, lm)
-        err_abs, err_rel = _rel_err(out, ref)
-        print(f"[3 kernel] transparent box {lm}: max abs {err_abs:.3e} max "
-              f"rel {err_rel:.3e} (tol {tol:g})")
-        assert err_rel <= tol, (lm, err_rel)
+        for fn in (sweep_cuda.diffuse_sweep_kernel,
+                   sweep_cuda.diffuse_sweep_plane_kernel):
+            out = fn(kappa, plan, uvb, KPC, lm)
+            err_abs, err_rel = _rel_err(out, ref)
+            print(f"[3 kernel] transparent box {fn.__name__} {lm}: max abs "
+                  f"{err_abs:.3e} max rel {err_rel:.3e} (tol {tol:g})")
+            assert err_rel <= tol, (lm, err_rel)
 
-    # the main path's shape; the tolerance covers 192-term atomic sums
-    # taken in another order than the plain version's
-    n, level = MAIN_N, MAIN_LEVEL
-    plan = sweep.build_sweep_plan(level, n)
-    kappa = _kappa(n)
-    result = {}
-    for lm in ("exact", "clamped"):
-        out = sweep_cuda.diffuse_sweep_kernel(kappa, plan, uvb, KPC, lm)
-        torch.cuda.synchronize()
+    # the main path's shape (the plane kernel's shared planes) and 256^3
+    # (the plane kernel's global scratch) in f32, every launch shape in the
+    # clamped form; the tolerance covers 192-term atomic sums taken in
+    # another order than the plain version's.  128^3 in f64, phase 6's
+    # (both kernels' planes too large for the plane kernel's shared memory)
+    result = {"plane": 0.0, "cluster": 0.0}
+    cases = [(n, torch.float32, lm, 1e-5) for n in TIMING_NS
+             for lm in ("exact", "clamped")]
+    cases.append((MAIN_N, torch.float64, "exact", 1e-12))
+    for n, dtype, lm, rtol in cases:
+        plan = sweep.build_sweep_plan(MAIN_LEVEL, n)
+        kappa = _kappa(n, dtype)
         ref = sweep_cuda.diffuse_sweep_merged_reference(kappa, plan, uvb, KPC,
                                                         lm)
-        err_abs, err_rel = _rel_err(out, ref)
-        print(f"[3 kernel] {n}^3 x {plan.n_directions} dirs f32 {lm} "
-              f"({sweep_cuda.plane_memory_for(n, torch.float32)} planes): "
-              f"max abs {err_abs:.3e} max rel {err_rel:.3e} (tol 1e-5)")
-        assert torch.isfinite(out).all() and err_rel <= 1e-5, (lm, err_rel)
-        result[lm] = err_abs
+        runs = [("cluster", s, functools.partial(
+            sweep_cluster.diffuse_sweep_cluster_kernel, shape=s))
+            for s in shapes_at(n, dtype)[:None if lm == "clamped" else 1]]
+        runs.append(("plane", None, sweep_cuda.diffuse_sweep_plane_kernel))
+        for name, shape, fn in runs:
+            out = fn(kappa, plan, uvb, KPC, lm)
+            torch.cuda.synchronize()
+            err_abs, err_rel = _rel_err(out, ref)
+            what = (f"cluster kernel C {shape.csize} G {shape.group} "
+                    f"{shape.threads} x {shape.cpt}" if shape
+                    else "plane kernel "
+                    f"({sweep_cuda.plane_memory_for(n, dtype)} planes)")
+            print(f"[3 kernel] {n}^3 x {plan.n_directions} dirs {dtype} {lm} "
+                  f"{what}: max abs {err_abs:.3e} max rel {err_rel:.3e} "
+                  f"(tol {rtol:g})")
+            assert torch.isfinite(out).all() and err_rel <= rtol, (
+                n, dtype, lm, what, err_rel)
+            if lm == "clamped":
+                result[name] = max(result[name], err_abs)
+        del ref, out
+    result["cluster"] = max(result["cluster"], cluster_abs)
     return result
 
 
@@ -213,32 +309,44 @@ def _rtmodel(n, level, box_kpc, device, **cfg_kw):
     return rt.RTModel.setup(cfg, geom, torch.float32, device)
 
 
+def _sweep_launches() -> tuple[int, int]:
+    """(cluster kernel, plane kernel) launches so far."""
+    from radiativetransfer_tpu_torch.core import sweep_cluster, sweep_cuda
+    return sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES
+
+
+def _zero_sweep_launches() -> None:
+    from radiativetransfer_tpu_torch.core import sweep_cluster, sweep_cuda
+    sweep_cluster.LAUNCHES = 0
+    sweep_cuda.LAUNCHES = 0
+
+
 def phase_anchor() -> None:
     import radiativetransfer_tpu_torch as rt
-    from radiativetransfer_tpu_torch.core import sweep_cuda
     model = _rtmodel(24, 1, 200.0, DEVICE)
     state = rt.uniform_state(24, nh=1e-4, tgas=2e4, dtype=torch.float32,
                              device=DEVICE)
-    before = sweep_cuda.LAUNCHES
+    before = _sweep_launches()
     out = model.transport_chemistry_step(state)
     nf = model.neutral_fraction(out)
     rel = abs(nf - ANCHOR_NF) / ANCHOR_NF
+    launches = tuple(a - b for a, b in zip(_sweep_launches(), before))
     print(f"[4 anchor] 24^3 level 1 f32 mode 9: neutral fraction {nf:.7f} "
-          f"vs {ANCHOR_NF} (rel {rel:.2e}, tol {ANCHOR_RTOL:g}); kernel "
-          f"launches {sweep_cuda.LAUNCHES - before}")
-    assert sweep_cuda.LAUNCHES - before == 1
+          f"vs {ANCHOR_NF} (rel {rel:.2e}, tol {ANCHOR_RTOL:g}); cluster, "
+          f"plane kernel launches {launches}")
+    assert launches == (1, 0)
     assert rel <= ANCHOR_RTOL, (nf, rel)
 
 
 def phase_main_path() -> int:
-    from radiativetransfer_tpu_torch.core import sweep_cuda
+    from radiativetransfer_tpu_torch.core import sweep_cluster, sweep_cuda
     from radiativetransfer_tpu_torch.profile_step import galaxy_state
     n, level, box = MAIN_N, MAIN_LEVEL, 300.0
     model = _rtmodel(n, level, box, DEVICE, self_shielding_threshold_kpc=0.1)
     # the synthetic galaxy of examples/make_test_data.py at n^3: a
     # self-shielded core, so the sweep sees real structure
     state = galaxy_state(n, box, DEVICE)
-    sweep_cuda.LAUNCHES = 0
+    _zero_sweep_launches()
     t0 = time.perf_counter()
     state = model.initialize_equilibrium(state)
     torch.cuda.synchronize()
@@ -249,7 +357,7 @@ def phase_main_path() -> int:
     step = model.make_step()
     nfs = []
     for it in range(1, 4):
-        before = sweep_cuda.LAUNCHES
+        before = sweep_cluster.LAUNCHES
         t0 = time.perf_counter()
         state = step(state)
         torch.cuda.synchronize()
@@ -257,11 +365,13 @@ def phase_main_path() -> int:
         nf = model.neutral_fraction(state)
         nfs.append(nf)
         print(f"[5 main] step {it}: neutral fraction {nf:.7f} wall "
-              f"{dt:.4f} s, sweep_cuda.LAUNCHES {sweep_cuda.LAUNCHES}")
+              f"{dt:.4f} s, sweep_cluster.LAUNCHES {sweep_cluster.LAUNCHES}, "
+              f"sweep_cuda.LAUNCHES {sweep_cuda.LAUNCHES}")
         assert np.isfinite(nf) and 0.0 <= nf <= 1.0, nf
         assert bool(torch.isfinite(state.HI).all())
-        assert sweep_cuda.LAUNCHES > before, "the step did not launch"
-    launches = sweep_cuda.LAUNCHES
+        assert sweep_cluster.LAUNCHES > before, "the step did not launch"
+    launches = sweep_cluster.LAUNCHES
+    assert sweep_cuda.LAUNCHES == 0, "the main path took the plane kernel"
 
     scan = _rtmodel(n, level, box, DEVICE, self_shielding_threshold_kpc=0.1,
                     use_pallas_sweep=False)
@@ -276,32 +386,31 @@ def phase_main_path() -> int:
     return launches
 
 
-def phase_timings(smi: str) -> dict:
-    from radiativetransfer_tpu_torch.constants import KPC
-    from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
-    from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
-    uvb = np.array([1.0, 0.5, 0.25])
-    out = {}
+def phase_timings() -> dict:
+    """6: the sweep alone through python -m
+    radiativetransfer_tpu_torch.exp_sweep_cluster: the plane kernel
+    (csrc/sweep_merged.cu) and the cluster kernel in the size rule's shape
+    timed in turns (plane, cluster, cluster, plane), then every launch
+    shape of the cluster kernel that fits, with its resident clusters and
+    waves; the plain version; at TIMING_NS in float32 and MAIN_N in
+    float64."""
+    from radiativetransfer_tpu_torch import exp_sweep_cluster
+    from radiativetransfer_tpu_torch.core import sweep_cluster, sweep_cuda
+    _zero_sweep_launches()
+    out = exp_sweep_cluster.main(TIMING_NS, MAIN_LEVEL, (MAIN_N,))
+    out["launches"] = {"plane": sweep_cuda.LAUNCHES,
+                       "cluster": sweep_cluster.LAUNCHES}
     for n in TIMING_NS:
-        plan = sweep.build_sweep_plan(MAIN_LEVEL, n)
-        kappa = _kappa(n)
-        ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
-            kappa, plan, uvb, KPC, "clamped"), reps=5)
-        plain_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_merged_reference(
-            kappa, plan, uvb, KPC, "clamped"), reps=2)
-        cells_angles = n ** 3 * plan.n_directions
-        err_abs, err_rel = _rel_err(
-            sweep_cuda.diffuse_sweep_kernel(kappa, plan, uvb, KPC, "clamped"),
-            sweep_cuda.diffuse_sweep_merged_reference(kappa, plan, uvb, KPC,
-                                                      "clamped"))
-        print(f"[6 timing] sweep {n}^3 x {plan.n_directions} dirs f32 "
-              f"clamped ({sweep_cuda.plane_memory_for(n, torch.float32)} "
-              f"planes): kernel {ms:.3f} ms = {cells_angles / ms * 1e3:.4e} "
-              f"cells*angles/s; plain {plain_ms:.3f} ms = "
-              f"{cells_angles / plain_ms * 1e3:.4e} cells*angles/s; "
-              f"kernel vs plain max rel {err_rel:.3e}; card {smi}")
-        assert err_rel <= 1e-5, (n, err_rel)
-        out[n] = (ms, plain_ms)
+        t = out[n]
+        print(f"[6 timing] {n}^3: cluster kernel {t['cluster_ms']:.3f} ms, "
+              f"plane kernel {t['plane_ms']:.3f} ms "
+              f"({t['plane_ms'] / t['cluster_ms']:.2f}x); launches "
+              f"{out['launches']}")
+        assert t["cluster_ms"] > 0 and t["plane_ms"] > 0
+    t = out["f64"][MAIN_N]
+    print(f"[6 timing] {MAIN_N}^3 f64: cluster kernel {t['cluster_ms']:.3f} "
+          f"ms, plane kernel {t['plane_ms']:.3f} ms "
+          f"({t['plane_ms'] / t['cluster_ms']:.2f}x)")
     return out
 
 
@@ -339,12 +448,13 @@ def phase_probes() -> dict:
     del xb
 
     probes_cuda.LAUNCHES.clear()
-    sweep_cuda.LAUNCHES = 0
+    _zero_sweep_launches()
     roof = roofline_sweep.main(ROOF_N, MAIN_LEVEL)
     launches = dict(probes_cuda.LAUNCHES)
-    sweep_launches = sweep_cuda.LAUNCHES
-    print(f"[7 probes] roofline_sweep launches {launches}, sweep "
-          f"{sweep_launches}")
+    sweep_launches, plane_launches = _sweep_launches()
+    print(f"[7 probes] roofline_sweep launches {launches}, cluster sweep "
+          f"{sweep_launches}, plane sweep {plane_launches}")
+    assert plane_launches == 0
     for key in probes_cuda.PLANE_PROBES:
         assert launches.get(key, 0) > 0, f"roofline did not launch {key}"
     assert sweep_launches > 0, "roofline did not launch the sweep"
@@ -397,15 +507,15 @@ def phase_anchor8() -> None:
                               stellar.blackbody_population(), 2)
     state = rt.uniform_state(24, nh=1e-4, tgas=2e4, dtype=torch.float32,
                              device=DEVICE)
-    before = sweep_cuda.LAUNCHES
+    before = _sweep_launches()
     out, diag = model.make_step(ctx)(state)
     nf = model.neutral_fraction(out)
     rel = abs(nf - ANCHOR8_NF) / ANCHOR8_NF
+    launches = tuple(a - b for a, b in zip(_sweep_launches(), before))
     print(f"[8 anchor] 24^3 level 1 f32 mode 8, 11 sources: neutral "
           f"fraction {nf:.7f} vs {ANCHOR8_NF} (rel {rel:.2e}, tol "
-          f"{ANCHOR_RTOL:g}); sweep launches "
-          f"{sweep_cuda.LAUNCHES - before}")
-    assert sweep_cuda.LAUNCHES - before == 1
+          f"{ANCHOR_RTOL:g}); cluster, plane sweep launches {launches}")
+    assert launches == (1, 0)
     assert bool(torch.isfinite(diag.ndot_remaining).all())
     assert rel <= ANCHOR_RTOL, (nf, rel)
 
@@ -413,7 +523,11 @@ def phase_anchor8() -> None:
 def phase_mode8() -> int:
     import radiativetransfer_tpu_torch as rt
     from radiativetransfer_tpu_torch.bench import bench_sources
-    from radiativetransfer_tpu_torch.core import rays, sweep_cuda
+    from radiativetransfer_tpu_torch.core import (
+        rays,
+        sweep_cluster,
+        sweep_cuda,
+    )
     from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
     from radiativetransfer_tpu_torch.tables import stellar
     n, level, box = MAIN_N, MAIN_LEVEL, 2000.0
@@ -425,10 +539,10 @@ def phase_mode8() -> int:
     init_state = state
     step = model.make_step(ctx)
     torch.cuda.reset_peak_memory_stats()
-    sweep_cuda.LAUNCHES = 0
+    _zero_sweep_launches()
     nfs = []
     for it in range(1, 4):
-        before = sweep_cuda.LAUNCHES
+        before = sweep_cluster.LAUNCHES
         t0 = time.perf_counter()
         state, diag = step(state)
         torch.cuda.synchronize()
@@ -437,13 +551,14 @@ def phase_mode8() -> int:
         nfs.append(nf)
         print(f"[9 mode8] {n}^3 x {model.sweep_plan.n_directions} dirs "
               f"f32 mode 8, {MODE8_SOURCES} sources: step {it} neutral "
-              f"fraction {nf:.7f} wall {dt:.4f} s, sweep_cuda.LAUNCHES "
-              f"{sweep_cuda.LAUNCHES}")
+              f"fraction {nf:.7f} wall {dt:.4f} s, sweep_cluster.LAUNCHES "
+              f"{sweep_cluster.LAUNCHES}")
         assert np.isfinite(nf) and 0.0 <= nf <= 1.0, nf
         assert bool(torch.isfinite(state.HI).all())
         assert bool(torch.isfinite(diag.ndot_remaining).all())
-        assert sweep_cuda.LAUNCHES == before + 1, "the step did not launch"
-    launches = sweep_cuda.LAUNCHES
+        assert sweep_cluster.LAUNCHES == before + 1, "the step did not launch"
+    launches = sweep_cluster.LAUNCHES
+    assert sweep_cuda.LAUNCHES == 0, "the step took the plane kernel"
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # the tracer apart, on the state of step 3, by CUDA events
@@ -471,10 +586,11 @@ def phase_mode8() -> int:
 def phase_bench() -> dict:
     from radiativetransfer_tpu_torch import bench
     from radiativetransfer_tpu_torch.core import probes_cuda, sweep_cuda
-    sweep_cuda.LAUNCHES = 0
+    _zero_sweep_launches()
     probes_cuda.LAUNCHES.clear()
     records = bench.main()
-    launches = {"sweep": sweep_cuda.LAUNCHES,
+    assert sweep_cuda.LAUNCHES == 0, "the bench took the plane kernel"
+    launches = {"sweep": _sweep_launches()[0],
                 "probes": dict(probes_cuda.LAUNCHES)}
     print(f"[10 bench] {len(records)} lines; launches {launches}")
     assert [r["unit"] for r in records] == ["cells*angles/s", "rays/s",
@@ -538,7 +654,7 @@ def phase_zones() -> dict:
     del krots
     wrapper_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_zones_kernel(
         kappa, plan, uvb, KPC), reps=3)
-    merged_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
+    ship_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
         kappa, plan, uvb, KPC, "exact"), reps=3)
     ca = n ** 3 * plan.n_directions
     print(f"[11 zones] {n}^3 x {plan.n_directions} dirs f32: "
@@ -548,10 +664,10 @@ def phase_zones() -> dict:
           f"(tol 1e-4); the 24 zone kernels {ms:.3f} ms = "
           f"{ca / ms * 1e3:.4e} cells*angles/s (plain versions "
           f"{plain_ms:.3f} ms), diffuse_sweep_zones_kernel with its "
-          f"rotations {wrapper_ms:.3f} ms, merged kernel (exact) "
-          f"{merged_ms:.3f} ms")
+          f"rotations {wrapper_ms:.3f} ms, the shipped sweep (cluster "
+          f"kernel, exact) {ship_ms:.3f} ms")
     return {"launches": launches, "max_abs_err": err_abs, "ms": ms,
-            "wrapper_ms": wrapper_ms, "merged_ms": merged_ms,
+            "wrapper_ms": wrapper_ms, "ship_ms": ship_ms,
             "plain_ms": plain_ms}
 
 
@@ -580,47 +696,44 @@ def _check_at_main_widths(name, kernel, plain) -> float:
 def phase_pair() -> dict:
     """12: the two-slab sweep (kernel #6), then its experiment at 256^3."""
     from radiativetransfer_tpu_torch import exp_sweep_pair
-    from radiativetransfer_tpu_torch.core import sweep_cuda, variants_cuda
+    from radiativetransfer_tpu_torch.core import variants_cuda
     err = _check_at_main_widths("12 pair", variants_cuda.sweep_pair,
                                 variants_cuda.sweep_pair_reference)
     variants_cuda.LAUNCHES.clear()
-    sweep_cuda.LAUNCHES = 0
+    _zero_sweep_launches()
     res = exp_sweep_pair.main(ROOF_N, MAIN_LEVEL)
     launches = variants_cuda.LAUNCHES["pair"]
+    ship, plane = _sweep_launches()
     # at ROOF_N the planes no longer fit shared memory: the experiment's
-    # plain run holds the kernel's global-scratch branch to the same 1e-5
-    print(f"[12 pair] exp_sweep_pair launches: pair {launches}, merged "
-          f"{sweep_cuda.LAUNCHES}; at {ROOF_N}^3 vs the plain version max "
-          f"rel {res['max_rel_err']:.3e} (tol 1e-5)")
-    assert launches > 0 and sweep_cuda.LAUNCHES > 0
+    # plain run holds the kernel's global-scratch branch to the same 1e-5;
+    # "ship" is the shipped sweep, the cluster kernel
+    print(f"[12 pair] exp_sweep_pair launches: pair {launches}, cluster "
+          f"sweep {ship}; at {ROOF_N}^3 vs the plain version max rel "
+          f"{res['max_rel_err']:.3e} (tol 1e-5)")
+    assert launches > 0 and ship > 0 and plane == 0
     assert res["max_rel_err"] <= 1e-5, res["max_rel_err"]
-    return {**res, "launches": launches, "sweep_launches": sweep_cuda.LAUNCHES,
+    return {**res, "launches": launches, "sweep_launches": ship,
             "max_abs_err": max(err, res["max_abs_err"])}
 
 
 def phase_variants() -> dict:
     """13: every lean variant (kernel #7), then the experiment at 256^3 and
     the FP32 instructions per MUFU of expf and exp2f in the SASS."""
-    import functools
-
     from radiativetransfer_tpu_torch import exp_sweep_variants
-    from radiativetransfer_tpu_torch.core import (
-        probes_cuda,
-        sweep_cuda,
-        variants_cuda,
-    )
+    from radiativetransfer_tpu_torch.core import probes_cuda, variants_cuda
     errs = {}
     for v in variants_cuda.VARIANTS:
         errs[v] = _check_at_main_widths(
             f"13 {v}", functools.partial(variants_cuda.lean_sweep, variant=v),
             functools.partial(variants_cuda.lean_sweep_reference, variant=v))
     variants_cuda.LAUNCHES.clear()
-    sweep_cuda.LAUNCHES = 0
+    _zero_sweep_launches()
     res = exp_sweep_variants.main(ROOF_N, MAIN_LEVEL)
     launches = {v: variants_cuda.LAUNCHES[v] for v in variants_cuda.VARIANTS}
-    print(f"[13 variants] exp_sweep_variants launches {launches}, merged "
-          f"{sweep_cuda.LAUNCHES}")
-    assert all(c > 0 for c in launches.values())
+    ship, plane = _sweep_launches()
+    print(f"[13 variants] exp_sweep_variants launches {launches}, cluster "
+          f"sweep {ship}")
+    assert all(c > 0 for c in launches.values()) and ship > 0 and plane == 0
     for body, m in res["sass_probes"].items():
         assert m["mufu"] > 0 and m["fp32_per_mufu"] == \
             probes_cuda.FP32_PER_STEP[body], (body, m)
@@ -630,7 +743,7 @@ def phase_variants() -> dict:
         assert r["max_rel_err"] <= 1e-5, (v, r["max_rel_err"])
         errs[v] = max(errs[v], r["max_abs_err"])
     return {**res, "launches": launches, "errs": errs,
-            "sweep_launches": sweep_cuda.LAUNCHES}
+            "sweep_launches": ship}
 
 
 def phase_scatter() -> dict:
@@ -711,9 +824,9 @@ def _mesh_step_check(label, model, out, init, one_device, tol=1e-4) -> None:
     same arithmetic and tables, no halo: Jmean within tol elementwise) and
     against one device's "auto" step with the exact logmean (the neutral
     fraction within tol relative, Jmean within tol of its peak: the merged
-    kernel rounds the exact logmean's (1 - a)/tau otherwise, and in
+    sweep kernels round the exact logmean's (1 - a)/tau otherwise, and in
     float32 an ulp of exp over a tau just above 1e-4 is ~6e-4 of one
-    segment's emission, ROADMAP section 4)."""
+    segment's emission, ROADMAP, faults found in the port)."""
     from radiativetransfer_tpu_torch.parallel import mesh as pmesh
     one_rank = model.make_step(mesh=pmesh.make_grid_mesh(1, device=DEVICE))(
         init)
@@ -793,10 +906,11 @@ def phase_mesh(smi: str) -> dict:
     kappa = _kappa(n)
     zones_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_zones_kernel(
         kappa, plan, uvb, KPC), reps=3)
-    merged_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
+    ship_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
         kappa, plan, uvb, KPC, "exact"), reps=3)
     print(f"[15 mesh] {n}^3 x {plan.n_directions} beside the ring: the "
-          f"merged kernel (exact) {merged_ms:.3f} ms, the per-zone sweep "
+          f"shipped sweep (cluster kernel, exact) {ship_ms:.3f} ms, the "
+          f"per-zone sweep "
           f"(diffuse_sweep_zones_kernel) {zones_ms:.3f} ms; ring launches "
           f"{sweep_launches}")
     del kappa
@@ -875,7 +989,7 @@ def phase_mesh(smi: str) -> dict:
           f"{bound['bytes_ms']:.4f} ms); kernels {full[4]['ms']:.3f} ms, "
           f"{100 * bound['bound_ms'] / full[4]['ms']:.1f}% of the bound")
     return {"full": full, "bound": bound, "zones_ms": zones_ms,
-            "merged_ms": merged_ms, "zone_launches": zone_launches["zones"],
+            "ship_ms": ship_ms, "zone_launches": zone_launches["zones"],
             "launches": {"rdma_sweep": sweep_launches,
                          "mode9_mesh": step_launches},
             "max_abs_err": max(worst, *(r["max_abs_err"]
@@ -888,7 +1002,7 @@ def main() -> None:
     errs = phase_kernel_vs_plain()
     phase_anchor()
     launches9 = phase_main_path()
-    times = phase_timings(smi)
+    times = phase_timings()
     probes = phase_probes()
     phase_anchor8()
     launches8 = phase_mode8()
@@ -898,13 +1012,16 @@ def main() -> None:
     variants = phase_variants()
     scatter = phase_scatter()
     mesh = phase_mesh(smi)
-    # the sweep kernel's launches on each path that runs it, each count
-    # set to 0 just before its path
+    # the cluster sweep kernel's launches on each path that runs it, each
+    # count set to 0 just before its path (the plane kernel's: phase 6)
     sweep_paths = {"mode9": launches9, "mode8": launches8,
+                   "timing": times["launches"]["cluster"],
                    "roofline": probes["sweep_launches"],
                    "bench": bench_out["launches"]["sweep"],
                    "exp_sweep_pair": pair["sweep_launches"],
                    "exp_sweep_variants": variants["sweep_launches"]}
+    assert all(v > 0 for v in sweep_paths.values()), sweep_paths
+    assert times["launches"]["plane"] > 0
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)
     line += _new_kernels(zones, pair, variants, scatter, mesh)
     print(smi)
@@ -919,24 +1036,41 @@ def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
     counts = sweep_cuda.work_counts(sweep.build_sweep_plan(MAIN_LEVEL,
                                                            MAIN_N))
     b = probes_cuda.sweep_bound(counts, probes["roof"]["exp"]["per_s"])
-    print(f"sweep_merged bound at {MAIN_N}^3: {b['bound_ms']:.4f} ms set by "
+    t = times[MAIN_N]
+    print(f"sweep bound at {MAIN_N}^3: {b['bound_ms']:.4f} ms set by "
           f"{b['binding']} (bytes {b['bytes_ms']:.4f}, exp "
           f"{b['exp_ms']:.4f} at the MUFU rate, {b['exp_measured_ms']:.4f} "
-          f"at the measured expf rate, fp32 {b['fp32_ms']:.4f} ms); kernel "
-          f"{times[MAIN_N][0]:.3f} ms, "
-          f"{100 * b['bound_ms'] / times[MAIN_N][0]:.1f}% of the bound")
+          f"at the measured expf rate, fp32 {b['fp32_ms']:.4f} ms); cluster "
+          f"kernel {t['cluster_ms']:.3f} ms, "
+          f"{100 * b['bound_ms'] / t['cluster_ms']:.1f}% of the bound; plane "
+          f"kernel {t['plane_ms']:.3f} ms, "
+          f"{100 * b['bound_ms'] / t['plane_ms']:.1f}%")
     probe_src = "radiativetransfer_tpu_torch/csrc/probes.cu"
     bench_probes = bench_out["launches"]["probes"]
+    plane_paths = {"timing": times["launches"]["plane"]}
     line = [{
         "name": "sweep_merged",
         "route": "cuda",
         "source": "radiativetransfer_tpu_torch/csrc/sweep_merged.cu",
         "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:287",
+        "launches": sum(plane_paths.values()),
+        "launches_by_path": plane_paths,
+        "max_abs_err": errs["plane"],
+        "ms": t["plane_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sweep_cluster",
+        "route": "cuda",
+        "source": "radiativetransfer_tpu_torch/csrc/sweep_cluster.cu",
+        "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:287",
         "launches": sum(sweep_paths.values()),
         "launches_by_path": sweep_paths,
-        "max_abs_err": errs["clamped"],
-        "ms": times[MAIN_N][0],
-        "plain_ms": times[MAIN_N][1],
+        "max_abs_err": errs["cluster"],
+        "ms": t["cluster_ms"],
+        "plain_ms": t["plain_ms"],
         "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"],
         "library_ms": None,

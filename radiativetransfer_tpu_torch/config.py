@@ -54,17 +54,18 @@ class RunConfig:
     max_iterations: int = 0              # 0 = run until externally stopped
     # sweep distribution strategy: "auto" (the local sweep on one device),
     # or an explicit collective schedule on a 1-D mesh: "pipelined",
-    # "zones", "rdma" (not ported yet: RTModel raises NotImplementedError)
+    # "zones", "rdma" (the ring sweep kernel on a CUDA device)
     sweep_strategy: str = "auto"
     # logmean form: "exact" (reference two-branch, emi = 1 exactly in
     # transparent cells) or "clamped" (branch-free min-clamp, bounded
     # emissivity bias <= 1.75e-4 below tau = 3.5e-4)
     sweep_logmean: str = "auto"   # auto: clamped in f32, exact in f64
     # single-device tracer: host-driven final-phase dead-lane compaction
-    # (the point-source tracer is not ported yet)
+    # (the compacting tracer is not ported yet: RTModel raises)
     tracer_compact: bool = False
-    # "sources": shard sources, all-gather fields; "domain": shard fields,
-    # migrate rays between shards (distributed tracers not ported yet)
+    # on a mesh, "sources": shard sources, all-gather fields; "domain":
+    # shard fields, migrate rays between shards (the distributed tracers
+    # are not ported yet); without a mesh both run the single-device tracer
     tracer_strategy: str = "sources"
 
     @property

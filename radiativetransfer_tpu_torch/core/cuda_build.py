@@ -25,6 +25,7 @@ SOURCES = {
     "sweep_variants": _PKG / "csrc" / "sweep_variants.cu",
     "scatter_rows": _PKG / "csrc" / "scatter_rows.cu",
     "sweep_rdma": _PKG / "csrc" / "sweep_rdma.cu",
+    "sweep_cluster": _PKG / "csrc" / "sweep_cluster.cu",
 }
 BUILD_DIR = _PKG / "_build"
 # IEEE expf and division (never --use_fast_math), and -fmad=false so each

@@ -10,8 +10,8 @@ uvbBetaTable; equiSources.f90:172-289) on the host and keeps the device
 tables as buffers of the module.  The port covers the uniform grid in
 modes 1, 6, 8 and 9 on one device, and modes 6 and 9 on a 1-D grid mesh
 of P ranks on one device (parallel/mesh.py) with every sweep strategy;
-the compacting tracer (ROADMAP item 7) and the distributed tracers (item
-15) raise NotImplementedError.
+the compacting tracer and the distributed tracers (ROADMAP, "The
+compacting tracer" and "Distribution") raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ class StellarContext:
         if noneq:
             raise NotImplementedError(
                 "the non-equilibrium deposit weights (noneq=True) are not "
-                "ported yet: ROADMAP item 9")
+                "ported yet: ROADMAP, Non-equilibrium chemistry")
         i_spec, coef_spec = population.age_bracket(age_s)
         log_vol = float(np.log(geom.cell_volume))
         reaction, energy, quad_w = [], [], []
@@ -284,15 +284,14 @@ class RTModel(nn.Module):
             raise NotImplementedError(
                 "point sources on a mesh (the distributed tracers, "
                 "parallel/rays_dist.py and rays_domain.py) are not ported "
-                "yet: ROADMAP item 15")
+                "yet: ROADMAP, Distribution")
+        # tracer_strategy picks a distributed tracer; without a mesh
+        # "sources" and "domain" both run the single-device tracer, as in
+        # the JAX package
         if cfg.tracer_compact:
             raise NotImplementedError(
                 "tracer_compact=True (the compacting tracer) is not ported "
-                "yet: ROADMAP item 7")
-        if cfg.tracer_strategy == "domain":
-            raise NotImplementedError(
-                "tracer_strategy='domain' (the domain-decomposed tracer) is "
-                "not ported yet: ROADMAP item 15")
+                "yet: ROADMAP, The compacting tracer")
 
     def trace(self, state: FieldState, stellar: StellarContext
               ) -> tuple[FieldState, rays.RayDiagnostics]:

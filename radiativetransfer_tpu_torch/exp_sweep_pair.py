@@ -6,8 +6,10 @@ Port of the JAX package's scripts/exp_sweep_pair.py.  The merged kernel
 (csrc/sweep_merged.cu) walks one slab per loop step; the pair kernel
 (csrc/sweep_variants.cu) walks two and keeps the carry between them in
 registers, with the same arithmetic (the exact logmean).  Prints the
-pair's error against the shipped kernel (`ship`: the merged kernel, exact
-logmean, as the script's diffuse_sweep_pallas default), ms per sweep and
+pair's error against the shipped sweep (`ship`: sweep_cuda.
+diffuse_sweep_kernel, the cluster kernel of csrc/sweep_cluster.cu where its
+size rule fits, exact logmean, as the script's diffuse_sweep_pallas
+default), ms per sweep and
 cells*angles/s of both, timed with CUDA events, and the pair kernel's time
 and elementwise error beside its plain version's, and its bound.  EXP_N
 (default 256) and EXP_LEVEL (default 3, 192 directions) set the shape; the

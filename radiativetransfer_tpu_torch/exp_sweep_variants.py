@@ -3,8 +3,9 @@
     python3 -m radiativetransfer_tpu_torch.exp_sweep_variants
 
 Port of the JAX package's scripts/exp_sweep_variants.py.  Runs the lean
-kernel (csrc/sweep_variants.cu) in each variant beside the shipped merged
-kernel (`ship`: csrc/sweep_merged.cu, exact logmean):
+kernel (csrc/sweep_variants.cu) in each variant beside the shipped sweep
+(`ship`: sweep_cuda.diffuse_sweep_kernel, the cluster kernel of
+csrc/sweep_cluster.cu where its size rule fits, exact logmean):
 
   lean     act-folded 16-slot tables: lm from i_out - i_in, no masks
   clamp    lean with the clamped branch-free logmean

@@ -10,7 +10,7 @@ k-block contiguous.  On the card the ring sweep (parallel/sweep_rdma.py)
 runs every rank's CTAs in one launch and passes the halo lines through
 device memory.
 
-Left out (ROADMAP item 15): ranks on several devices, 2-D and 3-D meshes
+Left out (ROADMAP, Distribution): ranks on several devices, 2-D and 3-D meshes
 and the multi-process runtime (`maybe_initialize_distributed`).
 """
 
@@ -23,7 +23,7 @@ import torch
 # the JAX package's name of the axis a 1-D mesh decomposes (the grid's last)
 AXIS_NAME = "gz"
 
-_NOT_PORTED = "not ported yet: ROADMAP item 15"
+_NOT_PORTED = "not ported yet: ROADMAP, Distribution"
 
 
 @dataclasses.dataclass(frozen=True)

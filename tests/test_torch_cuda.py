@@ -1,8 +1,8 @@
-"""PyTorch port on a CUDA device: the hand-written sweep, per-zone sweep,
-ring sweep, sweep-experiment, scatter and probe kernels against their plain
-PyTorch versions, the tracer against its CPU run, and the mode-9 and mode-8
-steps through the sweep kernel (mode 9 also on a mesh through the ring
-kernel).  Every test needs a
+"""PyTorch port on a CUDA device: the hand-written cluster sweep, plane
+sweep, per-zone sweep, ring sweep, sweep-experiment, scatter and probe
+kernels against their plain PyTorch versions, the tracer against its CPU
+run, and the mode-9 and mode-8 steps through the cluster sweep kernel
+(mode 9 also on a mesh through the ring kernel).  Every test needs a
 card and skips without one.  This file imports no JAX, so on a machine
 without it run it past tests/conftest.py:
 
@@ -24,6 +24,7 @@ from radiativetransfer_tpu_torch.core import (
     rays,
     scatter_cuda,
     sweep,
+    sweep_cluster,
     sweep_cuda,
     variants_cuda,
 )
@@ -56,18 +57,93 @@ def _kappa(n, dtype, device):
 @pytest.mark.parametrize("level,n", [(1, 8), (2, 6)])
 def test_kernel_matches_plain_version(card, level, n, logmean, plane_memory,
                                       dtype, rtol):
-    # rtol: the same ops per cell, Jmean summed over directions in another
-    # order (atomics)
+    # csrc/sweep_merged.cu's kernel.  rtol: the same ops per cell, Jmean
+    # summed over directions in another order (atomics)
     kappa = _kappa(n, dtype, card)
     plan = sweep.build_sweep_plan(level, n)
     before = sweep_cuda.LAUNCHES
-    j = sweep_cuda.diffuse_sweep_kernel(kappa, plan, UVB, KPC, logmean,
-                                        plane_memory=plane_memory)
+    j = sweep_cuda.diffuse_sweep_plane_kernel(kappa, plan, UVB, KPC, logmean,
+                                              plane_memory=plane_memory)
     torch.cuda.synchronize()
     assert sweep_cuda.LAUNCHES == before + 1
     ref = sweep_cuda.diffuse_sweep_merged_reference(kappa, plan, UVB, KPC,
                                                     logmean)
     np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("logmean", ["exact", "clamped"])
+@pytest.mark.parametrize("csize,group", [(1, 1), (1, 4), (2, 2), (4, 1),
+                                         (4, 4)])
+@pytest.mark.parametrize("level,n", [(1, 8), (2, 6), (2, 7)])
+def test_cluster_kernel_matches_plain_version(card, level, n, csize, group,
+                                              logmean, dtype, rtol):
+    # n 6 and 7 split into ragged row bands; the launches of 2 (level 1) and
+    # 3-5 (level 2) directions leave ragged groups.  rtol: the same ops per
+    # cell, Jmean summed over directions in another order
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(level, n)
+    shape = sweep_cluster.cluster_shapes(n, n, dtype, csize, group)[0]
+    before = sweep_cluster.LAUNCHES
+    j = sweep_cluster.diffuse_sweep_cluster_kernel(kappa, plan, UVB, KPC,
+                                                   logmean, shape)
+    torch.cuda.synchronize()
+    assert sweep_cluster.LAUNCHES == before + 1
+    ref = sweep_cuda.diffuse_sweep_merged_reference(kappa, plan, UVB, KPC,
+                                                    logmean)
+    np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("logmean", ["exact", "clamped"])
+def test_cluster_kernel_at_main_width(card, logmean):
+    # the main path's 128^3 x 192 in the size rule's shape; 1e-5: 192-term
+    # atomic sums in another order than the plain version's
+    n = 128
+    kappa = _kappa(n, torch.float32, card)
+    plan = sweep.build_sweep_plan(3, n)
+    before = (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES)
+    j = sweep_cuda.diffuse_sweep_kernel(kappa, plan, UVB, KPC, logmean)
+    torch.cuda.synchronize()
+    assert (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES) == (before[0] + 1,
+                                                             before[1])
+    ref = sweep_cuda.diffuse_sweep_merged_reference(kappa, plan, UVB, KPC,
+                                                    logmean)
+    assert probes_cuda.rel_err(j, ref)[1] <= 1e-5
+
+
+def test_size_rule_takes_plane_kernel_where_nothing_fits(card):
+    # no cluster shape holds a 256^3 float64 plane's registers: the size
+    # rule sends the sweep to csrc/sweep_merged.cu's kernel before launching
+    n = 256
+    assert sweep_cluster.choose_cluster(n, n, torch.float64) is None
+    kappa = _kappa(n, torch.float64, card)
+    plan = sweep.build_sweep_plan(1, n)
+    before = (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES)
+    j = sweep_cuda.diffuse_sweep_kernel(kappa, plan, UVB, KPC)
+    torch.cuda.synchronize()
+    assert (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES) == (before[0],
+                                                             before[1] + 1)
+    ref = sweep_cuda.diffuse_sweep_merged_reference(kappa, plan, UVB, KPC)
+    assert probes_cuda.rel_err(j, ref)[1] <= 1e-12
+
+
+def test_cluster_that_cannot_be_scheduled_is_refused(card):
+    # 32 CTAs per cluster: above the card's largest cluster, so the
+    # occupancy query finds none, and nothing is launched
+    n = 64
+    kappa = _kappa(n, torch.float32, card)
+    plan = sweep.build_sweep_plan(1, n)
+    shape = sweep_cluster.ClusterShape(csize=32, group=1, cpt=1,
+                                       threads=128, smem=2 * 2 * n * 4)
+    before = sweep_cluster.LAUNCHES
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        sweep_cluster.diffuse_sweep_cluster_kernel(kappa, plan, UVB, KPC,
+                                                   shape=shape)
+    assert sweep_cluster.LAUNCHES == before
+    # a shape of the rule is resident
+    rule = sweep_cluster.choose_cluster(n, n, torch.float32)
+    assert sweep_cluster.resident_clusters(kappa, plan, KPC, rule) >= 1
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
@@ -89,9 +165,11 @@ def test_mode9_step_launches_kernel(card):
     model = rt.RTModel.setup(cfg, rt.GridGeometry(24, 24, 24, 200.0 * KPC),
                              torch.float32, card)
     state = rt.uniform_state(24, nh=1e-4, tgas=2e4, device=card)
-    before = sweep_cuda.LAUNCHES
+    before = (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES)
     nf = model.neutral_fraction(model.make_step()(state))
-    assert sweep_cuda.LAUNCHES == before + 1
+    # the cluster kernel, not the plane kernel
+    assert (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES) == (before[0] + 1,
+                                                             before[1])
     assert nf == pytest.approx(0.044220, rel=1e-4)
 
 
@@ -142,9 +220,10 @@ def _mode8(card, n=24):
 def test_mode8_step_launches_kernel(card):
     model, ctx = _mode8(card)
     state = rt.uniform_state(24, nh=1e-4, tgas=2e4, device=card)
-    before = sweep_cuda.LAUNCHES
+    before = (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES)
     out, diag = model.make_step(ctx)(state)
-    assert sweep_cuda.LAUNCHES == before + 1
+    assert (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES) == (before[0] + 1,
+                                                             before[1])
     assert out.HI.is_cuda and diag.ndot_remaining.is_cuda
     assert model.neutral_fraction(out) == pytest.approx(0.033307, rel=1e-4)
 

@@ -32,8 +32,9 @@ from radiativetransfer_tpu_torch.parallel import sweep_dist, sweep_rdma
 UVB = np.array([1.0, 0.5, 0.25])
 # float32 against the JAX package: XLA's and PyTorch's float32 exp on the
 # CPU differ by an ulp in ~10% of values, which the exact logmean's
-# division by tau turns into up to 1.6e-5 elementwise (ROADMAP section 4;
-# tests/test_torch_variants.py holds the zone kernel to the same)
+# division by tau turns into up to 1.6e-5 elementwise (ROADMAP, faults
+# found in the port; tests/test_torch_variants.py holds the zone kernel to
+# the same)
 ZONE_TOL_F32 = 4e-5
 
 
@@ -225,7 +226,8 @@ def test_mesh_errors():
     for call in (lambda: tmesh.make_grid_mesh(shape=(2, 4), device="cpu"),
                  lambda: tmesh.make_grid_mesh(2, device=["cuda:0", "cuda:1"]),
                  tmesh.maybe_initialize_distributed):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP, Distribution"):
             call()
     mesh = tmesh.make_grid_mesh(shape=(2,), device="cpu")
     assert (mesh.n_ranks, mesh.axis_name, mesh.device.type) == \
@@ -233,7 +235,7 @@ def test_mesh_errors():
     assert tmesh.make_grid_mesh(4).device.type == "cuda"   # the card
     tm = rt.RTModel.setup(_cfg("rdma"), rt.GridGeometry(8, 8, 8, 50 * KPC),
                           torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
         tm.make_step(stellar=object(), mesh=mesh)
     with pytest.raises(TypeError, match="GridMesh"):
         tm.make_step(mesh=object())

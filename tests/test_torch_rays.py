@@ -225,10 +225,12 @@ def test_unported_modes_raise():
     ts = tstate.uniform_state(4, dtype=torch.float64, device="cpu")
     geom = tstate.GridGeometry(4, 4, 4, BOX)
     src = trays.SourceBatch(**{k: v[:1] for k, v in _sources().items()})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP, Non-equilibrium chemistry"):
         trays.trace_point_sources(ts, geom, src, _tables(),
                                   rates_mode="quadrature_noneq")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP, The compacting tracer"):
         trays.trace_point_sources_compact(ts, geom, src, _tables())
 
 

@@ -133,25 +133,28 @@ def test_unported_paths_raise():
     tm = rt.RTModel.setup(_cfg(), geom, torch.float64, "cpu")
     state = rt.uniform_state(4, dtype=torch.float64, device="cpu")
     # a 1-D mesh runs (tests/test_torch_parallel.py); point sources on a
-    # mesh and 2-D meshes are item 15
+    # mesh and 2-D meshes are ROADMAP's "Distribution"
     mesh = make_grid_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
         tm.make_step(stellar=object(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
         make_grid_mesh(shape=(2, 2), device="cpu")
     with pytest.raises(TypeError, match="GridMesh"):
         tm.transport_chemistry_step(state, mesh=object())
     base = tm.config
     tm.config = dataclasses.replace(base, tracer_compact=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP, The compacting tracer"):
         tm.make_step(stellar=object())
+    # the domain-decomposed tracer runs only on a mesh (not ported)
     tm.config = dataclasses.replace(base, tracer_strategy="domain")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tm.make_step(stellar=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
+        tm.make_step(stellar=object(), mesh=mesh)
     tm.config = dataclasses.replace(base, sweep_strategy="zones")
     with pytest.raises(ValueError, match="needs a mesh"):
         tm.make_step()(state)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP, Non-equilibrium chemistry"):
         rt.StellarContext.build(tstellar.blackbody_population(),
                                 _batch(trays, np.full((1, 3), 0.5)), geom,
                                 10.0 * MYR, [(0, 0.0)], noneq=True,
@@ -240,9 +243,10 @@ def mode8_runs():
 def test_mode8_step_matches_jax_f64(mode8_runs):
     r = mode8_runs[torch.float64]
     # 1e-7: the JAX tracer computes the cell faces in float32 even in a
-    # float64 run (ROADMAP section 4), the port in float64; at n = 24 that
-    # moves the faces by ~6e-8 and the deposits by ~5e-6 of their largest
-    # value (with the float32 faces emulated the two agree to ~2e-16)
+    # float64 run (ROADMAP, faults found in the port), the port in float64;
+    # at n = 24 that moves the faces by ~6e-8 and the deposits by ~5e-6 of
+    # their largest value (with the float32 faces emulated the two agree to
+    # ~2e-16)
     assert r["nf"] == pytest.approx(r["nf_jax"], rel=1e-7)
     assert r["ts"].HI.dtype == torch.float64
     for f in dataclasses.fields(r["jdiag"]):
@@ -279,6 +283,28 @@ def test_mode8_anchor_f32(mode8_runs):
     # summed in float64 as the mode-9 anchor test does
     assert r["nf"] == pytest.approx(r["nf_jax"], rel=1e-5)
     assert r["nf_model"] == pytest.approx(ANCHOR8_NF, rel=1e-4)
+
+
+def test_mode8_domain_strategy_without_mesh_is_single_device():
+    # as the JAX package (core/step.py, cli.py): without a mesh
+    # tracer_strategy="domain" runs the single-device tracer, so the step
+    # equals the "sources" step
+    cfg, geom, pos = _anchor8_inputs(16)
+    _, tctx = _contexts(geom, pos, torch.float64)
+    state = rt.uniform_state(16, nh=1e-4, tgas=2e4, dtype=torch.float64,
+                             device="cpu")
+    outs = {}
+    for strategy in ("sources", "domain"):
+        tm = rt.RTModel.setup(dataclasses.replace(
+            cfg, tracer_strategy=strategy), geom, torch.float64, "cpu")
+        outs[strategy] = tm.make_step(tctx)(state)
+    (s_src, d_src), (s_dom, d_dom) = outs["sources"], outs["domain"]
+    for f in dataclasses.fields(s_src):
+        a, b = getattr(s_src, f.name), getattr(s_dom, f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name
+    for name in vars(d_src):
+        assert torch.equal(getattr(d_src, name), getattr(d_dom, name)), name
+    assert float(s_dom.krate24.sum()) > 0.0
 
 
 def test_mode1_step_matches_jax_f64():
