@@ -42,11 +42,17 @@ line or more each; any failure raises and the script exits non-zero:
    count; step 1 against the plain slab scan;
 10. the port's bench (python -m radiativetransfer_tpu_torch.bench): its
     three JSON lines, sweep, rays and step;
-11. the per-zone sweep (diffuse_sweep_zones_kernel, kernel #2) against the
-    plain slab scan at level 1 n 8 and level 2 n 6 (f32, f64), and at 128^3
-    x 192 against its plain version and the slab scan, one launch per zone;
-    the 24 zone kernels timed alone on fields rotated beforehand, beside
-    the wrapper with its rotations and the shipped sweep;
+11. the per-zone sweep (kernel #2, one zone a launch of the cluster
+    kernel csrc/sweep_cluster.cu): every launch shape on every zone
+    against its plain version at level 1 n 8 and level 2 n 6, 7 (f32,
+    f64), the size rule's 24 zones against the slab scan there; at 128^3 x
+    192 in f32 and f64 diffuse_sweep_zones_kernel (24 cluster launches,
+    none of csrc/sweep_variants.cu's plane zone kernel) against its plain
+    version and the slab scan, the plane zone kernel against the plain
+    version, the 24 launches on fields rotated beforehand timed in turns
+    (plane, cluster, cluster, plane) with the shape chosen, its resident
+    clusters and its share of the bound, and every launch shape's time;
+    beside them the wrapper with its rotations and the shipped sweep;
 12. the two-slab sweep (kernel #6) against its plain version at 64^3 and
     128^3 x 192, then python -m radiativetransfer_tpu_torch.exp_sweep_pair
     at 256^3, where the kernel's global-scratch planes are held to its
@@ -57,8 +63,11 @@ line or more each; any failure raises and the script exits non-zero:
     there too, with the FP32 instructions per MUFU of expf and exp2f in
     the SASS checked against the bounds' counts;
 14. the row scatter (kernel #8) through python -m
-    radiativetransfer_tpu_torch.exp_row_scatter: against a float64
-    np.add.at and index_add_ at every M, beside index_add_'s times;
+    radiativetransfer_tpu_torch.exp_row_scatter: the kernel against a
+    float64 np.add.at and index_add_ at every M, in turns with index_add_,
+    the host and device microseconds per call of the kernel and of
+    index_add_, and the float4 reduction floor into an accumulator in L2
+    and into the 67 MB one;
 15. the mesh path, P virtual ranks on the card: the 24^3 anchor through
     the ring sweep (kernel #3) on 4 ranks; the ring at level 1 and 2, n 8,
     P = 1, 2, 4, 8 against the pipelined plain version and the slab scan;
@@ -66,9 +75,10 @@ line or more each; any failure raises and the script exits non-zero:
     version, its 24 kernels timed alone beside the wrapper, the shipped
     sweep and the per-zone sweep; 3 mode-9 steps at 128^3 x 192 on 4
     ranks through the ring (24 launches each), step 1 against the same
-    step on one rank and against one device's; one step each of the
-    pipelined and zones strategies at 64^3, held the same way; and a ring
-    that cannot be co-resident, refused.
+    step on one rank and against one device's; 3 steps of the zones
+    strategy at 128^3 x 192 on 4 ranks (24 cluster zone launches each),
+    and one step of the pipelined strategy at 64^3, held the same way;
+    and a ring that cannot be co-resident, refused.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -601,74 +611,242 @@ def phase_bench() -> dict:
     return {"records": records, "launches": launches}
 
 
-def phase_zones() -> dict:
-    """11: the per-zone sweep (kernel #2) against the plain slab scan."""
+def phase_zones(smi: str) -> dict:
+    """11: the per-zone sweep (kernel #2): the cluster kernel's zone launch
+    in every shape at small sizes, then at 128^3 x 192 in float32 and
+    float64 the size rule's shape through diffuse_sweep_zones_kernel
+    against its plain version and the slab scan, timed in turns with the
+    plane zone kernel (csrc/sweep_variants.cu), and every launch shape's
+    time."""
     from radiativetransfer_tpu_torch.constants import KPC
-    from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.core import (
+        probes_cuda,
+        sweep,
+        sweep_cluster,
+        sweep_cuda,
+    )
     from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
+    from radiativetransfer_tpu_torch.exp_sweep_cluster import shapes_at
     uvb = np.array([1.0, 0.5, 0.25])
-    # the same function as the slab scan, the lengths times the cell size
-    # rounded once (f32 1e-5: phase 3's tolerance for atomic sums)
-    for level, n in [(1, 8), (2, 6)]:
+    # every launch shape on each zone (ragged row bands at n 6, 7; ragged
+    # groups at level 2), against the zone's plain version (f32 1e-5: the
+    # kernel's (a - 1) * (1/kappa) * (1/len) rounds the plain version's
+    # (1 - a)/tau otherwise, and sums in another order), and the 24 zones
+    # in the size rule's shape against the slab scan
+    worst = 0.0
+    for level, n in [(1, 8), (2, 6), (2, 7)]:
+        plan = sweep.build_sweep_plan(level, n)
         for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
             kappa = _kappa(n, dtype)
-            plan = sweep.build_sweep_plan(level, n)
+            krots = [sweep_cuda.rotate_to_zone(kappa, z) for z in plan.zones]
+            shapes = shapes_at(n, dtype)
+            e_max = (0.0, 0.0)
+            for shape in shapes:
+                for zone, krot in zip(plan.zones, krots):
+                    out = sweep_cluster.sweep_zone_cluster_kernel(
+                        krot, zone, uvb, KPC, plan.weight, shape)
+                    torch.cuda.synchronize()
+                    e = _rel_err(out, sweep_cuda.sweep_zone_reference(
+                        krot, zone, uvb, KPC, plan.weight))
+                    assert e[1] <= rtol, (level, n, dtype, shape, zone.izone,
+                                          e)
+                    e_max = max(e_max, e, key=lambda x: x[1])
             out = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, uvb, KPC)
             torch.cuda.synchronize()
-            ref = sweep.diffuse_sweep(kappa, plan, uvb, KPC)
-            err_abs, err_rel = _rel_err(out, ref)
-            print(f"[11 zones] level {level} n {n} {dtype}: max abs "
-                  f"{err_abs:.3e} max rel {err_rel:.3e} (rtol {rtol:g})")
-            assert err_rel <= rtol, (level, n, dtype, err_rel)
+            e_scan = _rel_err(out, sweep.diffuse_sweep(kappa, plan, uvb, KPC))
+            print(f"[11 zones] level {level} n {n} {dtype}: {len(shapes)} "
+                  f"launch shapes x {len(plan.zones)} zones vs the plain "
+                  f"version max abs {e_max[0]:.3e} max rel {e_max[1]:.3e}; "
+                  f"the rule's 24 zones vs the slab scan max rel "
+                  f"{e_scan[1]:.3e} (rtol {rtol:g})")
+            assert e_scan[1] <= rtol, (level, n, dtype, e_scan)
+            worst = max(worst, e_max[0])
 
     n, level = MAIN_N, MAIN_LEVEL
     plan = sweep.build_sweep_plan(level, n)
-    kappa = _kappa(n)
-    sweep_cuda.ZONE_LAUNCHES = 0
-    out = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, uvb, KPC)
-    torch.cuda.synchronize()
-    launches = sweep_cuda.ZONE_LAUNCHES
-    assert launches == len(plan.zones), (launches, len(plan.zones))
-    # against the plain version (1e-5: phase 3's tolerance for atomic
-    # sums), and against the slab scan, whose float32 lengths times the
-    # cell size round once more (1e-4, the steps' tolerance: 1.1e-5 at 64^3
-    # on the card)
-    ref = sweep_cuda.diffuse_sweep_zones_reference(kappa, plan, uvb, KPC)
-    err_abs, err_rel = _rel_err(out, ref)
-    assert torch.isfinite(out).all() and err_rel <= 1e-5, err_rel
-    scan_abs, scan_rel = _rel_err(out, sweep.diffuse_sweep(kappa, plan, uvb,
-                                                           KPC))
-    assert scan_rel <= 1e-4, scan_rel
-    # the 24 zone kernels alone (sweep_zone_kernel on fields rotated
-    # beforehand) and their plain versions on the same fields; the
-    # wrapper's time adds its 48 rotations, copies and Jmean sums
-    krots = [sweep_cuda.rotate_to_zone(kappa, zone) for zone in plan.zones]
-
-    def every_zone(zone_fn):
-        return lambda: [zone_fn(krot, zone, uvb, KPC, plan.weight)
-                        for krot, zone in zip(krots, plan.zones)]
-
-    ms = time_ms(every_zone(sweep_cuda.sweep_zone_kernel), reps=3)
-    plain_ms = time_ms(every_zone(sweep_cuda.sweep_zone_reference), reps=1,
-                       warmup=False)
-    del krots
-    wrapper_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_zones_kernel(
-        kappa, plan, uvb, KPC), reps=3)
-    ship_ms = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
-        kappa, plan, uvb, KPC, "exact"), reps=3)
+    bound = probes_cuda.sweep_bound(sweep_cuda.work_counts(plan),
+                                    probes_cuda.MUFU_PER_S)
     ca = n ** 3 * plan.n_directions
-    print(f"[11 zones] {n}^3 x {plan.n_directions} dirs f32: "
-          f"{launches} zone launches (zones {len(plan.zones)}); vs the plain "
-          f"version max abs {err_abs:.3e} max rel {err_rel:.3e} (tol 1e-5), "
-          f"vs the slab scan max abs {scan_abs:.3e} max rel {scan_rel:.3e} "
-          f"(tol 1e-4); the 24 zone kernels {ms:.3f} ms = "
-          f"{ca / ms * 1e3:.4e} cells*angles/s (plain versions "
-          f"{plain_ms:.3f} ms), diffuse_sweep_zones_kernel with its "
-          f"rotations {wrapper_ms:.3f} ms, the shipped sweep (cluster "
-          f"kernel, exact) {ship_ms:.3f} ms")
-    return {"launches": launches, "max_abs_err": err_abs, "ms": ms,
-            "wrapper_ms": wrapper_ms, "ship_ms": ship_ms,
-            "plain_ms": plain_ms}
+    res = {"bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "max_abs_err": worst, "old_max_abs_err": 0.0, "launches": 0,
+           "old_launches": 0}
+    for dtype, rtol, label in ((torch.float32, 1e-5, "f32"),
+                               (torch.float64, 1e-12, "f64")):
+        kappa = _kappa(n, dtype)
+        rule = sweep_cluster.choose_cluster(n, n, dtype)
+        assert rule is not None, (n, dtype)
+        # the path: the zones sweep, one launch of the rule's kernel per zone
+        sweep_cluster.ZONE_LAUNCHES = sweep_cuda.ZONE_LAUNCHES = 0
+        out = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, uvb, KPC)
+        torch.cuda.synchronize()
+        launches = sweep_cluster.ZONE_LAUNCHES
+        assert launches == len(plan.zones) and sweep_cuda.ZONE_LAUNCHES == 0, (
+            launches, sweep_cuda.ZONE_LAUNCHES)
+        res["launches"] += launches
+        # against the plain version (f32 1e-5: atomic sums, another
+        # rounding of the exact logmean) and the slab scan, whose float32
+        # lengths times the cell size round once more (1e-4)
+        ref = sweep_cuda.diffuse_sweep_zones_reference(kappa, plan, uvb, KPC)
+        err_abs, err_rel = _rel_err(out, ref)
+        assert torch.isfinite(out).all() and err_rel <= rtol, (label, err_rel)
+        # the plane zone kernel (phase 11's yardstick), its planes by size
+        old_out = sweep_cuda.zone_by_zone(
+            sweep_cuda.sweep_zone_plane_kernel, kappa, plan, uvb, KPC,
+            plane_memory=sweep_cuda.plane_memory_for(n, dtype))
+        old_abs, old_rel = _rel_err(old_out, ref)
+        assert old_rel <= rtol, (label, old_rel)
+        res["old_max_abs_err"] = max(res["old_max_abs_err"], old_abs)
+        del ref, old_out
+        scan_tol = 1e-4 if dtype == torch.float32 else 1e-12
+        scan_abs, scan_rel = _rel_err(out, sweep.diffuse_sweep(kappa, plan,
+                                                               uvb, KPC))
+        assert scan_rel <= scan_tol, (label, scan_rel)
+        res["max_abs_err"] = max(res["max_abs_err"], err_abs)
+        del out
+        # the 24 launches alone on fields rotated beforehand, the plane
+        # zone kernel
+        # and the rule's in turns (old, new, new, old): on one stream, and
+        # on ZONE_STREAMS streams as diffuse_sweep_zones_kernel runs them
+        krots = [sweep_cuda.rotate_to_zone(kappa, zone) for zone in plan.zones]
+        k = sweep_cuda.ZONE_STREAMS
+
+        def old(krot, zone):
+            sweep_cuda.sweep_zone_plane_kernel(krot, zone, uvb, KPC,
+                                               plan.weight)
+
+        def new(shape):
+            return lambda krot, zone: sweep_cluster.sweep_zone_cluster_kernel(
+                krot, zone, uvb, KPC, plan.weight, shape)
+
+        reps = 3
+        sweep_cuda.ZONE_LAUNCHES = 0
+        turns = {j: [time_ms(_zones_on_streams(krots, plan, fn, j), reps=reps)
+                     for fn in (old, new(rule), new(rule), old)]
+                 for j in (1, k)}
+        res["old_launches"] += sweep_cuda.ZONE_LAUNCHES
+        old_ms = {j: (t[0] + t[3]) / 2 for j, t in turns.items()}
+        new_ms = {j: (t[1] + t[2]) / 2 for j, t in turns.items()}
+        resident = sweep_cluster.resident_zone_clusters(krots[0],
+                                                        plan.zones[0], KPC,
+                                                        rule)
+        items = [3 * -(-z.ndir // rule.group) for z in plan.zones]
+        print(f"[11 zones] {n}^3 x {plan.n_directions} dirs {label}: the "
+              f"size rule's shape C {rule.csize} G {rule.group} "
+              f"{rule.threads} threads x {rule.cpt} cells, {rule.smem} B "
+              f"shared, {resident} resident clusters, {min(items)}-"
+              f"{max(items)} work items a zone; {launches} cluster zone "
+              f"launches; vs the plain version max abs {err_abs:.3e} max "
+              f"rel {err_rel:.3e} (tol {rtol:g}), vs the slab scan max rel "
+              f"{scan_rel:.3e} (tol {scan_tol:g}), the plane zone kernel vs "
+              f"the "
+              f"plain version max rel {old_rel:.3e}; card {smi}")
+        for j, t in turns.items():
+            print(f"[11 zones] {n}^3 {label}, the 24 launches on {j} "
+                  f"stream(s) in turns: plane zone kernel {t[0]:.3f} ms, "
+                  f"cluster {t[1]:.3f}, {t[2]:.3f}, plane {t[3]:.3f} "
+                  f"({old_ms[j] / new_ms[j]:.2f}x); cluster "
+                  f"{ca / new_ms[j] * 1e3:.4e} cells*angles/s"
+                  + (f", {100 * bound['bound_ms'] / new_ms[j]:.1f}% of the "
+                     f"{bound['bound_ms']:.4f} ms FP32 bound (plane "
+                     f"{100 * bound['bound_ms'] / old_ms[j]:.1f}%)"
+                     if dtype == torch.float32 else "") + f"; card {smi}")
+        # every launch shape on one stream and on k streams
+        table = []
+        for shape in shapes_at(n, dtype):
+            its = [3 * -(-z.ndir // shape.group) for z in plan.zones]
+            ms, ms_k = ((new_ms[1], new_ms[k]) if shape == rule else (
+                time_ms(_zones_on_streams(krots, plan, new(shape), j),
+                        reps=2) for j in (1, k)))
+            res_c = sweep_cluster.resident_zone_clusters(
+                krots[0], plan.zones[0], KPC, shape)
+            table.append({"C": shape.csize, "G": shape.group,
+                          "cpt": shape.cpt, "threads": shape.threads,
+                          "resident_clusters": res_c, "ms": ms,
+                          "ms_streams": ms_k, "rule": shape == rule})
+            print(f"[11 zones] {n}^3 {label} (C, G) = ({shape.csize}, "
+                  f"{shape.group}){' rule' * (shape == rule)}: {ms:.3f} ms "
+                  f"for 24 launches, {ms_k:.3f} on {k} streams; "
+                  f"{shape.threads} threads x {shape.cpt} "
+                  f"cells, {res_c} resident clusters ({res_c * shape.csize} "
+                  f"CTAs) for {min(its)}-{max(its)} work items a zone; "
+                  f"card {smi}")
+        res[label] = {"ms": new_ms[k], "one_stream_ms": new_ms[1],
+                      "old_ms": old_ms[1], "old_streams_ms": old_ms[k],
+                      "turns": turns,
+                      "rule": [rule.csize, rule.group, rule.cpt,
+                               rule.threads], "resident_clusters": resident,
+                      "table": table, "max_rel_err": err_rel,
+                      "scan_rel_err": scan_rel}
+        if dtype == torch.float32:
+            # several zones in flight: the rule's 24 launches dealt to k
+            # streams, in turns with one stream (1, 2, 4, 4, 2, 1)
+            flights = {j: _zones_on_streams(krots, plan, new(rule), j)
+                       for j in (1, 2, 4)}
+            order = [1, 2, 4, 4, 2, 1]
+            times = [time_ms(flights[j], reps=reps) for j in order]
+            res["streams_ms"] = {j: (times[order.index(j)] + times[
+                len(order) - 1 - order.index(j)]) / 2 for j in flights}
+            print(f"[11 zones] {n}^3 f32, the rule's 24 launches on k "
+                  f"streams in turns (k = {order}): "
+                  + ", ".join(f"{t:.3f}" for t in times) + " ms; card "
+                  + smi)
+            res["plain_ms"] = time_ms(_zones_on_streams(
+                krots, plan, lambda krot, zone: sweep_cuda.sweep_zone_reference(
+                    krot, zone, uvb, KPC, plan.weight), 1), reps=1,
+                warmup=False)
+            # the wrapper with its rotations (diffuse_sweep_zones_kernel's
+            # loop), in turns over streams and shapes: the rule's shape on
+            # 1, k and 2k streams, and the fastest G = 1 shape on one
+            # stream on k and 2k streams; forward, then reverse
+            g1 = min((sh for sh in shapes_at(n, dtype) if sh.group == 1),
+                     key=lambda sh: (sh.cpt != rule.cpt,
+                                     abs(sh.threads - 512), sh.csize))
+            configs = [(rule, 1), (rule, k), (g1, k), (rule, 2 * k),
+                       (g1, 2 * k)]
+            wt = {c: [] for c in configs}
+            for c in configs + configs[::-1]:
+                wt[c].append(time_ms(lambda: sweep_cuda.zone_by_zone(
+                    sweep_cluster.sweep_zone_cluster_kernel, kappa, plan,
+                    uvb, KPC, streams=c[1], shape=c[0]), reps=reps))
+            res["wrapper_ms"] = float(np.mean(wt[(rule, k)]))
+            res["wrapper_one_stream_ms"] = float(np.mean(wt[(rule, 1)]))
+            res["wrapper_table"] = [
+                {"C": sh.csize, "G": sh.group, "cpt": sh.cpt,
+                 "threads": sh.threads, "streams": j, "ms": t}
+                for (sh, j), t in wt.items()]
+            res["ship_ms"] = time_ms(lambda: sweep_cuda.diffuse_sweep_kernel(
+                kappa, plan, uvb, KPC, "exact"), reps=3)
+            print(f"[11 zones] {n}^3 f32: the plain versions of the 24 zones "
+                  f"{res['plain_ms']:.1f} ms; the shipped sweep (merged "
+                  f"cluster kernel, exact) {res['ship_ms']:.3f} ms; the "
+                  f"wrapper with its rotations in turns (forward, reverse): "
+                  + "; ".join(f"C {sh.csize} G {sh.group} {sh.threads} x "
+                              f"{sh.cpt} on {j} stream(s) "
+                              + "/".join(f"{x:.3f}" for x in t) + " ms"
+                              for (sh, j), t in wt.items())
+                  + f" (diffuse_sweep_zones_kernel: the rule's shape on "
+                  f"{k}); card {smi}")
+        del krots, kappa
+    res["ms"] = res["f32"]["ms"]
+    return res
+
+
+def _zones_on_streams(krots, plan, zone_fn, k: int):
+    """A callable running zone_fn(krot, zone) on every zone's rotated field,
+    zone i on stream i % k of k side streams, which wait for the current
+    stream first and which it waits for after."""
+    streams = [torch.cuda.Stream() for _ in range(k)]
+
+    def run():
+        main = torch.cuda.current_stream()
+        for s in streams:
+            s.wait_stream(main)
+        for i, (krot, zone) in enumerate(zip(krots, plan.zones)):
+            with torch.cuda.stream(streams[i % k]):
+                zone_fn(krot, zone)
+        for s in streams:
+            main.wait_stream(s)
+    return run
 
 
 def _check_at_main_widths(name, kernel, plain) -> float:
@@ -747,21 +925,32 @@ def phase_variants() -> dict:
 
 
 def phase_scatter() -> dict:
-    """14: the row scatter (kernel #8) through its experiment."""
+    """14: the row scatter (kernel #8) through its experiment: the kernel
+    against np.add.at and index_add_, in turns with index_add_, the host
+    and device time per call of each, and the float4 reduction floor."""
     from radiativetransfer_tpu_torch import exp_row_scatter
     from radiativetransfer_tpu_torch.core import scatter_cuda
-    scatter_cuda.LAUNCHES = 0
+    scatter_cuda.LAUNCHES = scatter_cuda.FLOOR_LAUNCHES = 0
     res = exp_row_scatter.main()
     launches = scatter_cuda.LAUNCHES
-    print(f"[14 scatter] exp_row_scatter launches {launches}")
-    assert launches > 0
+    print(f"[14 scatter] exp_row_scatter launches {launches}, floor probe "
+          f"{scatter_cuda.FLOOR_LAUNCHES}")
+    assert launches > 0 and scatter_cuda.FLOOR_LAUNCHES > 0
     for m, r in res["m"].items():
-        print(f"[14 scatter] M={m}: kernel vs float64 np.add.at max abs "
-              f"{r['max_abs_err']:.3e}, vs index_add_ "
-              f"{r['max_abs_err_vs_plain']:.3e} (tol 1e-5)")
+        k, a = r["split"]["kernel"], r["split"]["index_add_"]
+        print(f"[14 scatter] M={m}: kernel {r['ms']:.4f} "
+              f"ms a call in turns, index_add_ {r['plain_ms']:.4f}; host "
+              f"{k['host_us']:.2f} us a call (index_add_ {a['host_us']:.2f},"
+              f" the bare library call {r['split']['bare_call']['host_us']:.2f}"
+              f"), device {k['device_us']:.2f} us (index_add_ "
+              f"{a['device_us']:.2f}; {k['device_method']}); vs "
+              f"float64 np.add.at max abs {r['max_abs_err']:.3e}, vs "
+              f"index_add_ {r['max_abs_err_vs_plain']:.3e} (tol 1e-5)")
         assert r["max_abs_err"] <= 1e-5 and r["max_abs_err_vs_plain"] <= \
-            1e-5, (m, r)
-    return {**res, "launches": launches}
+            1e-5, (m, r["max_abs_err"], r["max_abs_err_vs_plain"])
+    assert all(f["exact"] for f in res["floor"].values()), res["floor"]
+    return {**res, "launches": launches,
+            "floor_launches": scatter_cuda.FLOOR_LAUNCHES}
 
 
 def _mesh_zone_runs(fn, blocks, plan, uvb, **kw):
@@ -853,7 +1042,12 @@ def phase_mesh(smi: str) -> dict:
 
     import radiativetransfer_tpu_torch as rt
     from radiativetransfer_tpu_torch.constants import KPC
-    from radiativetransfer_tpu_torch.core import probes_cuda, sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.core import (
+        probes_cuda,
+        sweep,
+        sweep_cluster,
+        sweep_cuda,
+    )
     from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
     from radiativetransfer_tpu_torch.parallel import mesh as pmesh
     from radiativetransfer_tpu_torch.parallel import sweep_dist, sweep_rdma
@@ -941,27 +1135,52 @@ def phase_mesh(smi: str) -> dict:
         if it == 1:
             first = state
     step_launches = sweep_rdma.RDMA_LAUNCHES
+    one_step = one.make_step()(init)
     _mesh_step_check(f"{n}^3 step 1, rdma on 4 ranks", model, first, init,
-                     one.make_step()(init))
+                     one_step)
 
-    # the other strategies, one step each at 64^3 on the same mesh
+    # the zones strategy at 128^3 x 192 on the same mesh: 3 steps, each
+    # rank's zones through the per-zone cluster kernel (24 launches a
+    # step), step 1 against one rank's and one device's
+    zones = _rtmodel(n, level, box, DEVICE, self_shielding_threshold_kpc=0.1,
+                     sweep_strategy="zones")
+    step = zones.make_step(mesh=mesh4)
+    state = pmesh.shard_state(init, mesh4)
+    sweep_cluster.ZONE_LAUNCHES = sweep_cuda.ZONE_LAUNCHES = 0
+    zone_steps = []
+    for it in range(1, 4):
+        before = sweep_cluster.ZONE_LAUNCHES
+        t0 = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        zone_steps.append(time.perf_counter() - t0)
+        print(f"[15 mesh] {n}^3 x {plan.n_directions} f32 mode 9, zones on "
+              f"4 ranks: step {it} neutral fraction "
+              f"{zones.neutral_fraction(state):.7f} wall "
+              f"{zone_steps[-1]:.4f} s, cluster zone launches "
+              f"{sweep_cluster.ZONE_LAUNCHES - before}")
+        assert sweep_cluster.ZONE_LAUNCHES - before == len(plan.zones)
+        if it == 1:
+            first = state
+    zone_launches = sweep_cluster.ZONE_LAUNCHES
+    assert sweep_cuda.ZONE_LAUNCHES == 0, "the zones took the plane kernel"
+    _mesh_step_check(f"{n}^3 step 1, zones on 4 ranks", zones, first, init,
+                     one_step)
+    del one_step, first, state
+
+    # the pipelined strategy (plain PyTorch), one step at 64^3
     n64 = PROBE_N
     one = _rtmodel(n64, level, box, DEVICE, self_shielding_threshold_kpc=0.1,
                    sweep_logmean="exact")
     init = one.initialize_equilibrium(galaxy_state(n64, box, DEVICE))
-    ref = one.make_step()(init)
-    zone_launches = {}
-    for strategy in ("pipelined", "zones"):
-        other = _rtmodel(n64, level, box, DEVICE,
-                         self_shielding_threshold_kpc=0.1,
-                         sweep_strategy=strategy)
-        sweep_cuda.ZONE_LAUNCHES = 0
-        out = other.make_step(mesh=mesh4)(pmesh.shard_state(init, mesh4))
-        zone_launches[strategy] = sweep_cuda.ZONE_LAUNCHES
-        _mesh_step_check(f"{n64}^3 step, {strategy} on 4 ranks (zone "
-                         f"launches {zone_launches[strategy]})", other, out,
-                         init, ref)
-    assert zone_launches == {"pipelined": 0, "zones": len(plan.zones)}
+    other = _rtmodel(n64, level, box, DEVICE,
+                     self_shielding_threshold_kpc=0.1,
+                     sweep_strategy="pipelined")
+    before = (sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES)
+    out = other.make_step(mesh=mesh4)(pmesh.shard_state(init, mesh4))
+    assert (sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES) == before
+    _mesh_step_check(f"{n64}^3 step, pipelined on 4 ranks", other, out, init,
+                     one.make_step()(init))
 
     # a ring that cannot be co-resident is refused, never launched: 2 ranks
     # of a 128^3 float64 field at level 4 (3 planes of 128 x 64 fill one
@@ -989,7 +1208,8 @@ def phase_mesh(smi: str) -> dict:
           f"{bound['bytes_ms']:.4f} ms); kernels {full[4]['ms']:.3f} ms, "
           f"{100 * bound['bound_ms'] / full[4]['ms']:.1f}% of the bound")
     return {"full": full, "bound": bound, "zones_ms": zones_ms,
-            "ship_ms": ship_ms, "zone_launches": zone_launches["zones"],
+            "ship_ms": ship_ms, "zone_launches": zone_launches,
+            "zone_steps_s": zone_steps,
             "launches": {"rdma_sweep": sweep_launches,
                          "mode9_mesh": step_launches},
             "max_abs_err": max(worst, *(r["max_abs_err"]
@@ -1007,7 +1227,7 @@ def main() -> None:
     phase_anchor8()
     launches8 = phase_mode8()
     bench_out = phase_bench()
-    zones = phase_zones()
+    zones = phase_zones(smi)
     pair = phase_pair()
     variants = phase_variants()
     scatter = phase_scatter()
@@ -1114,17 +1334,29 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
         sweep_cuda,
     )
     src = "radiativetransfer_tpu_torch/csrc/sweep_variants.cu"
-    b = probes_cuda.sweep_bound(sweep_cuda.work_counts(
-        sweep.build_sweep_plan(MAIN_LEVEL, MAIN_N)), probes_cuda.MUFU_PER_S)
     line = [{
-        "name": "sweep_zone", "route": "cuda", "source": src,
+        "name": "sweep_zone_cluster", "route": "cuda",
+        "source": "radiativetransfer_tpu_torch/csrc/sweep_cluster.cu",
         "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:65",
         "launches": zones["launches"] + mesh["zone_launches"],
         "launches_by_path": {"zones": zones["launches"],
                              "mode9_mesh_zones": mesh["zone_launches"]},
         "max_abs_err": zones["max_abs_err"], "ms": zones["ms"],
-        "plain_ms": zones["plain_ms"], "bound_ms": b["bound_ms"],
-        "bound_by": b["bound_by"], "library_ms": None,
+        "plain_ms": zones["plain_ms"], "bound_ms": zones["bound_ms"],
+        "bound_by": zones["bound_by"], "library_ms": None,
+        "shape": zones["f32"]["rule"], "f64_ms": zones["f64"]["ms"],
+        "one_stream_ms": zones["f32"]["one_stream_ms"],
+        "streams_ms": zones["streams_ms"], "wrapper_ms": zones["wrapper_ms"],
+    }, {
+        "name": "sweep_zone", "route": "cuda", "source": src,
+        "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:65",
+        "launches": zones["old_launches"],
+        "launches_by_path": {"zone_turns": zones["old_launches"]},
+        "max_abs_err": zones["old_max_abs_err"],
+        "ms": zones["f32"]["old_ms"], "plain_ms": zones["plain_ms"],
+        "bound_ms": zones["bound_ms"], "bound_by": zones["bound_by"],
+        "library_ms": None, "f64_ms": zones["f64"]["old_ms"],
+        "streams_ms": zones["f32"]["old_streams_ms"],
     }, {
         "name": "sweep_pair", "route": "cuda", "source": src,
         "replaces": "scripts/exp_sweep_pair.py:53",
@@ -1145,16 +1377,29 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     top = scatter["m"][max(scatter["m"])]
+    scatter_src = "radiativetransfer_tpu_torch/csrc/scatter_rows.cu"
     line.append({
-        "name": "scatter_rows", "route": "cuda",
-        "source": "radiativetransfer_tpu_torch/csrc/scatter_rows.cu",
+        "name": "scatter_rows", "route": "cuda", "source": scatter_src,
         "replaces": "scripts/exp_pallas_scatter.py:45",
         "launches": scatter["launches"],
         "launches_by_path": {"exp_row_scatter": scatter["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in scatter["m"].values()),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": "bytes",
-        "library_ms": top["library_ms"]})
+        "library_ms": top["library_ms"],
+        "host_us": top["split"]["kernel"]["host_us"],
+        "device_us": top["split"]["kernel"]["device_us"],
+        "library_host_us": top["split"]["index_add_"]["host_us"],
+        "library_device_us": top["split"]["index_add_"]["device_us"]})
+    fl = scatter["floor"]["hbm"]
+    line.append({
+        "name": "scatter_red_floor", "route": "cuda", "source": scatter_src,
+        "replaces": "scripts/exp_pallas_scatter.py:45",
+        "launches": scatter["floor_launches"],
+        "launches_by_path": {"exp_row_scatter": scatter["floor_launches"]},
+        "max_abs_err": 0.0, "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": "bytes",
+        "library_ms": fl["plain_ms"]})
     assert scatter_cuda.BYTES_PER_ROW == 100
     ring = mesh["full"][4]
     line.append({

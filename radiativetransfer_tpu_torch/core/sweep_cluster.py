@@ -20,6 +20,13 @@ a cluster of C CTAs walks its slabs, CTA r holding the rows
   Decided from the shapes before any launch.
 * `work_items(meta, G)` — the (first direction, directions, band) of every
   work item.
+* One octant zone's sweep (TPU kernel #2) through the same kernel: a zone
+  on its rotate_to_sweep-ed (nslab, 3, ny, nz) field is one merged launch
+  with the identity permutation and no flips (`zone_tables`), the field's
+  slab and band strides passed to the kernel; `choose_cluster` is its
+  size rule too, `sweep_zone_cluster_kernel` its wrapper (plain version
+  sweep_cuda.sweep_zone_reference; `ZONE_LAUNCHES` counts its launches)
+  and `resident_zone_clusters` asks the card how many clusters it holds.
 * `diffuse_sweep_cluster_kernel` — launches the kernel on a CUDA tensor
   (or raises), takes the plain version on a CPU tensor; `LAUNCHES` counts
   its launches.  `resident_clusters` asks the
@@ -53,8 +60,10 @@ _REGS_PER_SM = 65536
 # rt_sweep_cluster's return when no cluster of the shape fits the card
 _NOT_SCHEDULABLE = -1
 
-# kernel launches made by diffuse_sweep_cluster_kernel
+# kernel launches made by diffuse_sweep_cluster_kernel (one per sweep) and
+# by sweep_zone_cluster_kernel (one per zone)
 LAUNCHES = 0
+ZONE_LAUNCHES = 0
 
 _LIB = None
 
@@ -130,7 +139,12 @@ def choose_cluster(ny: int, nz: int, dtype: torch.dtype
     beat G = 1 and G = 4 at either size, and two CTAs of 512 threads per
     SM beat one of 1024; in float64 at 128^3, where a cell's carry and
     logmean take twice the registers, G = 1 at 512 threads x 2 cells ran
-    fastest, 1.6x G = 2 at 256 x 4."""
+    fastest, 1.6x G = 2 at 256 x 4.  One zone's sweep takes the same rule:
+    at 128^3 x 192 its 24 launches on sweep_cuda.ZONE_STREAMS streams (as
+    the zones sweep runs them) ran fastest in this shape in float32 (C 8,
+    G 2, 512 x 4; on one stream, with only 15-33 work items a launch, G = 1
+    ran faster) and in float64 (C 16, G 1, 512 x 2) (chip_smoke.py phase
+    11, PERF.md)."""
     shapes = [s for c in CLUSTER_SIZES for g in GROUP_SIZES
               for s in cluster_shapes(ny, nz, dtype, c, g)]
     if not shapes:
@@ -172,8 +186,9 @@ def build() -> ctypes.CDLL:
     lib = cuda_build.build("sweep_cluster")["sweep_cluster"]
     p, pp, i, d = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.c_int, ctypes.c_double)
-    lib.rt_sweep_cluster.argtypes = ([i, i, pp, pp, pp] + [p] * 4 + [d] * 7
-                                     + [i] * 10 + [ctypes.POINTER(i), p])
+    lib.rt_sweep_cluster.argtypes = (
+        [i, i, pp, pp, pp] + [p] * 4 + [d] * 7 + [i] * 4
+        + [ctypes.c_longlong] * 2 + [i] * 6 + [ctypes.POINTER(i), p])
     lib.rt_sweep_cluster.restype = i
     lib.rt_cluster_error_string.argtypes = [i]
     lib.rt_cluster_error_string.restype = ctypes.c_char_p
@@ -181,46 +196,39 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def _item_table(plan: SweepPlan, meta: torch.Tensor, group: int, device):
+def _item_table(slot, owner, meta: torch.Tensor, group: int, device):
     return sweep_cuda.device_tables(
-        ("cluster_items", group), plan, 0.0, torch.int32, device,
+        (slot, group), owner, 0.0, torch.int32, device,
         lambda: torch.as_tensor(work_items(meta.cpu().numpy(), group),
                                 device=device))
 
 
-def _call(kappa, plan: SweepPlan, uvb, cell_size, logmean: str,
-          shape: ClusterShape, query_only: bool):
-    """One rt_sweep_cluster call: (Jmean or None, resident clusters).  The
-    library checks the shape's block against the plane and its registers,
-    and asks the card whether such a cluster can be scheduled, before any
-    launch."""
-    sweep_cuda.check_sweep_field(kappa, plan)
+def _run(fields, tables, uvb, weight: float, logmean: str, dims, strides,
+         shape: ClusterShape, query_only: bool) -> int:
+    """One rt_sweep_cluster call on the current device: fields (kappa,
+    1/kappa, Jmean lists, one tensor per axis permutation), tables
+    (dir_meta, lens, chains, items), dims (nslab, ny, nz) and strides (slab,
+    band, in elements).  The library checks the shape's block against the
+    plane and its registers, and asks the card whether such a cluster can
+    be scheduled, before any launch.  Returns the clusters of the shape the
+    card holds at once; raises on a refused launch."""
     if shape.group not in GROUP_SIZES or shape.cpt not in CELLS_PER_THREAD:
         raise ValueError(f"no kernel for {shape}")
-    n = plan.nslab
     lib = build()
-    dtype, device = kappa.dtype, kappa.device
-    with torch.cuda.device(device):
-        perms, meta, lens, chains = sweep_cuda.kernel_tables(
-            plan, cell_size, dtype, device)
-        items = _item_table(plan, meta, shape.group, device)
-        if query_only:
-            # nothing is launched: the field stands in for every buffer
-            kperm = ikperm = jperm = [kappa] * len(perms)
-        else:
-            jmean, kperm, ikperm, jperm = sweep_cuda.launch_buffers(
-                kappa, logmean, perms)
-        occupancy = (ctypes.c_int * 2)()
-        rc = lib.rt_sweep_cluster(
-            0 if dtype == torch.float32 else 1, len(perms),
-            sweep_cuda.pointer_array(kperm), sweep_cuda.pointer_array(ikperm),
-            sweep_cuda.pointer_array(jperm), meta.data_ptr(),
-            lens.data_ptr(), chains.data_ptr(), items.data_ptr(),
-            *sweep_cuda.uvb_floats(uvb), plan.weight, _tau_eps(dtype),
-            sweep_cuda._A_EPS, 1.0 / sweep_cuda._EPS_CL, items.shape[0], n,
-            n, n, int(logmean == "clamped"), shape.csize, shape.group,
-            shape.cpt, shape.threads, int(query_only), occupancy,
-            torch.cuda.current_stream(device).cuda_stream)
+    kperm, ikperm, jperm = fields
+    meta, lens, chains, items = tables
+    dtype, device = kperm[0].dtype, kperm[0].device
+    occupancy = (ctypes.c_int * 2)()
+    rc = lib.rt_sweep_cluster(
+        0 if dtype == torch.float32 else 1, len(kperm),
+        sweep_cuda.pointer_array(kperm), sweep_cuda.pointer_array(ikperm),
+        sweep_cuda.pointer_array(jperm), meta.data_ptr(), lens.data_ptr(),
+        chains.data_ptr(), items.data_ptr(), *sweep_cuda.uvb_floats(uvb),
+        weight, _tau_eps(dtype), sweep_cuda._A_EPS,
+        1.0 / sweep_cuda._EPS_CL, items.shape[0], *dims, *strides,
+        int(logmean == "clamped"), shape.csize, shape.group, shape.cpt,
+        shape.threads, int(query_only), occupancy,
+        torch.cuda.current_stream(device).cuda_stream)
     if rc == _NOT_SCHEDULABLE:
         query = lib.rt_cluster_error_string(occupancy[1]).decode()
         raise RuntimeError(
@@ -231,9 +239,32 @@ def _call(kappa, plan: SweepPlan, uvb, cell_size, logmean: str,
         raise RuntimeError(f"cluster sweep kernel launch failed: "
                            f"{lib.rt_cluster_error_string(rc).decode()} "
                            f"({rc})")
+    return occupancy[0]
+
+
+def _call(kappa, plan: SweepPlan, uvb, cell_size, logmean: str,
+          shape: ClusterShape, query_only: bool):
+    """The merged sweep through rt_sweep_cluster: (Jmean or None, resident
+    clusters)."""
+    sweep_cuda.check_sweep_field(kappa, plan)
+    n = plan.nslab
+    dtype, device = kappa.dtype, kappa.device
+    with torch.cuda.device(device):
+        perms, meta, lens, chains = sweep_cuda.kernel_tables(
+            plan, cell_size, dtype, device)
+        items = _item_table("cluster_items", plan, meta, shape.group, device)
+        if query_only:
+            # nothing is launched: the field stands in for every buffer
+            jmean = None
+            fields = ([kappa] * len(perms),) * 3
+        else:
+            jmean, *fields = sweep_cuda.launch_buffers(kappa, logmean, perms)
+        resident = _run(fields, (meta, lens, chains, items), uvb, plan.weight,
+                        logmean, (n, n, n), (n * n, n ** 3), shape,
+                        query_only)
     if query_only:
-        return None, occupancy[0]
-    return sweep_cuda.gather_jmean(jmean, jperm, perms), occupancy[0]
+        return None, resident
+    return sweep_cuda.gather_jmean(jmean, fields[2], perms), resident
 
 
 def diffuse_sweep_cluster_kernel(kappa, plan: SweepPlan, uvb, cell_size,
@@ -269,3 +300,95 @@ def resident_clusters(kappa, plan: SweepPlan, cell_size,
     sweep's, so the cached tables stay those of its launches."""
     return _call(kappa, plan, np.zeros(3), cell_size, "exact", shape,
                  True)[1]
+
+
+# ---------------------------------------------------------------------------
+# One zone's sweep (TPU kernel #2) through the same kernel
+# ---------------------------------------------------------------------------
+
+
+def zone_tables(zone, cell_size: float, dtype, device):
+    """One zone's tables in the cluster kernel's form, kept in the zone's
+    slot: dir_meta (D, 4) int32 of zeros (one merged launch: the identity
+    permutation, no reversal, no flips; the field is rotated already), lens
+    (D, nslab, 8) as kernel_tables' (-len*cell x3, 1/n_active,
+    -1/(len*cell) x3, pad) and chains (D, nslab, 2).  The lengths times
+    the cell size are taken in float64 and rounded once, as the plain
+    version's (sweep_cuda.scaled_zone) are, so a segment's tau rounds as
+    its tau does: in float32 an ulp of tau moves exp(-tau) by an ulp,
+    which the exact logmean's 1 - exp(-tau) magnifies by 1/tau (7.9e-5 of
+    Jmean at 128^3 with kernel_tables' float32 product)."""
+    def make():
+        lens, chains = sweep_cuda.zone_launch_tables(zone)
+        lens = lens * np.array([-cell_size] * 3 + [1.0]
+                               + [-1.0 / cell_size] * 3 + [0.0])
+        return (torch.zeros((zone.ndir, 4), dtype=torch.int32, device=device),
+                torch.as_tensor(np.swapaxes(lens, 0, 1).astype(
+                    sweep_cuda.numpy_dtype(dtype)), device=device),
+                torch.as_tensor(np.swapaxes(chains, 0, 1).copy(),
+                                device=device))
+    return sweep_cuda.device_tables(("cluster_zone", zone.izone), zone,
+                                    cell_size, dtype, device, make)
+
+
+def _zone_call(kappa_rot, zone, uvb, cell_size, weight, shape: ClusterShape,
+               query_only: bool):
+    """One zone through rt_sweep_cluster: (weighted Jmean or None, resident
+    clusters).  The rotated field (nslab, 3, ny, nz) has slab stride
+    3*ny*nz and band stride ny*nz."""
+    sweep_cuda.check_device_field(kappa_rot)
+    nslab, nb, ny, nz = kappa_rot.shape
+    if nb != 3 or nslab != zone.len_xy.shape[1]:
+        raise ValueError(f"kappa_rot shape {tuple(kappa_rot.shape)} does not "
+                         f"match the zone's {zone.len_xy.shape[1]} slabs x 3 "
+                         f"bands")
+    dtype, device = kappa_rot.dtype, kappa_rot.device
+    with torch.cuda.device(device):
+        meta, lens, chains = zone_tables(zone, cell_size, dtype, device)
+        items = _item_table(("cluster_zone_items", zone.izone), zone, meta,
+                            shape.group, device)
+        if query_only:
+            jout = None
+            fields = ([kappa_rot],) * 3
+        else:
+            jout = torch.zeros_like(kappa_rot)
+            fields = ([kappa_rot],
+                      [sweep_cuda._inv_kappa(kappa_rot, "exact")], [jout])
+        resident = _run(fields, (meta, lens, chains, items), uvb,
+                        float(weight), "exact", (nslab, ny, nz),
+                        (3 * ny * nz, ny * nz), shape, query_only)
+    return jout, resident
+
+
+def sweep_zone_cluster_kernel(kappa_rot, zone, uvb, cell_size, weight,
+                              shape: ClusterShape | None = None
+                              ) -> torch.Tensor:
+    """One zone's sweep, sweep_cuda.sweep_zone_kernel's function: (nslab,
+    3, ny, nz) rotated kappa -> (nslab, 3, ny, nz) weighted Jmean, the
+    exact logmean.  A CPU tensor takes sweep_cuda.sweep_zone_reference; a
+    CUDA tensor (float32 or float64) launches the cluster kernel in `shape`
+    (choose_cluster's by default), or raises where the shape does not
+    fit the plane or cannot be scheduled, before any launch."""
+    global ZONE_LAUNCHES
+    if kappa_rot.device.type == "cpu":
+        return sweep_cuda.sweep_zone_reference(kappa_rot, zone, uvb,
+                                               cell_size, weight)
+    if shape is None:
+        sweep_cuda.check_device_field(kappa_rot)
+        ny, nz = kappa_rot.shape[2:]
+        shape = choose_cluster(ny, nz, kappa_rot.dtype)
+        if shape is None:
+            raise ValueError(f"no cluster shape fits a {ny} x {nz} "
+                             f"{kappa_rot.dtype} plane")
+    jout, _ = _zone_call(kappa_rot, zone, uvb, cell_size, weight, shape,
+                         False)
+    ZONE_LAUNCHES += 1
+    return jout
+
+
+def resident_zone_clusters(kappa_rot, zone, cell_size,
+                           shape: ClusterShape) -> int:
+    """How many clusters of `shape` the card holds at once for one zone's
+    launch; launches nothing."""
+    return _zone_call(kappa_rot, zone, np.zeros(3), cell_size, 1.0, shape,
+                      True)[1]

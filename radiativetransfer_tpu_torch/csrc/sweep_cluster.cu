@@ -1,11 +1,20 @@
 // Merged flip-folded diffuse sweep for Hopper (sm_90a), with each plane
 // split across a thread-block cluster and each kappa slab shared by G
-// directions.
+// directions; also one octant zone's sweep on a rotated field.
 //
-// Replaces: radiativetransfer_tpu/core/sweep_pallas.py::_merged_kernel (the
-// TPU wavefront kernel of the JAX package), as csrc/sweep_merged.cu does,
-// with the same mathematics and the same host tables (core/sweep_cuda.py::
-// kernel_tables): every direction walks its slabs in order; per slab each
+// Replaces two TPU kernels of the JAX package:
+// * radiativetransfer_tpu/core/sweep_pallas.py::_merged_kernel (#1, the
+//   TPU wavefront kernel), as csrc/sweep_merged.cu does, with the same
+//   mathematics and the same host tables (core/sweep_cuda.py::
+//   kernel_tables): fields (3, nslab, ny, nz) per axis permutation;
+// * radiativetransfer_tpu/core/sweep_pallas.py::_sweep_zone_kernel (#2),
+//   as csrc/sweep_variants.cu's zone kernel does: one zone on its
+//   rotate_to_sweep-ed (nslab, 3, ny, nz) field is one merged launch with
+//   the identity permutation, no flips and the zone's tables
+//   (core/sweep_cluster.py::zone_tables); only the field's slab and band
+//   strides differ, and the launch passes them.
+//
+// Every direction walks its slabs in order; per slab each
 // cell runs up to 3 chained ray segments (attenuate by exp(kappa*len_n),
 // logmean emissivity in the exact two-branch or the clamped branch-free
 // form, upwind shift along j or k between segments, reversed under a flip,
@@ -55,10 +64,12 @@
 // the missing directions predicated off.  The cluster launch asks
 // cudaOccupancyMaxActiveClusters first and refuses a cluster that cannot
 // be scheduled (0 resident clusters) before it runs.  C, G and the cells
-// per thread come from core/sweep_cluster.py's size rule, measured on the
+// per thread come from core/sweep_cluster.py's size rules, measured on the
 // H100: in f32 C 8, G 2, 512 threads x 4 cells at 128^3 (1.38x csrc/
 // sweep_merged.cu) and C 16, G 2, 1024 x 4 at 256^3 (3.9x); in f64 C 16,
-// G 1, 512 x 2 at 128^3 (2.3x); PERF.md.
+// G 1, 512 x 2 at 128^3 (2.3x); one zone's launch takes the same rule,
+// which ran the 24 zone launches at 128^3 fastest with 4 zones in flight
+// (core/sweep_cuda.py::ZONE_STREAMS); PERF.md.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (never --use_fast_math: IEEE expf and division, each op rounded as the
@@ -94,6 +105,9 @@ struct ClusterParams {
   T eps;                 // small-tau switch of the exact logmean
   T a_eps;               // exp(-EPS_CL) of the clamped logmean
   T inv_eps_cl;          // 1/EPS_CL
+  long long slab_stride;  // elements between slabs of a field: ny*nz in
+  long long band_stride;  // (3, nslab, ny, nz), 3*ny*nz in (nslab, 3, ny,
+                          // nz); between bands nslab*ny*nz or ny*nz
   int nslab, ny, nz;
   int csize;             // C, CTAs per cluster
   int rows_max;          // ceil(ny / C): the row stride of a staging plane
@@ -199,8 +213,8 @@ sweep_cluster_kernel(const ClusterParams<T> p) {
     flip_j[g] = meta[2] != 0;
     flip_k[g] = meta[3] != 0;
   }
-  const size_t plane = static_cast<size_t>(ny) * nz;
-  const size_t band_off = static_cast<size_t>(band) * nslab * plane +
+  const long long slab_stride = p.slab_stride;
+  const size_t band_off = static_cast<size_t>(band) * p.band_stride +
                           static_cast<size_t>(r0) * nz;
   const T* kap_band = p.kappa[perm] + band_off;
   const T* ikap_band = p.inv_kappa[perm] + band_off;
@@ -214,7 +228,8 @@ sweep_cluster_kernel(const ClusterParams<T> p) {
 #pragma unroll
     for (int m = 0; m < CPT; ++m) carry[g][m] = pad;
   {
-    const size_t off = static_cast<size_t>(reverse ? nslab - 1 : 0) * plane;
+    const size_t off =
+        static_cast<size_t>(reverse ? nslab - 1 : 0) * slab_stride;
 #pragma unroll
     for (int m = 0; m < CPT; ++m) {
       const int c = t + m * nt;
@@ -244,7 +259,8 @@ sweep_cluster_kernel(const ClusterParams<T> p) {
       ikc[m] = ikap[m];
     }
     if (i + 1 < nslab) {  // the next slab's loads, in flight over this one
-      const size_t off = static_cast<size_t>(reverse ? s - 1 : s + 1) * plane;
+      const size_t off =
+          static_cast<size_t>(reverse ? s - 1 : s + 1) * slab_stride;
 #pragma unroll
       for (int m = 0; m < CPT; ++m) {
         const int c = t + m * nt;
@@ -345,21 +361,24 @@ sweep_cluster_kernel(const ClusterParams<T> p) {
     }
 
     // one deposit per cell for the G directions: their weighted logmeans
-    // summed in registers (only the order of Jmean's adds changes)
-    T inv_n[G];
+    // summed in registers (only the order of Jmean's adds changes), each
+    // direction's weight 1/N * 1/n_active taken once per slab
+    T w[G];
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      inv_n[g] = g < gcount
-          ? p.lens[8 * (static_cast<size_t>(d0 + g) * nslab + i) + 3] : T(0);
-    T* j_slab = j_band + static_cast<size_t>(s) * plane;
+      w[g] = g < gcount
+          ? p.scale *
+                p.lens[8 * (static_cast<size_t>(d0 + g) * nslab + i) + 3]
+          : T(0);
+    T* j_slab = j_band + static_cast<size_t>(s) * slab_stride;
 #pragma unroll
     for (int m = 0; m < CPT; ++m) {
       const int c = t + m * nt;
       if (c >= cells) continue;
-      T dep = p.scale * (inv_n[0] * acc[0][m]);
+      T dep = w[0] * acc[0][m];
 #pragma unroll
       for (int g = 1; g < G; ++g)
-        if (g < gcount) dep += p.scale * (inv_n[g] * acc[g][m]);
+        if (g < gcount) dep += w[g] * acc[g][m];
       atomicAdd(j_slab + c, dep);
     }
   }
@@ -451,8 +470,9 @@ int dispatch(int nperm, const void* const* kappa, const void* const* inv_kappa,
              void* const* jout, const int* dir_meta, const void* lens,
              const int* chains, const int* items, const double uvb[3],
              double scale, double eps, double a_eps, double inv_eps_cl,
-             int n_items, int nslab, int ny, int nz, int clamped, int csize,
-             int g, int cpt, int threads, int query_only, int* occupancy,
+             int n_items, int nslab, int ny, int nz, long long slab_stride,
+             long long band_stride, int clamped, int csize, int g, int cpt,
+             int threads, int query_only, int* occupancy,
              cudaStream_t stream) {
   ClusterParams<T> p;
   for (int q = 0; q < kMaxPerms; ++q) {
@@ -470,6 +490,8 @@ int dispatch(int nperm, const void* const* kappa, const void* const* inv_kappa,
   p.eps = static_cast<T>(eps);
   p.a_eps = static_cast<T>(a_eps);
   p.inv_eps_cl = static_cast<T>(inv_eps_cl);
+  p.slab_stride = slab_stride;
+  p.band_stride = band_stride;
   p.nslab = nslab;
   p.ny = ny;
   p.nz = nz;
@@ -489,7 +511,9 @@ extern "C" {
 // of `threads` threads, g directions and cpt cells per thread) on
 // `stream`, or with query_only only asks the occupancy.  dtype: 0 =
 // float32, 1 = float64.  kappa/inv_kappa/jout: host arrays of nperm (<= 6)
-// device pointers, one per axis permutation.  occupancy (2 ints): the
+// device pointers, one per axis permutation, each field with the given
+// slab and band strides (in elements; a row is nz contiguous elements,
+// rows ny apart by nz).  occupancy (2 ints): the
 // clusters of this shape the card holds at once, and the occupancy query's
 // cudaError_t.  Returns 0, a cudaError_t, or -1 when no cluster of this
 // shape can be scheduled (nothing launched).
@@ -499,23 +523,27 @@ int rt_sweep_cluster(int dtype, int nperm, const void* const* kappa,
                      const int* items, double uvb0, double uvb1, double uvb2,
                      double scale, double eps, double a_eps,
                      double inv_eps_cl, int n_items, int nslab, int ny, int nz,
+                     long long slab_stride, long long band_stride,
                      int clamped, int csize, int g, int cpt, int threads,
                      int query_only, int* occupancy, void* stream) {
   const double uvb[3] = {uvb0, uvb1, uvb2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long plane = static_cast<long long>(ny) * nz;
   if (nperm < 1 || nperm > kMaxPerms || n_items < 1 || csize < 1 ||
-      csize > ny)
+      csize > ny || slab_stride < plane || band_stride < plane)
     return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(nperm, kappa, inv_kappa, jout, dir_meta, lens,
                            chains, items, uvb, scale, eps, a_eps, inv_eps_cl,
-                           n_items, nslab, ny, nz, clamped, csize, g, cpt,
-                           threads, query_only, occupancy, s);
+                           n_items, nslab, ny, nz, slab_stride, band_stride,
+                           clamped, csize, g, cpt, threads, query_only,
+                           occupancy, s);
   if (dtype == 1)
     return dispatch<double>(nperm, kappa, inv_kappa, jout, dir_meta, lens,
                             chains, items, uvb, scale, eps, a_eps, inv_eps_cl,
-                            n_items, nslab, ny, nz, clamped, csize, g, cpt,
-                            threads, query_only, occupancy, s);
+                            n_items, nslab, ny, nz, slab_stride, band_stride,
+                            clamped, csize, g, cpt, threads, query_only,
+                            occupancy, s);
   return cudaErrorInvalidValue;
 }
 

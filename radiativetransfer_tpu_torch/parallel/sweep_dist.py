@@ -15,8 +15,9 @@ collectives is written out over a leading rank axis:
 2. `diffuse_sweep_zone_parallel` -- angle decomposition.  The 24 zones are
    dealt round-robin to the ranks; each rank sweeps its zones over the
    whole field with the per-zone sweep (sweep_cuda.sweep_zone_kernel, TPU
-   kernel #2 on the card, its plain version on the CPU), and the ranks'
-   sums are added in rank order (the psum).
+   kernel #2 on the card, its plain version on the CPU; on the card several
+   zones in flight at once), and the ranks' sums are added in rank order
+   (the psum).
 
 Both match core.sweep.diffuse_sweep to float rounding.
 """
@@ -77,7 +78,12 @@ def diffuse_sweep_zone_parallel(kappa, plan: SweepPlan, uvb, cell_size,
     plan with the per-zone sweep; the ranks' Jmean are summed in rank
     order.  Args as core.sweep.diffuse_sweep's."""
     p = mesh.n_ranks
+    # every rank's zones may start once kappa is written: several zones in
+    # flight across the ranks (sweep_cuda.zone_by_zone on a CUDA tensor)
+    ready = torch.cuda.current_stream(kappa.device).record_event() \
+        if kappa.is_cuda else None
     return sum(sweep_cuda.zone_by_zone(
         sweep_cuda.sweep_zone_kernel, kappa,
-        dataclasses.replace(plan, zones=plan.zones[r::p]), uvb, cell_size)
+        dataclasses.replace(plan, zones=plan.zones[r::p]), uvb, cell_size,
+        streams=sweep_cuda.ZONE_STREAMS, ready=ready)
         for r in range(p))

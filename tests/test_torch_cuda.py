@@ -258,12 +258,109 @@ def test_zone_kernel_matches_plain_version(card, level, n, plane_memory,
     kappa = _kappa(n, dtype, card)
     plan = sweep.build_sweep_plan(level, n)
     before = sweep_cuda.ZONE_LAUNCHES
-    j = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, UVB, KPC,
-                                              plane_memory=plane_memory)
+    j = sweep_cuda.zone_by_zone(sweep_cuda.sweep_zone_plane_kernel, kappa,
+                                plan, UVB, KPC, plane_memory=plane_memory)
     torch.cuda.synchronize()
     assert sweep_cuda.ZONE_LAUNCHES == before + len(plan.zones)
     ref = sweep_cuda.diffuse_sweep_zones_reference(kappa, plan, UVB, KPC)
     np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("level,n,csize,group", [
+    (level, n, c, g) for level, n in [(1, 8), (2, 6), (2, 7)]
+    for c, g in [(1, 1), (2, 2), (4, 1), (8, 1), (4, 4)] if c <= n])
+def test_zone_cluster_kernel_matches_plain_version(card, level, n, csize,
+                                                   group, dtype, rtol):
+    # one zone a launch of csrc/sweep_cluster.cu on the rotated field; n 6
+    # and 7 split into ragged row bands, level 2's zones of 1-3 directions
+    # leave ragged groups.  rtol: the kernel's exact logmean (a - 1) *
+    # (1/kappa) * (1/len) rounds the plain version's (1 - a)/tau otherwise,
+    # and the directions are summed in another order
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(level, n)
+    shape = sweep_cluster.cluster_shapes(n, n, dtype, csize, group)[0]
+    before = sweep_cluster.ZONE_LAUNCHES
+    for zone in plan.zones:
+        krot = sweep_cuda.rotate_to_zone(kappa, zone)
+        j = sweep_cluster.sweep_zone_cluster_kernel(krot, zone, UVB, KPC,
+                                                    plan.weight, shape)
+        torch.cuda.synchronize()
+        ref = sweep_cuda.sweep_zone_reference(krot, zone, UVB, KPC,
+                                              plan.weight)
+        np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=rtol, err_msg=f"zone {zone.izone}")
+    assert sweep_cluster.ZONE_LAUNCHES == before + len(plan.zones)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_zones_sweep_takes_cluster_kernel_at_main_width(card, dtype, rtol):
+    # the zones strategy's sweep at 128^3 x 192: the size rule's shape, one
+    # cluster launch a zone and none of the plane zone kernel
+    n = 128
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(3, n)
+    assert sweep_cluster.choose_cluster(n, n, dtype) is not None
+    before = (sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES)
+    j = sweep_cuda.diffuse_sweep_zones_kernel(kappa, plan, UVB, KPC)
+    torch.cuda.synchronize()
+    assert (sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES) == (
+        before[0] + len(plan.zones), before[1])
+    ref = sweep_cuda.diffuse_sweep_zones_reference(kappa, plan, UVB, KPC)
+    assert probes_cuda.rel_err(j, ref)[1] <= rtol
+
+
+def test_zone_tables_record_every_stream_that_reads_them(card):
+    # zone i runs on side stream i % k: with k = 2 and then 3 zone 1's
+    # cached tables are read on two streams, and each is recorded on them
+    # (so a slot replaced later is not reused while either still reads it)
+    n = 8
+    plan = sweep.build_sweep_plan(1, n)
+    kappa = _kappa(n, torch.float32, card)
+    ref = sweep_cuda.diffuse_sweep_zones_reference(kappa, plan, UVB, KPC)
+    for k in (2, 3):
+        j = sweep_cuda.zone_by_zone(sweep_cuda.sweep_zone_kernel, kappa,
+                                    plan, UVB, KPC, streams=k)
+        assert probes_cuda.rel_err(j, ref)[1] <= 1e-5, k
+    seen = sweep_cuda._TABLES[("cluster_zone", plan.zones[1].izone)][3]
+    for k in (2, 3):
+        assert sweep_cuda._side_streams(kappa.device, k)[1] in seen, k
+
+
+def test_zone_rule_takes_old_kernel_where_nothing_fits(card):
+    # no cluster shape holds a 256^3 float64 plane: the size rule sends the
+    # zone to csrc/sweep_variants.cu's kernel before launching
+    n = 256
+    assert sweep_cluster.choose_cluster(n, n, torch.float64) is None
+    zone = sweep.build_sweep_plan(1, n).zones[0]
+    krot = torch.rand((n, 3, n, n), dtype=torch.float64, device=card) * 1e-22
+    before = (sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES)
+    j = sweep_cuda.sweep_zone_kernel(krot, zone, UVB, KPC, 1 / 12)
+    torch.cuda.synchronize()
+    assert (sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES) == (
+        before[0], before[1] + 1)
+    ref = sweep_cuda.sweep_zone_reference(krot, zone, UVB, KPC, 1 / 12)
+    assert probes_cuda.rel_err(j, ref)[1] <= 1e-12
+
+
+def test_zone_cluster_kernel_rejects_what_it_does_not_take(card):
+    n = 8
+    plan = sweep.build_sweep_plan(1, n)
+    zone = plan.zones[0]
+    krot = sweep_cuda.rotate_to_zone(_kappa(n, torch.float32, card), zone)
+    with pytest.raises(ValueError, match="slabs"):
+        sweep_cluster.sweep_zone_cluster_kernel(krot[:4].contiguous(), zone,
+                                                UVB, KPC, plan.weight)
+    with pytest.raises(TypeError):
+        sweep_cluster.sweep_zone_cluster_kernel(krot.half(), zone, UVB, KPC,
+                                                plan.weight)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        # 8 rows split over 16 CTAs: refused by the library, not launched
+        sweep_cluster.sweep_zone_cluster_kernel(
+            krot, zone, UVB, KPC, plan.weight,
+            sweep_cluster.ClusterShape(16, 1, 1, 32, 0))
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
@@ -340,6 +437,18 @@ def test_scatter_drops_rows_outside_the_accumulator(card):
     scatter_cuda.scatter_rows(acc, idx, vals)
     ref = torch.zeros(16, 8)
     ref[3] = 1.0
+    assert torch.equal(acc.cpu(), ref)
+
+
+@pytest.mark.parametrize("cells,m", [(16, 1), (4096, 5000), (1 << 17, 98304)])
+def test_red_floor_matches_plain_version(card, cells, m):
+    # sums of ones: exact in any order
+    acc = torch.zeros(cells, 8, device=card)
+    before = scatter_cuda.FLOOR_LAUNCHES
+    scatter_cuda.red_floor(acc, m)
+    torch.cuda.synchronize()
+    assert scatter_cuda.FLOOR_LAUNCHES == before + 1
+    ref = scatter_cuda.red_floor_reference(torch.zeros(cells, 8), m)
     assert torch.equal(acc.cpu(), ref)
 
 

@@ -1,8 +1,9 @@
 """PyTorch port, the cluster sweep kernel's host side (core/sweep_cluster.py):
-its size rule, its work items and row bands, and csrc/sweep_cluster.cu's
-control flow replayed on the host against the merged sweep's plain
-version.  The kernel itself runs only on a card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+its size rules (the merged sweep's and one zone's), its work items and row
+bands, and csrc/sweep_cluster.cu's control flow replayed on the host
+against the merged sweep's plain version and, on a zone's rotated field,
+against the per-zone sweep's.  The kernel itself runs only on a card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import re
 from pathlib import Path
@@ -133,18 +134,42 @@ def test_work_items_cover_every_direction_band_and_row(level, n, group):
 
 
 def _emulate_cluster_launch(kappa, plan, uvb, cell_size, logmean, shape):
+    """The merged sweep's launch replayed on the host (_emulate_items)."""
+    perms, meta, lens, chains = sweep_cuda.kernel_tables(
+        plan, cell_size, kappa.dtype, kappa.device)
+    jmean, kperm, ikperm, jperm = sweep_cuda.launch_buffers(kappa, logmean,
+                                                             perms)
+    _emulate_items(kperm, ikperm, jperm, meta, lens, chains, uvb,
+                   plan.weight, logmean, shape)
+    return sweep_cuda.gather_jmean(jmean, jperm, perms)
+
+
+def _emulate_zone_launch(kappa_rot, zone, uvb, cell_size, weight, shape):
+    """One zone's launch replayed on the host: the zone's tables
+    (sweep_cluster.zone_tables) on (3, nslab, ny, nz) views of the rotated
+    (nslab, 3, ny, nz) field and of Jmean, the kernel's slab and band
+    strides."""
+    meta, lens, chains = sweep_cluster.zone_tables(zone, cell_size,
+                                                   kappa_rot.dtype, "cpu")
+    jout = torch.zeros_like(kappa_rot)
+    _emulate_items([kappa_rot.transpose(0, 1)],
+                   [(1.0 / kappa_rot).transpose(0, 1)],
+                   [jout.transpose(0, 1)], meta, lens, chains, uvb, weight,
+                   "exact", shape)
+    return jout
+
+
+def _emulate_items(kperm, ikperm, jperm, meta, lens, chains, uvb, weight,
+                   logmean, shape):
     """csrc/sweep_cluster.cu's control flow on the host: each work item (a
     band and <= G directions) walked by C CTAs of row bands; segment 1 in
     place, then the union of the directions' chained stages, each writing
     every CTA's staging plane before any CTA reads (the cluster barrier),
     the j-shift reading the neighbour CTA's edge row (the pad at the
-    plane's edge), the k-shift inside the CTA; the G weighted logmeans
-    summed before one deposit per cell."""
-    dtype = kappa.dtype
-    perms, meta, lens, chains = sweep_cuda.kernel_tables(
-        plan, cell_size, dtype, kappa.device)
-    jmean, kperm, ikperm, jperm = sweep_cuda.launch_buffers(kappa, logmean,
-                                                             perms)
+    plane's edge), the k-shift inside the CTA; the G logmeans, each times
+    its direction's weight 1/N * 1/n_active, summed before one deposit
+    per cell.  Adds into jperm's (3, nslab, ny, nz) fields in place."""
+    dtype = kperm[0].dtype
     eps = tsweep._tau_eps(dtype)
     nslab, ny, nz = kperm[0].shape[1:]
     bands = sweep_cluster.row_bands(ny, shape.csize)
@@ -201,12 +226,11 @@ def _emulate_cluster_launch(kappa, plan, uvb, cell_size, logmean, shape):
                     carry[r] = torch.where(on, i_out, carry[r])
                     acc[r] = torch.where(on, acc[r] + lm, acc[r])
             for r, (r0, r1) in enumerate(bands):
-                terms = plan.weight * (ln[:, 3] * acc[r])
+                terms = (weight * ln[:, 3]) * acc[r]
                 dep = terms[0]
                 for g in range(1, count):
                     dep = dep + terms[g]
                 jperm[p][band, s, r0:r1] += dep
-    return sweep_cuda.gather_jmean(jmean, jperm, perms)
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
@@ -243,3 +267,79 @@ def test_wrappers_on_cpu_take_plain_version(dtype):
     with pytest.raises(ValueError, match="logmean"):
         sweep_cluster.diffuse_sweep_cluster_kernel(kappa, plan, UVB, KPC,
                                                    "fast")
+
+
+# ---------------------------------------------------------------------------
+# One zone's sweep through the cluster kernel (TPU kernel #2)
+# ---------------------------------------------------------------------------
+
+
+def _zone_fields(level, n, dtype):
+    kappa = _kappa(n, dtype)
+    plan = tsweep.build_sweep_plan(level, n)
+    return plan, [sweep_cuda.rotate_to_zone(kappa, zone) for zone in
+                  plan.zones]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("level,n,csize,group", [
+    (1, 6, 4, 1), (1, 7, 2, 2), (2, 6, 4, 2), (2, 7, 4, 1), (2, 8, 8, 2),
+    (1, 8, 1, 1)])
+def test_zone_launch_control_flow_emulated(level, n, csize, group, dtype,
+                                           rtol):
+    # n 6 and 7 split into ragged row bands; level 2's zones of 1-3
+    # directions leave ragged groups at G = 2.  Against the zone kernel's
+    # plain version, the slab scan's sweep_zone: the kernel's exact logmean
+    # (a - 1) * (1/kappa) * (1/len_n) rounds the scan's (1 - a)/tau
+    # otherwise, and it sums the directions' weighted logmeans in another
+    # order (f32 2.1e-6 at level 1 n 6; 1e-5, phase 11's tolerance)
+    plan, krots = _zone_fields(level, n, dtype)
+    shape = sweep_cluster.cluster_shapes(n, n, dtype, csize, group)[0]
+    for zone, krot in zip(plan.zones, krots):
+        j = _emulate_zone_launch(krot, zone, UVB, KPC, plan.weight, shape)
+        ref = sweep_cuda.sweep_zone_reference(krot, zone, UVB, KPC,
+                                              plan.weight)
+        np.testing.assert_allclose(j.numpy(), ref.numpy(), rtol=rtol,
+                                   err_msg=f"zone {zone.izone}")
+
+
+@pytest.mark.parametrize("level,n", [(1, 6), (2, 8), (3, 8)])
+@pytest.mark.parametrize("group", [1, 2])
+def test_zone_work_items_cover_every_direction_and_band(level, n, group):
+    # one merged launch of the zone's directions (meta all zero), in as few
+    # groups of <= G as it takes, sized within one of each other, x 3 bands
+    plan = tsweep.build_sweep_plan(level, n)
+    for zone in plan.zones:
+        meta, lens, chains = sweep_cluster.zone_tables(zone, KPC,
+                                                       torch.float64, "cpu")
+        assert meta.shape == (zone.ndir, 4) and not meta.any()
+        assert lens.shape == (zone.ndir, n, 8)
+        assert chains.shape == (zone.ndir, n, 2)
+        items = sweep_cluster.work_items(meta.numpy(), group)
+        assert len(items) == 3 * -(-zone.ndir // group)
+        seen = np.zeros((zone.ndir, 3), np.int64)
+        for d0, count, band, _ in items:
+            seen[d0:d0 + count, band] += 1
+        assert (seen == 1).all()
+        sizes = [count for _, count, band, _ in items if band == 0]
+        assert max(sizes) - min(sizes) <= 1
+        # lens: -len*cell x3 (chain order), 1/n_active, -1/(len*cell) x3
+        np.testing.assert_allclose(lens[..., 0].numpy(),
+                                   -zone.len_xy * KPC, rtol=1e-15)
+        np.testing.assert_allclose(lens[..., 3].numpy(),
+                                   1.0 / zone.n_active, rtol=1e-15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_zone_wrappers_on_cpu_take_plain_version(dtype):
+    plan, krots = _zone_fields(2, 6, dtype)
+    before = (sweep_cuda.ZONE_LAUNCHES, sweep_cluster.ZONE_LAUNCHES)
+    for zone, krot in zip(plan.zones, krots):
+        ref = sweep_cuda.sweep_zone_reference(krot, zone, UVB, KPC,
+                                              plan.weight)
+        for fn in (sweep_cuda.sweep_zone_kernel,
+                   sweep_cuda.sweep_zone_plane_kernel,
+                   sweep_cluster.sweep_zone_cluster_kernel):
+            assert torch.equal(fn(krot, zone, UVB, KPC, plan.weight), ref)
+    assert (sweep_cuda.ZONE_LAUNCHES, sweep_cluster.ZONE_LAUNCHES) == before
