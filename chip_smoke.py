@@ -32,7 +32,9 @@ line or more each; any failure raises and the script exits non-zero:
    plain version, in cells*angles/s;
 7. the probe kernel vs its plain version for every body at 64^3, then the
    roofline script (python -m radiativetransfer_tpu_torch.roofline_sweep)
-   at 256^3: stream GB/s, the exp, div and fma rates, the sweep's bound;
+   at 256^3: stream GB/s (the kernel in turns with torch.add), the exp,
+   div and fma rates, the
+   sweep's bound;
    every probe's output at 256^3 against its plain version's there, and
    the bounds' per-step instruction counts against the kernel's SASS;
 8. the 24^3 mode-8 anchor: one f32 step, neutral fraction 0.033307 +-1e-4,
@@ -69,16 +71,21 @@ line or more each; any failure raises and the script exits non-zero:
     index_add_, and the float4 reduction floor into an accumulator in L2
     and into the 67 MB one;
 15. the mesh path, P virtual ranks on the card: the 24^3 anchor through
-    the ring sweep (kernel #3) on 4 ranks; the ring at level 1 and 2, n 8,
-    P = 1, 2, 4, 8 against the pipelined plain version and the slab scan;
-    at 128^3 x 192 (P = 1, 2, 4) and 256^3 (P = 4) against its plain
-    version, its 24 kernels timed alone beside the wrapper, the shipped
-    sweep and the per-zone sweep; 3 mode-9 steps at 128^3 x 192 on 4
-    ranks through the ring (24 launches each), step 1 against the same
-    step on one rank and against one device's; 3 steps of the zones
-    strategy at 128^3 x 192 on 4 ranks (24 cluster zone launches each),
-    and one step of the pipelined strategy at 64^3, held the same way;
-    and a ring that cannot be co-resident, refused.
+    the ring sweep (kernel #3, the cluster ring: csrc/sweep_cluster.cu's
+    RING instances) on 4 ranks; the ring at level 1 and 2, n 8, P = 1, 2,
+    4, 8 against the pipelined plain version and the slab scan; at 128^3
+    x 192 (P = 1, 2, 4 in f32, P = 4 in f64) and 256^3 (P = 4) the
+    cluster ring in its size rule's shape and the plane ring
+    (csrc/sweep_rdma.cu) against their plain version, their 24 launches
+    timed in turns (plane, cluster, cluster, plane), every launch shape
+    of the cluster ring at 128^3 (P = 4 f32 and f64, P = 1 f32), beside
+    the wrapper, the shipped sweep and the per-zone sweep; 3 mode-9 steps
+    at 128^3 x 192 on 4 ranks through the cluster ring (24 launches
+    each), step 1 against the same step on one rank and against one
+    device's; 3 steps of the zones strategy at 128^3 x 192 on 4 ranks (24
+    cluster zone launches each), and one step of the pipelined strategy
+    at 64^3, held the same way; and a ring of each kernel that cannot be
+    co-resident, refused.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -181,15 +188,16 @@ def phase_build() -> None:
     print(f"[2 build] {names} in {dt:.2f} s")
     for name, log in cuda_build.BUILD_LOG.items():
         if name == "sweep_cluster":
-            # one entry per <dtype, clamped, G, cells per thread>
+            # one entry per <dtype, clamped, G, cells per thread, ring>
             cells = []
             for kname, (regs, spill) in _ptxas_kernels(log).items():
                 m = re.search(r"sweep_cluster_kernelI([fd])Lb([01])ELi(\d+)"
-                              r"ELi(\d+)E", kname)
+                              r"ELi(\d+)ELb([01])E", kname)
                 if m:
-                    t, cl, g, cpt = m.groups()
+                    t, cl, g, cpt, ring = m.groups()
                     cells.append(f"{'f32' if t == 'f' else 'f64'}"
-                                 f"{' clamped' if cl == '1' else ''} G{g} "
+                                 f"{' clamped' if cl == '1' else ''}"
+                                 f"{' ring' if ring == '1' else ''} G{g} "
                                  f"CPT{cpt}: {regs} regs, {spill} B spill")
             print(f"[2 build] sweep_cluster ({len(cells)} kernels): "
                   f"{'; '.join(cells)}")
@@ -965,46 +973,152 @@ def _mesh_zone_runs(fn, blocks, plan, uvb, **kw):
     return run, outs
 
 
-def _mesh_sweep_at(n: int, p: int, smi: str, time_all: bool) -> dict:
-    """The ring kernel's 24 launches alone on blocks split beforehand,
-    against their plain versions (the pipelined scan on the kernel's
-    tables, timed once), and the whole wrapper."""
+def _ring_runs(blocks, plan, uvb, zones, **kw):
+    """A callable running the cluster ring on the blocks of `zones`, its
+    launches marking one status; the status."""
     from radiativetransfer_tpu_torch.constants import KPC
-    from radiativetransfer_tpu_torch.core import sweep, sweep_cuda
+    from radiativetransfer_tpu_torch.parallel import sweep_rdma
+    status = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def run():
+        for i in zones:
+            sweep_rdma.sweep_zone_ring_cluster_kernel(
+                blocks[i], plan.zones[i], uvb, KPC, plan.weight,
+                status=status, **kw)
+    return run, status
+
+
+def _mesh_sweep_at(n: int, p: int, dtype, smi: str, table: bool,
+                   wrapper: bool) -> dict:
+    """The ring's 24 launches alone on blocks split beforehand: the path's
+    kernels (each zone the cluster ring in its size rule's shape, or the
+    plane ring where no shape's ring is co-resident) and the plane ring
+    (csrc/sweep_rdma.cu) in turns (plane, path, path, plane), both against
+    their plain versions (the pipelined scan on the kernels' tables, timed
+    once); with `table` every launch shape of the cluster ring (on the
+    zones whose rings it holds at once), with `wrapper` the whole
+    diffuse_sweep_rdma.  Every run's launches mark one status, checked after
+    (a wrapper given none checks its own after each launch, which waits
+    for the card)."""
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import sweep, sweep_cluster, sweep_cuda
     from radiativetransfer_tpu_torch.core.probes_cuda import time_ms
     from radiativetransfer_tpu_torch.parallel import mesh as pmesh
     from radiativetransfer_tpu_torch.parallel import sweep_rdma
     uvb = np.array([1.0, 0.5, 0.25])
+    label = "f32" if dtype == torch.float32 else "f64"
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
     plan = sweep.build_sweep_plan(MAIN_LEVEL, n)
-    kappa = _kappa(n)
+    kappa = _kappa(n, dtype)
     mesh = pmesh.make_grid_mesh(p, device=DEVICE)
+    nz = n // p
     blocks = [pmesh.to_blocks(sweep_cuda.rotate_to_zone(kappa, zone), mesh)
               for zone in plan.zones]
+    ndir = max(z.ndir for z in plan.zones)
+    rule = sweep_rdma.ring_rule(p, n, nz, ndir, dtype, DEVICE)
+    on_cluster = sum(sweep_rdma.ring_rule(p, n, nz, z.ndir, dtype, DEVICE)
+                     is not None for z in plan.zones)
     status = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-    kernel, outs = _mesh_zone_runs(sweep_rdma.sweep_zone_rdma_kernel, blocks,
-                                   plan, uvb, status=status)
-    ms = time_ms(kernel, reps=3)
+    # as diffuse_sweep_rdma runs them: each zone its own rule's shape, or
+    # the plane ring where no shape's ring is co-resident
+    new, outs = _mesh_zone_runs(sweep_rdma.sweep_zone_rdma_kernel, blocks,
+                                plan, uvb, status=status)
+    shapes = {}
+    for z in plan.zones:
+        r = sweep_rdma.ring_rule(p, n, nz, z.ndir, dtype, DEVICE)
+        key = "plane ring" if r is None else (
+            f"C {r.csize} G {r.group} {r.threads} x {r.cpt}")
+        shapes.setdefault(key, []).append(z.ndir)
+    what = ("each zone its own kernel (" + "; ".join(
+        f"{key}: {len(v)} zones of {min(v)}-{max(v)} directions"
+        for key, v in shapes.items()) + ")")
+    old, old_outs = _mesh_zone_runs(sweep_rdma.sweep_zone_ring_plane_kernel,
+                                    blocks, plan, uvb, status=status)
+    reps = 3
+    before = (sweep_rdma.RDMA_LAUNCHES, sweep_rdma.RING_LAUNCHES)
+    turns = [time_ms(fn, reps=reps) for fn in (old, new, new, old)]
+    # the plane ring's own turns: 2 x (reps + a warm-up) x 24 launches
+    old_launches = 2 * (reps + 1) * len(plan.zones)
+    assert sweep_rdma.RDMA_LAUNCHES - before[0] == old_launches + 2 * (
+        reps + 1) * (len(plan.zones) - on_cluster)
+    assert sweep_rdma.RING_LAUNCHES - before[1] == 2 * (reps + 1) * on_cluster
     sweep_rdma.check_status(status)
     plain, refs = _mesh_zone_runs(sweep_rdma.sweep_zone_rdma_reference,
                                   blocks, plan, uvb)
     plain_ms = time_ms(plain, reps=1, warmup=False)
     errs = [_rel_err(o, r) for o, r in zip(outs, refs)]
+    old_errs = [_rel_err(o, r) for o, r in zip(old_outs, refs)]
     err_abs, err_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    old_rel = max(e[1] for e in old_errs)
     assert all(torch.isfinite(o).all() for o in outs)
-    assert err_rel <= 1e-5, (n, p, err_rel)
-    planes = sweep_cuda.plane_memory_for(n, torch.float32, n // p)
-    out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err_abs}
-    del blocks, outs, refs
-    line = (f"[15 mesh] ring sweep {n}^3 x {plan.n_directions} dirs f32, P "
-            f"{p} ({planes} planes): the {len(plan.zones)} kernels alone "
-            f"{ms:.3f} ms = {n ** 3 * plan.n_directions / ms * 1e3:.4e} "
-            f"cells*angles/s; their plain versions {plain_ms:.1f} ms; max "
-            f"abs {err_abs:.3e} max rel {err_rel:.3e} (tol 1e-5)")
-    if time_all:
+    assert err_rel <= rtol and old_rel <= rtol, (n, p, label, err_rel,
+                                                 old_rel)
+    out = {"ms": (turns[1] + turns[2]) / 2, "old_ms": (turns[0] + turns[3]) / 2,
+           "turns": turns, "plain_ms": plain_ms, "max_abs_err": err_abs,
+           "old_max_abs_err": max(e[0] for e in old_errs),
+           "rule": rule and [rule.csize, rule.group, rule.cpt, rule.threads],
+           "zones_on_cluster": on_cluster, "zones": len(plan.zones),
+           "old_launches": old_launches}
+    print(f"[15 mesh] ring {n}^3 x {plan.n_directions} dirs {label}, P {p}: "
+          f"{what}; the 24 launches in turns: plane ring {turns[0]:.3f} ms, "
+          f"path {turns[1]:.3f}, {turns[2]:.3f}, plane {turns[3]:.3f} "
+          f"({out['old_ms'] / out['ms']:.2f}x)"
+          f"; {n ** 3 * plan.n_directions / out['ms'] * 1e3:.4e} "
+          f"cells*angles/s; plain versions {plain_ms:.1f} ms; path max "
+          f"abs {err_abs:.3e} max rel {err_rel:.3e}, plane ring max rel "
+          f"{old_rel:.3e} (tol {rtol:g}); card {smi}")
+    del outs, old_outs, refs
+    if table:
+        # every launch shape on the zones whose rings it holds at once
+        rows = []
+        for shape in sweep_cluster.ring_shapes(n, nz, dtype):
+            res_c = sweep_rdma.resident_ring_clusters(shape, dtype, DEVICE,
+                                                      n, nz)
+            fit = [i for i, z in enumerate(plan.zones)
+                   if sweep_cluster.ring_clusters(p, z.ndir, shape.group)
+                   <= res_c]
+            row = {"C": shape.csize, "G": shape.group, "cpt": shape.cpt,
+                   "threads": shape.threads, "resident_clusters": res_c,
+                   "zones": len(fit), "rule": shape == rule}
+            rows.append(row)
+            if not fit:
+                print(f"[15 mesh] ring {n}^3 {label} P {p} (C, G, cpt) = "
+                      f"({shape.csize}, {shape.group}, {shape.cpt}): no "
+                      f"zone's ring co-resident ({res_c} clusters resident)")
+                continue
+            cl = max(sweep_cluster.ring_clusters(p, plan.zones[i].ndir,
+                                                 shape.group) for i in fit)
+            run1, st1 = _ring_runs(blocks, plan, uvb, fit, shape=shape)
+            run1()      # the card busy again after the shapes that do not fit
+            row["ms"] = time_ms(run1, reps=2)
+            # each zone's launch alone: the size rule compares shapes zone
+            # by zone
+            row["zone_ms"] = {}
+            for i in fit:
+                run_i, st_i = _ring_runs(blocks, plan, uvb, [i], shape=shape)
+                row["zone_ms"][i] = time_ms(run_i, reps=3)
+                sweep_rdma.check_status(st_i)
+            sweep_rdma.check_status(st1)
+            by_ndir = {}
+            for i, ms in row["zone_ms"].items():
+                by_ndir.setdefault(plan.zones[i].ndir, []).append(ms)
+            print(f"[15 mesh] ring {n}^3 {label} P {p} (C, G, cpt) = "
+                  f"({shape.csize}, {shape.group}, {shape.cpt})"
+                  f"{' rule' * (shape == rule)}: {row['ms']:.3f} ms for "
+                  f"{len(fit)} launches"
+                  + f"; {shape.threads} threads, at most {cl} clusters of "
+                  f"{res_c} resident; a zone alone by its directions: "
+                  + ", ".join(f"{d}: {np.mean(v):.3f}"
+                              for d, v in sorted(by_ndir.items()))
+                  + f" ms; card {smi}")
+        out["table"] = rows
+    del blocks
+    if wrapper:
         out["wrapper_ms"] = time_ms(lambda: sweep_rdma.diffuse_sweep_rdma(
             kappa, plan, uvb, KPC, mesh), reps=3)
-        line += f"; diffuse_sweep_rdma {out['wrapper_ms']:.3f} ms"
-    print(f"{line}; card {smi}")
+        print(f"[15 mesh] ring {n}^3 {label} P {p}: diffuse_sweep_rdma (48 "
+              f"rotations, 48 block copies, 24 launches) "
+              f"{out['wrapper_ms']:.3f} ms; card {smi}")
     return out
 
 
@@ -1038,8 +1152,6 @@ def _mesh_step_check(label, model, out, init, one_device, tol=1e-4) -> None:
 def phase_mesh(smi: str) -> dict:
     """15: the mode-9 path on a 1-D mesh of P ranks on the card, with the
     ring sweep (kernel #3), the pipelined and the zones strategies."""
-    import dataclasses
-
     import radiativetransfer_tpu_torch as rt
     from radiativetransfer_tpu_torch.constants import KPC
     from radiativetransfer_tpu_torch.core import (
@@ -1059,18 +1171,21 @@ def phase_mesh(smi: str) -> dict:
     model = _rtmodel(24, 1, 200.0, DEVICE, sweep_strategy="rdma")
     state = pmesh.shard_state(rt.uniform_state(
         24, nh=1e-4, tgas=2e4, dtype=torch.float32, device=DEVICE), mesh4)
-    before = sweep_rdma.RDMA_LAUNCHES
+    before = (sweep_rdma.RING_LAUNCHES, sweep_rdma.RDMA_LAUNCHES)
     nf = model.neutral_fraction(model.make_step(mesh=mesh4)(state))
     rel = abs(nf - ANCHOR_NF) / ANCHOR_NF
-    launches = sweep_rdma.RDMA_LAUNCHES - before
+    launches = sweep_rdma.RING_LAUNCHES - before[0]
     print(f"[15 mesh] 24^3 level 1 f32 mode 9, rdma on 4 ranks: neutral "
           f"fraction {nf:.7f} vs {ANCHOR_NF} (rel {rel:.2e}, tol "
-          f"{ANCHOR_RTOL:g}); ring launches {launches}")
+          f"{ANCHOR_RTOL:g}); cluster ring launches {launches}")
     assert launches == len(model.sweep_plan.zones) and rel <= ANCHOR_RTOL
+    assert sweep_rdma.RDMA_LAUNCHES == before[1]
 
     # small grids at P = 1, 2, 4, 8 against the pipelined plain version
-    # and the slab scan
+    # and the slab scan, through the cluster ring (f32 1e-5: the exact
+    # logmean rounded as the cluster kernel rounds it, atomic sums)
     worst = 0.0
+    sweep_rdma.RING_LAUNCHES = 0
     for level, n in [(1, 8), (2, 8)]:
         plan = sweep.build_sweep_plan(level, n)
         for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
@@ -1088,13 +1203,26 @@ def phase_mesh(smi: str) -> dict:
                       f"{e_scan[1]:.3e} (rtol {rtol:g})")
                 assert max(e_pipe[1], e_scan[1]) <= rtol, (level, p, dtype)
                 worst = max(worst, e_pipe[0])
+    # one launch a zone, every sweep's rings co-resident at n 8
+    small_launches = sweep_rdma.RING_LAUNCHES
+    assert small_launches == 2 * 4 * sum(
+        len(sweep.build_sweep_plan(level, 8).zones) for level in (1, 2)), \
+        small_launches
 
-    # full width: 128^3 x 192 at P = 1, 2, 4 and 256^3 at P = 4 (its rank
-    # planes sit in shared memory), each against its plain version
-    sweep_rdma.RDMA_LAUNCHES = 0
-    full = {p: _mesh_sweep_at(MAIN_N, p, smi, True) for p in (1, 2, 4)}
-    full["big"] = _mesh_sweep_at(TIMING_NS[-1], 4, smi, False)
-    sweep_launches = sweep_rdma.RDMA_LAUNCHES
+    # full width: 128^3 x 192 at P = 1, 2, 4 and 256^3 at P = 4, each
+    # kernel against its plain version, the cluster ring and the plane
+    # ring in turns; every shape of the cluster ring at 128^3 P = 4 (f32
+    # and f64) and P = 1 (f32)
+    sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
+    full = {p: _mesh_sweep_at(MAIN_N, p, torch.float32, smi, p != 2, True)
+            for p in (1, 2, 4)}
+    full["f64"] = _mesh_sweep_at(MAIN_N, 4, torch.float64, smi, True, False)
+    full["big"] = _mesh_sweep_at(TIMING_NS[-1], 4, torch.float32, smi, False,
+                                 False)
+    # the path at 128^3 P = 4 in f32 is the cluster ring's alone
+    assert full[4]["zones_on_cluster"] == full[4]["zones"], full[4]
+    sweep_launches = sweep_rdma.RING_LAUNCHES
+    old_launches = sweep_rdma.RDMA_LAUNCHES
     n, level = MAIN_N, MAIN_LEVEL
     plan = sweep.build_sweep_plan(level, n)
     kappa = _kappa(n)
@@ -1105,8 +1233,8 @@ def phase_mesh(smi: str) -> dict:
     print(f"[15 mesh] {n}^3 x {plan.n_directions} beside the ring: the "
           f"shipped sweep (cluster kernel, exact) {ship_ms:.3f} ms, the "
           f"per-zone sweep "
-          f"(diffuse_sweep_zones_kernel) {zones_ms:.3f} ms; ring launches "
-          f"{sweep_launches}")
+          f"(diffuse_sweep_zones_kernel) {zones_ms:.3f} ms; cluster ring "
+          f"launches {sweep_launches}, plane ring launches {old_launches}")
     del kappa
 
     # the mode-9 step at 128^3 x 192 on 4 ranks through the ring, against
@@ -1120,21 +1248,24 @@ def phase_mesh(smi: str) -> dict:
     init = model.initialize_equilibrium(galaxy_state(n, box, DEVICE))
     state = pmesh.shard_state(init, mesh4)
     step = model.make_step(mesh=mesh4)
-    sweep_rdma.RDMA_LAUNCHES = 0
+    sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
+    rdma_steps = []
     for it in range(1, 4):
-        before = sweep_rdma.RDMA_LAUNCHES
+        before = sweep_rdma.RING_LAUNCHES
         t0 = time.perf_counter()
         state = step(state)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        rdma_steps.append(time.perf_counter() - t0)
         print(f"[15 mesh] {n}^3 x {plan.n_directions} f32 mode 9, rdma on 4 "
               f"ranks: step {it} neutral fraction "
-              f"{model.neutral_fraction(state):.7f} wall {dt:.4f} s, ring "
-              f"launches {sweep_rdma.RDMA_LAUNCHES - before}")
-        assert sweep_rdma.RDMA_LAUNCHES - before == len(plan.zones)
+              f"{model.neutral_fraction(state):.7f} wall "
+              f"{rdma_steps[-1]:.4f} s, cluster ring launches "
+              f"{sweep_rdma.RING_LAUNCHES - before}")
+        assert sweep_rdma.RING_LAUNCHES - before == len(plan.zones)
         if it == 1:
             first = state
-    step_launches = sweep_rdma.RDMA_LAUNCHES
+    step_launches = sweep_rdma.RING_LAUNCHES
+    assert sweep_rdma.RDMA_LAUNCHES == 0, "the step took the plane ring"
     one_step = one.make_step()(init)
     _mesh_step_check(f"{n}^3 step 1, rdma on 4 ranks", model, first, init,
                      one_step)
@@ -1182,14 +1313,16 @@ def phase_mesh(smi: str) -> dict:
     _mesh_step_check(f"{n64}^3 step, pipelined on 4 ranks", other, out, init,
                      one.make_step()(init))
 
-    # a ring that cannot be co-resident is refused, never launched: 2 ranks
-    # of a 128^3 float64 field at level 4 (3 planes of 128 x 64 fill one
-    # SM's shared memory; zone 1's 31 directions x 3 bands x 2 ranks = 186
-    # CTAs)
+    # a ring that cannot be co-resident is refused, never launched: the
+    # plane ring on 2 ranks of a 128^3 float64 field at level 4 (3 planes
+    # of 128 x 64 fill one SM's shared memory; zone 1's 31 directions x 3
+    # bands x 2 ranks = 186 CTAs), and the cluster ring on 8 ranks of a
+    # 128^3 float32 field at level 4 in a shape of 744 clusters of 2 CTAs
+    # x 512 threads
     zone = sweep.build_sweep_plan(4, n).zones[0]
     blocks = torch.rand((2, n, 3, n, n // 2), dtype=torch.float64,
                         device=DEVICE)
-    before = sweep_rdma.RDMA_LAUNCHES
+    before = (sweep_rdma.RDMA_LAUNCHES, sweep_rdma.RING_LAUNCHES)
     try:
         sweep_rdma.sweep_zone_rdma_kernel(blocks, zone, uvb, KPC, 1 / 768,
                                           plane_memory="shared")
@@ -1197,23 +1330,43 @@ def phase_mesh(smi: str) -> dict:
         refused = str(e)
     else:
         raise AssertionError("a ring of 186 CTAs of 192 KiB each ran")
-    assert "co-resident" in refused and sweep_rdma.RDMA_LAUNCHES == before
-    print(f"[15 mesh] refused as it should be: {refused}")
+    blocks = torch.rand((8, n, 3, n, n // 8), dtype=torch.float32,
+                        device=DEVICE)
+    shape = sweep_cluster.cluster_shapes(n, n // 8, torch.float32, 2, 1,
+                                         ring=True)[0]
+    try:
+        sweep_rdma.sweep_zone_ring_cluster_kernel(blocks, zone, uvb, KPC,
+                                                  1 / 768, shape)
+    except RuntimeError as e:
+        refused_cluster = str(e)
+    else:
+        raise AssertionError("a cluster ring of 744 clusters ran")
+    del blocks
+    assert "co-resident" in refused and "co-resident" in refused_cluster
+    assert (sweep_rdma.RDMA_LAUNCHES, sweep_rdma.RING_LAUNCHES) == before
+    print(f"[15 mesh] refused as they should be: {refused}; "
+          f"{refused_cluster}")
 
     counts = dict(sweep_cuda.work_counts(plan))
     counts["bytes"] += sweep_rdma.halo_bytes(plan, 4, n, 4)
     bound = probes_cuda.sweep_bound(counts, probes_cuda.MUFU_PER_S)
     print(f"[15 mesh] ring bound at {n}^3, P 4: {bound['bound_ms']:.4f} ms "
           f"set by {bound['binding']} (bytes with the halo lines "
-          f"{bound['bytes_ms']:.4f} ms); kernels {full[4]['ms']:.3f} ms, "
-          f"{100 * bound['bound_ms'] / full[4]['ms']:.1f}% of the bound")
+          f"{bound['bytes_ms']:.4f} ms); cluster ring {full[4]['ms']:.3f} ms "
+          f"({100 * bound['bound_ms'] / full[4]['ms']:.1f}% of the bound); "
+          f"plane ring "
+          f"{full[4]['old_ms']:.3f} "
+          f"({100 * bound['bound_ms'] / full[4]['old_ms']:.1f}%)")
     return {"full": full, "bound": bound, "zones_ms": zones_ms,
             "ship_ms": ship_ms, "zone_launches": zone_launches,
-            "zone_steps_s": zone_steps,
-            "launches": {"rdma_sweep": sweep_launches,
+            "zone_steps_s": zone_steps, "rdma_steps_s": rdma_steps,
+            "launches": {"rdma_sweep": sweep_launches + small_launches,
                          "mode9_mesh": step_launches},
+            "old_launches": {"rdma_sweep": old_launches},
             "max_abs_err": max(worst, *(r["max_abs_err"]
-                                        for r in full.values()))}
+                                        for r in full.values())),
+            "old_max_abs_err": max(r["old_max_abs_err"]
+                                   for r in full.values())}
 
 
 def main() -> None:
@@ -1402,15 +1555,42 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
         "library_ms": fl["plain_ms"]})
     assert scatter_cuda.BYTES_PER_ROW == 100
     ring = mesh["full"][4]
+
+    def cluster_only(r):
+        # a time under the cluster ring's name only where every zone took
+        # it (elsewhere the path mixes in the plane ring's launches)
+        return r["ms"] if r["zones_on_cluster"] == r["zones"] else None
+    line.append({
+        "name": "sweep_zone_ring_cluster", "route": "cuda",
+        "source": "radiativetransfer_tpu_torch/csrc/sweep_cluster.cu",
+        "replaces": "radiativetransfer_tpu/parallel/sweep_rdma.py:64",
+        "launches": sum(mesh["launches"].values()),
+        "launches_by_path": mesh["launches"],
+        "max_abs_err": mesh["max_abs_err"],
+        "ms": ring["ms"],
+        "plain_ms": ring["plain_ms"], "bound_ms": mesh["bound"]["bound_ms"],
+        "bound_by": mesh["bound"]["bound_by"], "library_ms": None,
+        "largest_zone_shape": ring["rule"],
+        "f64_ms": cluster_only(mesh["full"]["f64"]),
+        "p1_ms": cluster_only(mesh["full"][1]),
+        "p2_ms": cluster_only(mesh["full"][2]),
+        "n256_ms": cluster_only(mesh["full"]["big"]),
+        "zones_on_cluster": {
+            key: mesh["full"][k]["zones_on_cluster"] for key, k in (
+                ("p4", 4), ("f64", "f64"), ("p1", 1), ("p2", 2),
+                ("n256", "big"))}})
     line.append({
         "name": "sweep_zone_rdma", "route": "cuda",
         "source": "radiativetransfer_tpu_torch/csrc/sweep_rdma.cu",
         "replaces": "radiativetransfer_tpu/parallel/sweep_rdma.py:64",
-        "launches": sum(mesh["launches"].values()),
-        "launches_by_path": mesh["launches"],
-        "max_abs_err": mesh["max_abs_err"], "ms": ring["ms"],
+        "launches": sum(mesh["old_launches"].values()),
+        "launches_by_path": mesh["old_launches"],
+        "max_abs_err": mesh["old_max_abs_err"], "ms": ring["old_ms"],
         "plain_ms": ring["plain_ms"], "bound_ms": mesh["bound"]["bound_ms"],
-        "bound_by": mesh["bound"]["bound_by"], "library_ms": None})
+        "bound_by": mesh["bound"]["bound_by"], "library_ms": None,
+        "f64_ms": mesh["full"]["f64"]["old_ms"],
+        "p1_ms": mesh["full"][1]["old_ms"], "p2_ms": mesh["full"][2]["old_ms"],
+        "n256_ms": mesh["full"]["big"]["old_ms"]})
     return line
 
 

@@ -11,7 +11,8 @@ csrc/sweep_merged.cu issues.
 
 * `chain(x, body, depth)` — the wrapper: a CUDA tensor launches the kernel
   (or raises), a CPU tensor takes the plain version.  `LAUNCHES` counts the
-  kernel launches by (body, depth).
+  kernel launches by (body, depth).  The stream body has a kernel of its
+  own (one pass, its loads ahead of its stores).
 * `chain_reference(x, body, depth)` — the plain PyTorch version.
 * `time_ms` — mean device time of one call, by CUDA events.
 * `chain_bound_ms`, `sweep_bound` — the least time the card could take
@@ -102,8 +103,8 @@ def chain(x: torch.Tensor, body: str, depth: int) -> torch.Tensor:
     takes chain_reference; a CUDA tensor launches the kernel, or raises."""
     if body not in BODIES:
         raise ValueError(f"unknown probe body {body!r}")
-    if depth < 1:
-        raise ValueError(f"depth must be >= 1, got {depth}")
+    if depth < 1 or (body == "stream" and depth != 1):
+        raise ValueError(f"no {body} probe of depth {depth}")
     if x.device.type == "cpu":
         return chain_reference(x, body, depth)
     if x.device.type != "cuda":

@@ -31,6 +31,10 @@ a cluster of C CTAs walks its slabs, CTA r holding the rows
   (or raises), takes the plain version on a CPU tensor; `LAUNCHES` counts
   its launches.  `resident_clusters` asks the
   card how many clusters of a shape it holds at once.
+* The halo ring of a 1-D mesh (TPU kernel #3) through the same kernel's
+  RING instances (parallel/sweep_rdma.py launches them): `ring_shapes`,
+  `ring_clusters` and `choose_ring` (its size rule, with the card's
+  resident clusters) and `ring_lines` (each yz stage's line number).
 * `build` — compiles csrc/sweep_cluster.cu (core/cuda_build.py) and binds
   it with ctypes.  Nothing is compiled or loaded at import.
 """
@@ -43,6 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..geometry.patterns import SEG_YZ
 from . import cuda_build, sweep_cuda
 from .sweep import SweepPlan, _tau_eps
 
@@ -57,6 +62,24 @@ CELLS_PER_THREAD = (1, 2, 4)
 RULE_PREFERENCE = {4: ((2, 1, 4), 4), 8: ((1, 2, 4), 2)}
 # the register file of one SM, which one CTA of this kernel fills
 _REGS_PER_SM = 65536
+# the ring's instances (exact logmean only): directions per work item and
+# cells per thread (a ring of 1 cell a thread was never co-resident at
+# 128^3 on the H100, PERF.md)
+RING_GROUP_SIZES = (1, 2)
+RING_CELLS_PER_THREAD = (2, 4)
+# registers the ring's line numbers, flag offsets and pointers add per
+# thread (csrc/sweep_cluster.cu's RING_REGS)
+RING_REGS = 16
+# the ring's size rule (choose_ring) by item size: (G, cells per thread)
+# in order of preference.  Measured on the H100, each zone's launch alone
+# at 128^3 x 192 on 4 ranks in every shape whose ring is co-resident
+# (PERF.md): a zone ran fastest at G 1 and 2 cells a thread, then G 1 and
+# 4 cells, G 2 and 2, G 2 and 4 (0.45, 0.51, 0.54, 0.65 ms a zone of 5
+# directions); a ring is co-resident only where its ranks x work items x
+# cells / cpt threads fit the registers, so a zone's shape follows its
+# directions.  Float64 rings fit only the smallest zones there
+RING_PREFERENCE = {4: ((1, 2), (1, 4), (2, 2), (2, 4)),
+                   8: ((1, 2), (1, 4), (2, 2), (2, 4))}
 # rt_sweep_cluster's return when no cluster of the shape fits the card
 _NOT_SCHEDULABLE = -1
 
@@ -80,16 +103,19 @@ class ClusterShape:
     smem: int
 
 
-def max_threads(group: int, cpt: int, itemsize: int) -> int:
+def max_threads(group: int, cpt: int, itemsize: int,
+                ring: bool = False) -> int:
     """The most threads a CTA of (G, cpt) may have (csrc/sweep_cluster.cu's
     max_threads and kRegs, the same formula): the registers a thread needs
     without spilling, ~2.5 G + 4.5 per float32 cell (carry and logmean per
     direction, kappa and 1/kappa of this slab and the next), twice that in
     float64, and ~26 more (~58 in float64), fitted to ptxas -v's counts
-    and spills, under the per-thread cap each block size leaves; 0 where
-    no block size leaves enough (no kernel of such a shape is built)."""
+    and spills, RING_REGS more in the ring's instances, under the
+    per-thread cap each block size leaves; 0 where no block size leaves
+    enough (no kernel of such a shape is built)."""
     words = itemsize // 4
-    regs = ((5 * group + 9) * cpt * words + 1) // 2 + 26 + 32 * (words - 1)
+    regs = (((5 * group + 9) * cpt * words + 1) // 2 + 26 + 32 * (words - 1)
+            + RING_REGS * ring)
     for threads in (1024, 768, 512, 384, 256):
         # ptxas's cap at this block size: the register file over the
         # threads, in steps of 8, at most 255
@@ -104,26 +130,32 @@ def row_bands(ny: int, csize: int) -> list[tuple[int, int]]:
 
 
 def cluster_shapes(ny: int, nz: int, dtype: torch.dtype, csize: int,
-                   group: int) -> list[ClusterShape]:
-    """Every launch shape of C = csize, G = group on a ny x nz plane, one
-    per cells-per-thread whose block (of at least 128 threads, or the one
-    block a small plane takes) fits the register file, fewest cells per
-    thread first; none where there are more CTAs than rows or the staging
-    planes exceed one CTA's shared memory."""
-    if csize not in CLUSTER_SIZES or group not in GROUP_SIZES:
-        raise ValueError(f"no kernel for C={csize}, G={group}")
+                   group: int, ring: bool = False) -> list[ClusterShape]:
+    """Every launch shape of C = csize, G = group on a ny x nz plane (of
+    the ring's instances with `ring`), one per cells-per-thread whose block
+    (of at least 128 threads, or the one block a small plane takes) fits
+    the register file, fewest cells per thread first; none where there are
+    more CTAs than rows or the staging planes exceed one CTA's shared
+    memory.  A ring shape also stages its incoming lines (rows_max values
+    a direction) and has a thread for every row."""
+    if csize not in CLUSTER_SIZES or group not in (
+            RING_GROUP_SIZES if ring else GROUP_SIZES):
+        raise ValueError(f"no {'ring ' * ring}kernel for C={csize}, "
+                         f"G={group}")
     if csize > ny:
         return []
     itemsize = torch.finfo(dtype).bits // 8
-    cells = -(-ny // csize) * nz
-    smem = 2 * group * cells * itemsize
+    rows_max = -(-ny // csize)
+    cells = rows_max * nz
+    smem = group * rows_max * (2 * nz + ring) * itemsize
     if smem > sweep_cuda._SMEM_OPTIN_BYTES:
         return []
     shapes = []
-    for cpt in CELLS_PER_THREAD:
+    for cpt in RING_CELLS_PER_THREAD if ring else CELLS_PER_THREAD:
         threads = max(32, (-(-cells // cpt) + 31) // 32 * 32)
-        if threads <= max_threads(group, cpt, itemsize) and (
-                threads >= 128 or not shapes):
+        if threads <= max_threads(group, cpt, itemsize, ring) and (
+                threads >= 128 or not shapes) and (
+                not ring or threads >= rows_max):
             shapes.append(ClusterShape(csize, group, cpt, threads, smem))
     return shapes
 
@@ -190,6 +222,11 @@ def build() -> ctypes.CDLL:
         [i, i, pp, pp, pp] + [p] * 4 + [d] * 7 + [i] * 4
         + [ctypes.c_longlong] * 2 + [i] * 6 + [ctypes.POINTER(i), p])
     lib.rt_sweep_cluster.restype = i
+    ll = ctypes.c_longlong
+    lib.rt_sweep_cluster_ring.argtypes = (
+        [i] + [p] * 10 + [d] * 5 + [i] * 5 + [ll] * 3 + [i, ll, i, ll]
+        + [i] * 5 + [ctypes.POINTER(i), p])
+    lib.rt_sweep_cluster_ring.restype = i
     lib.rt_cluster_error_string.argtypes = [i]
     lib.rt_cluster_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -392,3 +429,50 @@ def resident_zone_clusters(kappa_rot, zone, cell_size,
     launch; launches nothing."""
     return _zone_call(kappa_rot, zone, np.zeros(3), cell_size, 1.0, shape,
                       True)[1]
+
+
+# ---------------------------------------------------------------------------
+# The halo ring of a 1-D mesh (TPU kernel #3) through the RING instances
+# ---------------------------------------------------------------------------
+
+
+def ring_shapes(ny: int, nz: int, dtype: torch.dtype) -> list[ClusterShape]:
+    """Every launch shape of the ring's instances on a rank's ny x nz
+    k-block plane (cluster_shapes with ring=True), by C, then G."""
+    return [s for c in CLUSTER_SIZES for g in RING_GROUP_SIZES
+            for s in cluster_shapes(ny, nz, dtype, c, g, ring=True)]
+
+
+def ring_clusters(ranks: int, ndir: int, group: int) -> int:
+    """Clusters of one ring launch: ranks x work items (3 bands x the
+    zone's directions in groups of at most G)."""
+    return ranks * 3 * -(-ndir // group)
+
+
+def choose_ring(ny: int, nz: int, ranks: int, ndir: int, dtype: torch.dtype,
+                resident) -> ClusterShape | None:
+    """The ring's size rule: of the launch shapes whose ranks x work items
+    clusters the card holds at once (`resident(shape)`: the card's
+    cudaOccupancyMaxActiveClusters for the shape), the first in
+    RING_PREFERENCE's order of (G, cells per thread), then the block
+    nearest 256 threads, then the smallest cluster; None where no shape
+    fits or none can be co-resident."""
+    fits = [s for s in ring_shapes(ny, nz, dtype)
+            if ring_clusters(ranks, ndir, s.group) <= resident(s)]
+    if not fits:
+        return None
+    order = RING_PREFERENCE[torch.finfo(dtype).bits // 8]
+
+    def rank(s):
+        pair = (s.group, s.cpt)
+        return (order.index(pair) if pair in order else len(order),
+                abs(s.threads - 256), s.csize)
+    return min(fits, key=rank)
+
+
+def ring_lines(chain2: np.ndarray, chain3: np.ndarray) -> np.ndarray:
+    """(D, nslab) chain codes of segments 2 and 3 (a zone's, in slab order)
+    -> (D, nslab, 2) int32: at a yz segment its line number, the count of
+    yz segments of that direction and stage before it; -1 elsewhere."""
+    yz = np.stack([np.asarray(chain2), np.asarray(chain3)], -1) == SEG_YZ
+    return np.where(yz, np.cumsum(yz, axis=1) - 1, -1).astype(np.int32)

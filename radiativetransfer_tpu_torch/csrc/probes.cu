@@ -10,10 +10,19 @@
 // A fifth body, exp2(-x), is exp2f as csrc/sweep_variants.cu's exp2 variant
 // issues it: its SASS gives that variant's FP32 count per exp.
 //
-// One kernel, x -> o over a contiguous float32 array, with the body a
-// template parameter and the depth a run-time one.  Each step of a chain
-// reads the last, so the compiler cannot fold it; a grid-stride loop walks
-// the array in 16-byte float4 loads and stores.
+// The chains: one kernel, x -> o over a contiguous float32 array, with the
+// body a template parameter and the depth a run-time one.  Each step of a
+// chain reads the last, so the compiler cannot fold it; a grid-stride loop
+// walks the array in 16-byte float4 loads and stores.
+//
+// The stream (v + 1, depth 1) has a kernel of its own, the shape of
+// PyTorch's vectorised elementwise add: one pass, no grid-stride loop;
+// each thread issues its kStreamUnroll float4 loads (blockDim apart, so a
+// warp's loads stay coalesced) before any store, with streaming hints
+// (__ldcs, __stcs: each byte is read once and written once, nothing to
+// keep in L1 or L2).  The grid-stride chain kernel held one load in flight
+// before each store and ran 0.5-0.7% behind torch.add at 256^3 on the
+// H100; the block size and unroll were fitted there (PERF.md).
 //
 // What bounds it on this card: the stream body moves 8 bytes per element
 // for one add, so it is bound by HBM bytes (3.35 TB/s published).  The
@@ -76,6 +85,53 @@ chain_kernel(const float* __restrict__ x, float* __restrict__ o,
     o[i] = chain<BODY>(x[i], depth);
 }
 
+// the stream's launch shape, fitted on the H100 (PERF.md)
+constexpr int kStreamThreads = 256;
+constexpr int kStreamUnroll = 2;
+
+__global__ void __launch_bounds__(kStreamThreads)
+stream_kernel(const float* __restrict__ x, float* __restrict__ o,
+              long long n) {
+  const long long n4 = n / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(o);
+  const long long first =
+      static_cast<long long>(blockIdx.x) * blockDim.x * kStreamUnroll +
+      threadIdx.x;
+  float4 v[kStreamUnroll];
+#pragma unroll
+  for (int u = 0; u < kStreamUnroll; ++u) {
+    const long long i = first + static_cast<long long>(u) * blockDim.x;
+    if (i < n4) v[u] = __ldcs(x4 + i);
+  }
+#pragma unroll
+  for (int u = 0; u < kStreamUnroll; ++u) {
+    const long long i = first + static_cast<long long>(u) * blockDim.x;
+    if (i < n4) {
+      v[u].x = step<kStream>(v[u].x);
+      v[u].y = step<kStream>(v[u].y);
+      v[u].z = step<kStream>(v[u].z);
+      v[u].w = step<kStream>(v[u].w);
+      __stcs(o4 + i, v[u]);
+    }
+  }
+  // the ragged tail (n not a multiple of 4): at most 3 values
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4)
+    o[4 * n4 + threadIdx.x] = step<kStream>(x[4 * n4 + threadIdx.x]);
+}
+
+cudaError_t launch_stream(const float* x, float* o, long long n,
+                          cudaStream_t stream) {
+  const long long per_block =
+      static_cast<long long>(kStreamThreads) * kStreamUnroll;
+  long long blocks = (n / 4 + per_block - 1) / per_block;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  stream_kernel<<<static_cast<unsigned>(blocks), kStreamThreads, 0, stream>>>(
+      x, o, n);
+  return cudaGetLastError();
+}
+
 template <int BODY>
 cudaError_t launch(const float* x, float* o, long long n, int depth,
                    cudaStream_t stream) {
@@ -102,8 +158,8 @@ cudaError_t launch(const float* x, float* o, long long n, int depth,
 extern "C" {
 
 // o = depth-fold body(x), elementwise over n float32 values on `stream`.
-// body: 0 exp(-v), 1 v + 1, 2 1/(v + 1.5), 3 v*1.0000001 + 0.1,
-// 4 exp2(-v).  x and o
+// body: 0 exp(-v), 1 v + 1 (the stream kernel, depth 1 only), 2 1/(v +
+// 1.5), 3 v*1.0000001 + 0.1, 4 exp2(-v).  x and o
 // must be 16-byte aligned.  Returns the cudaError_t of the launch (0 on
 // success); the kernel runs asynchronously.
 int rt_chain(int body, int depth, const float* x, float* o, long long n,
@@ -112,7 +168,9 @@ int rt_chain(int body, int depth, const float* x, float* o, long long n,
   if (n < 1 || depth < 1) return cudaErrorInvalidValue;
   switch (body) {
     case kExp: return launch<kExp>(x, o, n, depth, s);
-    case kStream: return launch<kStream>(x, o, n, depth, s);
+    case kStream:
+      if (depth != 1) return cudaErrorInvalidValue;
+      return launch_stream(x, o, n, s);
     case kDiv: return launch<kDiv>(x, o, n, depth, s);
     case kFma: return launch<kFma>(x, o, n, depth, s);
     case kExp2: return launch<kExp2>(x, o, n, depth, s);

@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA device: the hand-written cluster sweep, plane
-sweep, per-zone sweep, ring sweep, sweep-experiment, scatter and probe
-kernels against their plain PyTorch versions, the tracer against its CPU
+sweep, per-zone sweep, ring sweeps (the cluster ring and the plane ring),
+sweep-experiment, scatter and probe kernels against their plain PyTorch
+versions, the tracer against its CPU
 run, and the mode-9 and mode-8 steps through the cluster sweep kernel
 (mode 9 also on a mesh through the ring kernel).  Every test needs a
 card and skips without one.  This file imports no JAX, so on a machine
@@ -29,7 +30,7 @@ from radiativetransfer_tpu_torch.core import (
     variants_cuda,
 )
 from radiativetransfer_tpu_torch.parallel import mesh as pmesh
-from radiativetransfer_tpu_torch.parallel import sweep_rdma
+from radiativetransfer_tpu_torch.parallel import sweep_dist, sweep_rdma
 from radiativetransfer_tpu_torch.tables import stellar
 
 pytestmark = pytest.mark.cuda
@@ -191,6 +192,21 @@ def test_probe_matches_plain_version(card, body, depth, numel):
     assert probes_cuda.LAUNCHES[(body, depth)] == before + 1
     ref = probes_cuda.chain_reference(x, body, depth)
     torch.testing.assert_close(out, ref, rtol=4e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("numel", [1, 2, 3, 5, 4099, 3 * 64 ** 3 + 1])
+def test_stream_kernel_matches_plain_version(card, numel):
+    # the stream body's one-pass kernel at sizes that leave a ragged float4
+    # tail, a partial block and a grid of many blocks; v + 1 is one
+    # rounding, so bit for bit
+    gen = torch.Generator(device=card).manual_seed(2)
+    x = torch.empty(numel, device=card).log_normal_(0.0, 1.0, generator=gen)
+    ref = probes_cuda.chain_reference(x, "stream", 1)
+    before = probes_cuda.LAUNCHES[("stream", 1)]
+    out = probes_cuda.chain(x, "stream", 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert probes_cuda.LAUNCHES[("stream", 1)] == before + 1
 
 
 def test_probe_rejects_what_it_does_not_take(card):
@@ -467,21 +483,113 @@ def test_scatter_rejects_what_it_does_not_take(card):
                                   torch.ones(8, 4, device=card).t())
 
 
+@pytest.mark.parametrize("kernel", ["plane", "cluster"])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-6),
                                         (torch.float64, 1e-12)])
 @pytest.mark.parametrize("level,n,p", [(1, 8, 1), (1, 8, 2), (2, 6, 3),
                                        (2, 8, 4)])
-def test_rdma_kernel_matches_plain_version(card, level, n, p, dtype, rtol):
-    # rtol: the same ops per cell, the directions summed by atomics
+def test_rdma_kernel_matches_plain_version(card, level, n, p, dtype, rtol,
+                                           kernel):
+    # rtol: the directions summed by atomics (the cluster ring's exact
+    # logmean rounded as the cluster kernel rounds it).  The plane ring
+    # through its own wrapper, zone by zone; the cluster ring as the sweep
+    # takes it by its size rule.  Each one launch a zone, and none of the
+    # other's
     kappa = _kappa(n, dtype, card)
     plan = sweep.build_sweep_plan(level, n)
     mesh = pmesh.make_grid_mesh(p)
-    before = sweep_rdma.RDMA_LAUNCHES
-    j = sweep_rdma.diffuse_sweep_rdma(kappa, plan, UVB, KPC, mesh)
+    before = (sweep_rdma.RING_LAUNCHES, sweep_rdma.RDMA_LAUNCHES)
+    if kernel == "plane":
+        j = sweep_dist.zone_by_zone_on_blocks(
+            sweep_rdma.sweep_zone_ring_plane_kernel, kappa, plan, UVB, KPC,
+            mesh)
+        launched = (0, len(plan.zones))
+    else:
+        j = sweep_rdma.diffuse_sweep_rdma(kappa, plan, UVB, KPC, mesh)
+        launched = (len(plan.zones), 0)
     torch.cuda.synchronize()
-    assert sweep_rdma.RDMA_LAUNCHES == before + len(plan.zones)
+    assert (sweep_rdma.RING_LAUNCHES - before[0],
+            sweep_rdma.RDMA_LAUNCHES - before[1]) == launched
     ref = sweep_rdma.diffuse_sweep_rdma_reference(kappa, plan, UVB, KPC, mesh)
     np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("level,n,p", [(1, 8, 1), (2, 8, 2), (2, 6, 3),
+                                       (2, 8, 4), (1, 16, 8), (2, 8, 8)])
+def test_cluster_ring_every_shape_matches_plain_version(card, level, n, p,
+                                                        dtype, rtol):
+    # every launch shape of the ring's instances on every zone; n 6 splits
+    # into ragged row bands, P 8 at n 8 leaves one k-column a rank (each cell
+    # both the rank's first and last)
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(level, n)
+    mesh = pmesh.make_grid_mesh(p)
+    blocks = [pmesh.to_blocks(sweep_cuda.rotate_to_zone(kappa, z), mesh)
+              for z in plan.zones]
+    refs = [sweep_rdma.sweep_zone_rdma_reference(b, z, UVB, KPC, plan.weight)
+            for b, z in zip(blocks, plan.zones)]
+    shapes = sweep_cluster.ring_shapes(n, n // p, dtype)
+    assert shapes
+    before = sweep_rdma.RING_LAUNCHES
+    for shape in shapes:
+        for b, z, ref in zip(blocks, plan.zones, refs):
+            out = sweep_rdma.sweep_zone_ring_cluster_kernel(
+                b, z, UVB, KPC, plan.weight, shape)
+            assert probes_cuda.rel_err(out, ref)[1] <= rtol, (shape, z.izone)
+    assert sweep_rdma.RING_LAUNCHES == before + len(shapes) * len(
+        plan.zones)
+
+
+def test_cluster_ring_timeout_raises(card, monkeypatch):
+    # rank 0's CTAs start ~2^26 cycles late and a wait may take 2^12: rank
+    # 1's first wait runs out, marks the status, and every CTA runs to its
+    # end; the wrapper raises, and the card runs the next ring as before
+    n, p = 8, 2
+    plan = sweep.build_sweep_plan(2, n)
+    kappa = _kappa(n, torch.float32, card)
+    zone = max(plan.zones, key=sweep_rdma._max_lines)
+    blocks = pmesh.to_blocks(sweep_cuda.rotate_to_zone(kappa, zone),
+                             pmesh.make_grid_mesh(p))
+    monkeypatch.setattr(sweep_rdma, "SPIN_BUDGET_CYCLES", 1 << 12)
+    with pytest.raises(RuntimeError, match="timeout"):
+        sweep_rdma.sweep_zone_ring_cluster_kernel(
+            blocks, zone, UVB, KPC, plan.weight, hold=(0, 1 << 26))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    out = sweep_rdma.sweep_zone_ring_cluster_kernel(blocks, zone, UVB, KPC,
+                                                    plan.weight)
+    ref = sweep_rdma.sweep_zone_rdma_reference(blocks, zone, UVB, KPC,
+                                               plan.weight)
+    assert probes_cuda.rel_err(out, ref)[1] <= 1e-5
+
+
+def test_cluster_ring_that_cannot_be_co_resident_is_refused(card):
+    # 8 ranks of a 128^3 float32 field at level 4: zone 1's 31 directions
+    # at G 1 are 93 work items, 744 clusters of 2 CTAs x 512 threads, far
+    # above the ~132 such clusters the card holds; no shape of the ring is
+    # co-resident there, so the zone's own wrapper takes the plane ring
+    n, p = 128, 8
+    zone = sweep.build_sweep_plan(4, n).zones[0]
+    blocks = torch.rand((p, n, 3, n, n // p), dtype=torch.float32,
+                        device=card) * 1e-22
+    shape = sweep_cluster.cluster_shapes(n, n // p, torch.float32, 2, 1,
+                                         ring=True)[0]
+    assert (shape.threads, sweep_cluster.ring_clusters(p, zone.ndir, 1)) \
+        == (512, 744)
+    before = sweep_rdma.RING_LAUNCHES
+    with pytest.raises(RuntimeError, match="co-resident"):
+        sweep_rdma.sweep_zone_ring_cluster_kernel(blocks, zone, UVB, KPC,
+                                                  1 / 768, shape)
+    assert sweep_rdma.RING_LAUNCHES == before
+    assert sweep_rdma.ring_rule(p, n, n // p, zone.ndir, torch.float32,
+                                card) is None
+    old = sweep_rdma.RDMA_LAUNCHES
+    sweep_rdma.sweep_zone_rdma_kernel(blocks, zone, UVB, KPC, 1 / 768)
+    torch.cuda.synchronize()
+    assert (sweep_rdma.RING_LAUNCHES, sweep_rdma.RDMA_LAUNCHES) == (
+        before, old + 1)
 
 
 @pytest.mark.parametrize("plane_memory", ["shared", "global"])
@@ -519,8 +627,14 @@ def test_mode9_step_on_mesh(card, strategy):
     mesh = pmesh.make_grid_mesh(4)
     state = pmesh.shard_state(rt.uniform_state(24, nh=1e-4, tgas=2e4,
                                                device="cpu"), mesh)
-    before = sweep_rdma.RDMA_LAUNCHES
+    before = (sweep_rdma.RING_LAUNCHES, sweep_rdma.RDMA_LAUNCHES,
+              sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES)
     nf = model.neutral_fraction(model.make_step(mesh=mesh)(state))
-    assert sweep_rdma.RDMA_LAUNCHES == before + (
-        len(model.sweep_plan.zones) if strategy == "rdma" else 0)
+    zones = len(model.sweep_plan.zones)
+    # the rdma strategy through the cluster ring, the zones strategy
+    # through the per-zone cluster kernel; neither takes a plane kernel
+    assert (sweep_rdma.RING_LAUNCHES, sweep_rdma.RDMA_LAUNCHES,
+            sweep_cluster.ZONE_LAUNCHES, sweep_cuda.ZONE_LAUNCHES) == (
+        before[0] + (zones if strategy == "rdma" else 0), before[1],
+        before[2] + (zones if strategy == "zones" else 0), before[3])
     assert nf == pytest.approx(0.044220, rel=1e-4)

@@ -78,26 +78,38 @@ def test_size_rule_takes_the_plane_kernel_where_nothing_fits():
 def test_register_model_matches_the_kernel_source():
     # csrc/sweep_cluster.cu's kRegs and max_threads (its launch bounds and
     # the check before launch) against sweep_cluster.max_threads (the size
-    # rule's), read from the source
+    # rule's), read from the source, for the merged and zone instances and
+    # the ring's (RING, G 1 and 2)
     src = (Path(sweep_cluster.__file__).parents[1] / "csrc"
            / "sweep_cluster.cu").read_text()
+    ring_regs = int(re.search(r"constexpr int RING_REGS = (\d+);",
+                              src).group(1))
+    assert ring_regs == sweep_cluster.RING_REGS
     expr = re.search(r"constexpr int kRegs =(.*?);", src, re.S).group(1)
-    expr = " ".join(expr.split()).replace("kWords<T>", "W")
-    assert re.fullmatch(r"[\dGCPTW+*/() -]+", expr), expr
+    expr = " ".join(expr.split()).replace("kWords<T>", "W").replace(
+        "RING_REGS", str(ring_regs))
+    assert re.fullmatch(r"[\dGCPTWRIN+*/() -]+", expr), expr
     body = re.search(r"constexpr int max_threads\(\) \{(.*?)\n\}", src,
                      re.S).group(1)
     caps = [(int(r), int(t))
             for r, t in re.findall(r"regs <= (\d+) \? (\d+)", body)]
     assert [t for _, t in caps] == [1024, 768, 512, 384, 256]
-    for itemsize in (4, 8):
-        for group in sweep_cluster.GROUP_SIZES:
-            for cpt in sweep_cluster.CELLS_PER_THREAD + (8, 16):
-                regs = eval(expr.replace("/", "//"),
-                            {"G": group, "CPT": cpt, "W": itemsize // 4})
-                cu = next((t for r, t in caps if regs <= r), 0)
-                assert cu == sweep_cluster.max_threads(group, cpt, itemsize)
-                # every instance the library builds has a block
-                assert cu > 0 or cpt not in sweep_cluster.CELLS_PER_THREAD
+    for ring, groups, built in (
+            (False, sweep_cluster.GROUP_SIZES,
+             sweep_cluster.CELLS_PER_THREAD),
+            (True, sweep_cluster.RING_GROUP_SIZES,
+             sweep_cluster.RING_CELLS_PER_THREAD)):
+        for itemsize in (4, 8):
+            for group in groups:
+                for cpt in sweep_cluster.CELLS_PER_THREAD + (8, 16):
+                    regs = eval(expr.replace("/", "//"), {
+                        "G": group, "CPT": cpt, "W": itemsize // 4,
+                        "RING": int(ring)})
+                    cu = next((t for r, t in caps if regs <= r), 0)
+                    assert cu == sweep_cluster.max_threads(group, cpt,
+                                                           itemsize, ring)
+                    # every instance the library builds has a block
+                    assert cu > 0 or cpt not in built
 
 
 @pytest.mark.parametrize("level,n", [(1, 6), (1, 7), (2, 8), (3, 8)])
