@@ -55,15 +55,22 @@ line or more each; any failure raises and the script exits non-zero:
     (plane, cluster, cluster, plane) with the shape chosen, its resident
     clusters and its share of the bound, and every launch shape's time;
     beside them the wrapper with its rotations and the shipped sweep;
-12. the two-slab sweep (kernel #6) against its plain version at 64^3 and
-    128^3 x 192, then python -m radiativetransfer_tpu_torch.exp_sweep_pair
-    at 256^3, where the kernel's global-scratch planes are held to its
-    plain version too;
-13. every lean variant (kernel #7) against its plain version at 64^3 and
-    128^3 x 192, then python -m radiativetransfer_tpu_torch.
-    exp_sweep_variants at 256^3, every variant held to its plain version
-    there too, with the FP32 instructions per MUFU of expf and exp2f in
-    the SASS checked against the bounds' counts;
+12. the two-slab sweep (kernel #6) on the cluster kernel
+    (csrc/sweep_cluster_exp.cu's pair instances) against its plain version
+    in every launch shape at level 1 n 6 and level 2 n 8 (f32, f64), in
+    the size rule's shape at 64^3 (f32, f64) and 128^3 x 192, with the plane
+    kernel (csrc/sweep_variants.cu) at 64^3 and 128^3; then python
+    -m radiativetransfer_tpu_torch.exp_sweep_pair at 256^3: both kernels
+    held to the plain version there, the pair timed in turns with the
+    plane kernel and with the cluster kernel's exact instance in its shape;
+13. every lean variant (kernel #7) the same way (f32; level 1 n 7 and
+    level 2 n 8), then python -m radiativetransfer_tpu_torch.
+    exp_sweep_variants at 256^3: both kernels of every variant held to its
+    plain version, each cluster variant timed in turns with the plane kernel
+    and the cluster kernel's merged instance in its shape, the attribution
+    (noemi, seg1, noshift in turns with lean, clamp2 with clamp), and the
+    FP32 instructions per MUFU of expf and exp2f in the SASS checked
+    against the bounds' counts;
 14. the row scatter (kernel #8) through python -m
     radiativetransfer_tpu_torch.exp_row_scatter: the kernel against a
     float64 np.add.at and index_add_ at every M, in turns with index_add_,
@@ -200,6 +207,21 @@ def phase_build() -> None:
                                  f"{' ring' if ring == '1' else ''} G{g} "
                                  f"CPT{cpt}: {regs} regs, {spill} B spill")
             print(f"[2 build] sweep_cluster ({len(cells)} kernels): "
+                  f"{'; '.join(cells)}")
+            continue
+        if name == "sweep_cluster_exp":
+            # one entry per <dtype, Mode, G, cells per thread>
+            from radiativetransfer_tpu_torch.core.sweep_cluster import MODES
+            cells = []
+            for kname, (regs, spill) in _ptxas_kernels(log).items():
+                m = re.search(r"sweep_variant_cluster_kernelI([fd])Li(\d+)"
+                              r"ELi(\d+)ELi(\d+)E", kname)
+                if m:
+                    t, mode, g, cpt = m.groups()
+                    cells.append(f"{'f32' if t == 'f' else 'f64'} "
+                                 f"{MODES[int(mode)]} G{g} CPT{cpt}: {regs} "
+                                 f"regs, {spill} B spill")
+            print(f"[2 build] sweep_cluster_exp ({len(cells)} kernels): "
                   f"{'; '.join(cells)}")
             continue
         for line in log.splitlines():
@@ -857,78 +879,148 @@ def _zones_on_streams(krots, plan, zone_fn, k: int):
     return run
 
 
-def _check_at_main_widths(name, kernel, plain) -> float:
-    """A sweep experiment's kernel against its plain version at 64^3 and
-    128^3 x 192 directions (1e-5: phase 3's tolerance for atomic sums);
-    returns the largest abs error."""
+def _check(name, label, kernel, ref, kappa, plan, tol) -> float:
+    """One kernel against its plain version's output ref on one field (max
+    elementwise relative error at probes_cuda.rel_err's floor, within tol);
+    returns the max abs error."""
     from radiativetransfer_tpu_torch.constants import KPC
-    from radiativetransfer_tpu_torch.core import sweep
+    out = kernel(kappa, plan, np.array([1.0, 0.5, 0.25]), KPC)
+    torch.cuda.synchronize()
+    err_abs, err_rel = _rel_err(out, ref)
+    assert torch.isfinite(out).all() and err_rel <= tol, (name, label,
+                                                          err_rel)
+    return err_abs
+
+
+def _check_experiment(name, mode, plane_kernel, plain, dtypes) -> dict:
+    """An experiment's kernels against its plain version: the cluster
+    instances in every launch shape at level 1 n 7 (n 6 for the pair, whose
+    slabs go in twos) and level 2 n 8 (ragged row bands and groups; float32
+    2e-6, float64 1e-12), the size rule's shape at 64^3 and 128^3 x 192 in
+    float32 (1e-5: phase 3's tolerance for atomic sums), and the plane
+    kernel there too.  Returns each kernel's largest abs error."""
+    import functools as ft
+
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import sweep, variants_cuda
     uvb = np.array([1.0, 0.5, 0.25])
-    worst = 0.0
+    worst = {"cluster": 0.0, "plane": 0.0}
+    shapes = 0
+    for level, n in ((1, 6 if mode == "pair" else 7), (2, 8)):
+        plan = sweep.build_sweep_plan(level, n)
+        for dtype, tol in dtypes:
+            kappa = _kappa(n, dtype)
+            ref = plain(kappa, plan, uvb, KPC)
+            for shape in variants_cuda.variant_shapes(n, dtype, mode):
+                worst["cluster"] = max(worst["cluster"], _check(
+                    name, f"level {level} n {n} {shape}", ft.partial(
+                        variants_cuda.cluster_kernel, mode=mode, shape=shape),
+                    ref, kappa, plan, tol))
+                shapes += 1
     for n in (PROBE_N, MAIN_N):
         plan = sweep.build_sweep_plan(MAIN_LEVEL, n)
         kappa = _kappa(n)
-        out = kernel(kappa, plan, uvb, KPC)
-        torch.cuda.synchronize()
-        err_abs, err_rel = _rel_err(out, plain(kappa, plan, uvb, KPC))
-        print(f"[{name}] {n}^3 x {plan.n_directions} dirs f32: max abs "
-              f"{err_abs:.3e} max rel {err_rel:.3e} (tol 1e-5)")
-        assert torch.isfinite(out).all() and err_rel <= 1e-5, (name, n,
-                                                              err_rel)
-        worst = max(worst, err_abs)
+        ref = plain(kappa, plan, uvb, KPC)
+        for kernel, fn in (("cluster", ft.partial(variants_cuda.cluster_kernel,
+                                                  mode=mode)),
+                           ("plane", plane_kernel)):
+            worst[kernel] = max(worst[kernel], _check(
+                name, f"{kernel} {n}^3", fn, ref, kappa, plan, 1e-5))
+        rule = variants_cuda.choose_variant_cluster(n, torch.float32, mode)
+        print(f"[{name}] {n}^3 x {plan.n_directions} dirs f32: cluster "
+              f"kernel (C {rule.csize} G {rule.group}, {rule.threads} x "
+              f"{rule.cpt}) and the plane kernel vs the plain version "
+              f"within 1e-5")
+    print(f"[{name}] every launch shape ({shapes}) at level 1-2, n 6-8 "
+          f"{[str(d).split('.')[-1] for d, _ in dtypes]} vs the plain "
+          f"version: max abs {worst['cluster']:.3e}")
     return worst
 
 
 def phase_pair() -> dict:
-    """12: the two-slab sweep (kernel #6), then its experiment at 256^3."""
+    """12: the two-slab sweep (kernel #6) on the cluster kernel and the plane
+    kernel, then its experiment at 256^3."""
+    import functools as ft
+
     from radiativetransfer_tpu_torch import exp_sweep_pair
     from radiativetransfer_tpu_torch.core import variants_cuda
-    err = _check_at_main_widths("12 pair", variants_cuda.sweep_pair,
-                                variants_cuda.sweep_pair_reference)
+    errs = _check_experiment(
+        "12 pair", "pair", variants_cuda.sweep_pair_plane_kernel,
+        variants_cuda.sweep_pair_reference,
+        ((torch.float32, 2e-6), (torch.float64, 1e-12)))
+    # float64 at 64^3 in the size rule's shape
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import sweep
+    kappa = _kappa(PROBE_N, torch.float64)
+    plan = sweep.build_sweep_plan(MAIN_LEVEL, PROBE_N)
+    errs["cluster"] = max(errs["cluster"], _check(
+        "12 pair", f"f64 {PROBE_N}^3", ft.partial(
+            variants_cuda.cluster_kernel, mode="pair"),
+        variants_cuda.sweep_pair_reference(kappa, plan,
+                                           np.array([1.0, 0.5, 0.25]), KPC),
+        kappa, plan, 1e-12))
     variants_cuda.LAUNCHES.clear()
+    variants_cuda.CLUSTER_LAUNCHES.clear()
     _zero_sweep_launches()
     res = exp_sweep_pair.main(ROOF_N, MAIN_LEVEL)
-    launches = variants_cuda.LAUNCHES["pair"]
+    launches = variants_cuda.CLUSTER_LAUNCHES["pair"]
+    old = variants_cuda.LAUNCHES["pair"]
     ship, plane = _sweep_launches()
-    # at ROOF_N the planes no longer fit shared memory: the experiment's
-    # plain run holds the kernel's global-scratch branch to the same 1e-5;
-    # "ship" is the shipped sweep, the cluster kernel
-    print(f"[12 pair] exp_sweep_pair launches: pair {launches}, cluster "
-          f"sweep {ship}; at {ROOF_N}^3 vs the plain version max rel "
-          f"{res['max_rel_err']:.3e} (tol 1e-5)")
-    assert launches > 0 and ship > 0 and plane == 0
+    # "ship" and the exact instance in the pair's shape are the cluster
+    # sweep kernel's launches
+    print(f"[12 pair] exp_sweep_pair launches: pair cluster {launches}, "
+          f"plane kernel {old}, cluster sweep {ship}; at {ROOF_N}^3 vs "
+          f"the plain version max rel {res['max_rel_err']:.3e}, plane "
+          f"kernel {res['plane_max_rel_err']:.3e} (tol 1e-5)")
+    assert launches > 0 and old > 0 and ship > 0 and plane == 0
     assert res["max_rel_err"] <= 1e-5, res["max_rel_err"]
-    return {**res, "launches": launches, "sweep_launches": ship,
-            "max_abs_err": max(err, res["max_abs_err"])}
+    assert res["plane_max_rel_err"] <= 1e-5, res["plane_max_rel_err"]
+    return {**res, "launches": launches, "old_launches": old,
+            "sweep_launches": ship,
+            "max_abs_err": max(errs["cluster"], res["max_abs_err"]),
+            "old_max_abs_err": max(errs["plane"], res["plane_max_abs_err"])}
 
 
 def phase_variants() -> dict:
-    """13: every lean variant (kernel #7), then the experiment at 256^3 and
-    the FP32 instructions per MUFU of expf and exp2f in the SASS."""
+    """13: every lean variant (kernel #7) on the cluster kernel and the plane
+    kernel, then the experiment at 256^3 (each variant in turns with
+    its yardsticks, the attribution) and the FP32 instructions per MUFU of
+    expf and exp2f in the SASS."""
+    import functools as ft
+
     from radiativetransfer_tpu_torch import exp_sweep_variants
     from radiativetransfer_tpu_torch.core import probes_cuda, variants_cuda
     errs = {}
     for v in variants_cuda.VARIANTS:
-        errs[v] = _check_at_main_widths(
-            f"13 {v}", functools.partial(variants_cuda.lean_sweep, variant=v),
-            functools.partial(variants_cuda.lean_sweep_reference, variant=v))
+        errs[v] = _check_experiment(
+            f"13 {v}", v, ft.partial(variants_cuda.lean_sweep_plane_kernel,
+                                     variant=v),
+            ft.partial(variants_cuda.lean_sweep_reference, variant=v),
+            ((torch.float32, 2e-6),))
     variants_cuda.LAUNCHES.clear()
+    variants_cuda.CLUSTER_LAUNCHES.clear()
     _zero_sweep_launches()
     res = exp_sweep_variants.main(ROOF_N, MAIN_LEVEL)
-    launches = {v: variants_cuda.LAUNCHES[v] for v in variants_cuda.VARIANTS}
+    launches = {v: variants_cuda.CLUSTER_LAUNCHES[v]
+                for v in variants_cuda.VARIANTS}
+    old = {v: variants_cuda.LAUNCHES[v] for v in variants_cuda.VARIANTS}
     ship, plane = _sweep_launches()
-    print(f"[13 variants] exp_sweep_variants launches {launches}, cluster "
-          f"sweep {ship}")
-    assert all(c > 0 for c in launches.values()) and ship > 0 and plane == 0
+    print(f"[13 variants] exp_sweep_variants launches: cluster {launches}, "
+          f"the plane kernel {old}, cluster sweep {ship}")
+    assert all(c > 0 for c in launches.values())
+    assert all(c > 0 for c in old.values()) and ship > 0 and plane == 0
     for body, m in res["sass_probes"].items():
         assert m["mufu"] > 0 and m["fp32_per_mufu"] == \
             probes_cuda.FP32_PER_STEP[body], (body, m)
     for v, r in res["variants"].items():
-        print(f"[13 variants] {v} at {ROOF_N}^3 (global-scratch planes) vs "
-              f"its plain version: max rel {r['max_rel_err']:.3e} (tol 1e-5)")
+        print(f"[13 variants] {v} at {ROOF_N}^3 vs its plain version: max "
+              f"rel {r['max_rel_err']:.3e}, the plane kernel "
+              f"{r['plane_max_rel_err']:.3e} (tol 1e-5)")
         assert r["max_rel_err"] <= 1e-5, (v, r["max_rel_err"])
-        errs[v] = max(errs[v], r["max_abs_err"])
-    return {**res, "launches": launches, "errs": errs,
+        assert r["plane_max_rel_err"] <= 1e-5, (v, r["plane_max_rel_err"])
+        errs[v] = {"cluster": max(errs[v]["cluster"], r["max_abs_err"]),
+                   "plane": max(errs[v]["plane"], r["plane_max_abs_err"])}
+    return {**res, "launches": launches, "old_launches": old, "errs": errs,
             "sweep_launches": ship}
 
 
@@ -1479,7 +1571,8 @@ def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
 
 
 def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
-    """The kernels line's entries of kernels #2, #6, #7, #8 and #3."""
+    """The kernels line's entries of kernels #2, #6, #7, #8 and #3 (#6
+    and #7: the cluster instances, then the plane kernels)."""
     from radiativetransfer_tpu_torch.core import (
         probes_cuda,
         scatter_cuda,
@@ -1487,6 +1580,7 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
         sweep_cuda,
     )
     src = "radiativetransfer_tpu_torch/csrc/sweep_variants.cu"
+    exp_src = "radiativetransfer_tpu_torch/csrc/sweep_cluster_exp.cu"
     line = [{
         "name": "sweep_zone_cluster", "route": "cuda",
         "source": "radiativetransfer_tpu_torch/csrc/sweep_cluster.cu",
@@ -1511,24 +1605,48 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
         "library_ms": None, "f64_ms": zones["f64"]["old_ms"],
         "streams_ms": zones["f32"]["old_streams_ms"],
     }, {
-        "name": "sweep_pair", "route": "cuda", "source": src,
+        "name": "sweep_pair_cluster", "route": "cuda", "source": exp_src,
         "replaces": "scripts/exp_sweep_pair.py:53",
         "launches": pair["launches"],
         "launches_by_path": {"exp_sweep_pair": pair["launches"]},
         "max_abs_err": pair["max_abs_err"], "ms": pair["ms"],
         "plain_ms": pair["plain_ms"], "bound_ms": pair["bound_ms"],
         "bound_by": pair["bound_by"], "library_ms": None,
+        "shape": pair["rule"], "plane_ms": pair["plane_ms"],
+        "exact_ms": pair["exact_ms"], "turns": pair["turns"],
+    }, {
+        "name": "sweep_pair", "route": "cuda", "source": src,
+        "replaces": "scripts/exp_sweep_pair.py:53",
+        "launches": pair["old_launches"],
+        "launches_by_path": {"exp_sweep_pair": pair["old_launches"]},
+        "max_abs_err": pair["old_max_abs_err"], "ms": pair["plane_ms"],
+        "plain_ms": pair["plain_ms"], "bound_ms": pair["bound_ms"],
+        "bound_by": pair["bound_by"], "library_ms": None,
     }]
     for v, r in variants["variants"].items():
+        cut = variants["attribution"].get(v)
         line.append({
-            "name": f"sweep_lean_{v}", "route": "cuda", "source": src,
-            "replaces": "scripts/exp_sweep_variants.py:71",
+            "name": f"sweep_lean_cluster_{v}", "route": "cuda",
+            "source": exp_src, "replaces": "scripts/exp_sweep_variants.py:71",
             "launches": variants["launches"][v],
             "launches_by_path": {"exp_sweep_variants":
                                  variants["launches"][v]},
-            "max_abs_err": variants["errs"][v], "ms": r["ms"],
+            "max_abs_err": variants["errs"][v]["cluster"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": r["rule"], "plane_ms": r["plane_ms"],
+            f"{r['merged']}_ms": r["merged_ms"], "turns": r["turns"],
+            **({"attribution": cut} if cut else {})})
+        line.append({
+            "name": f"sweep_lean_{v}", "route": "cuda", "source": src,
+            "replaces": "scripts/exp_sweep_variants.py:71",
+            "launches": variants["old_launches"][v],
+            "launches_by_path": {"exp_sweep_variants":
+                                 variants["old_launches"][v]},
+            "max_abs_err": variants["errs"][v]["plane"],
+            "ms": r["plane_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     top = scatter["m"][max(scatter["m"])]
     scatter_src = "radiativetransfer_tpu_torch/csrc/scatter_rows.cu"
     line.append({

@@ -2,9 +2,10 @@
 
 Each source under radiativetransfer_tpu_torch/csrc/ is compiled by hand
 with nvcc into its own shared library with a plain C interface, in
-`radiativetransfer_tpu_torch/_build/`, named by a hash of the source and
-the flags, so an edited source rebuilds.  `build()` starts one nvcc for
-every source not built yet, all at once, and waits for them together.
+`radiativetransfer_tpu_torch/_build/`, named by a hash of the source, the
+headers beside it and the flags, so an edited source or header rebuilds.
+`build()` starts one nvcc for every source not built yet, all at once, and
+waits for them together.
 Nothing is compiled or loaded at import.
 """
 
@@ -26,7 +27,10 @@ SOURCES = {
     "scatter_rows": _PKG / "csrc" / "scatter_rows.cu",
     "sweep_rdma": _PKG / "csrc" / "sweep_rdma.cu",
     "sweep_cluster": _PKG / "csrc" / "sweep_cluster.cu",
+    "sweep_cluster_exp": _PKG / "csrc" / "sweep_cluster_exp.cu",
 }
+# the headers the sources include (csrc/*.cuh), hashed into every name
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 # IEEE expf and division (never --use_fast_math), and -fmad=false so each
 # operation rounds as the plain PyTorch versions round it
@@ -56,14 +60,19 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Shared library of one source, named by a hash of source and flags."""
+    """Shared library of one source, named by a hash of the source, the
+    headers and the flags."""
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def sass(name: str) -> str:
-    """The SASS listing of one built source, by the cuobjdump beside nvcc."""
+    """The SASS listing of one source (built first where it is not yet), by
+    the cuobjdump beside nvcc."""
+    build(name)
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     return subprocess.run([str(cuobjdump), "-sass", str(library_path(name))],
                           capture_output=True, text=True, check=True).stdout

@@ -35,6 +35,11 @@ a cluster of C CTAs walks its slabs, CTA r holding the rows
   RING instances (parallel/sweep_rdma.py launches them): `ring_shapes`,
   `ring_clusters` and `choose_ring` (its size rule, with the card's
   resident clusters) and `ring_lines` (each yz stage's line number).
+* The kernel's body (csrc/sweep_cluster.cuh) is a template over a Mode
+  (`MODES`): the merged sweep's, the ring's, and the TPU sweep
+  experiments' (#6, #7; core/variants_cuda.py launches those, built in
+  csrc/sweep_cluster_exp.cu); `max_threads` and `cluster_shapes` take the
+  Mode.
 * `build` — compiles csrc/sweep_cluster.cu (core/cuda_build.py) and binds
   it with ctypes.  Nothing is compiled or loaded at import.
 """
@@ -70,6 +75,10 @@ RING_CELLS_PER_THREAD = (2, 4)
 # registers the ring's line numbers, flag offsets and pointers add per
 # thread (csrc/sweep_cluster.cu's RING_REGS)
 RING_REGS = 16
+# the experiments' instances (csrc/sweep_cluster_exp.cu): directions per
+# work item and cells per thread
+EXP_GROUP_SIZES = (1, 2)
+EXP_CELLS_PER_THREAD = (2, 4)
 # the ring's size rule (choose_ring) by item size: (G, cells per thread)
 # in order of preference.  Measured on the H100, each zone's launch alone
 # at 128^3 x 192 on 4 ranks in every shape whose ring is co-resident
@@ -82,6 +91,21 @@ RING_PREFERENCE = {4: ((1, 2), (1, 4), (2, 2), (2, 4)),
                    8: ((1, 2), (1, 4), (2, 2), (2, 4))}
 # rt_sweep_cluster's return when no cluster of the shape fits the card
 _NOT_SCHEDULABLE = -1
+# The kernel body's instances (csrc/sweep_cluster.cuh's Mode, in its
+# order): the merged sweep in either logmean and the halo ring here; the
+# pair sweep (#6) and the lean variants (#7) in csrc/sweep_cluster_exp.cu
+# (core/variants_cuda.py)
+MODES = ("exact", "clamped", "ring", "pair", "lean", "clamp", "clamp2",
+         "seg1", "noemi", "noshift")
+# each Mode's registers beyond the merged sweep's per cell, 32-bit word
+# and direction, in halves (the .cuh's kCellRegsG): the pair's second slab
+CELL_REGS_G = (0, 0, 0, 5, 0, 0, 0, 0, 0, 0)
+# the Modes whose chained segments read an upwind neighbour (staging
+# planes and barriers; not seg1, which has none, nor noshift), and those
+# that stage their directions' rows in shared memory, with their slots
+_SHIFTS = frozenset(MODES) - {"seg1", "noshift"}
+_ROW_SLOTS = {"pair": 8, "lean": 16, "clamp": 16, "clamp2": 16, "seg1": 16,
+              "noemi": 16, "noshift": 16}
 
 # kernel launches made by diffuse_sweep_cluster_kernel (one per sweep) and
 # by sweep_zone_cluster_kernel (one per zone)
@@ -104,18 +128,20 @@ class ClusterShape:
 
 
 def max_threads(group: int, cpt: int, itemsize: int,
-                ring: bool = False) -> int:
-    """The most threads a CTA of (G, cpt) may have (csrc/sweep_cluster.cu's
+                ring: bool = False, mode: str = "exact") -> int:
+    """The most threads a CTA of (G, cpt) may have (csrc/sweep_cluster.cuh's
     max_threads and kRegs, the same formula): the registers a thread needs
     without spilling, ~2.5 G + 4.5 per float32 cell (carry and logmean per
     direction, kappa and 1/kappa of this slab and the next), twice that in
     float64, and ~26 more (~58 in float64), fitted to ptxas -v's counts
-    and spills, RING_REGS more in the ring's instances, under the
-    per-thread cap each block size leaves; 0 where no block size leaves
-    enough (no kernel of such a shape is built)."""
+    and spills, RING_REGS more in the ring's instances (`ring`) and the
+    pair's second slab (`mode` "pair"; the experiments' Modes,
+    CELL_REGS_G), under the per-thread cap each block size leaves; 0 where
+    no block size leaves enough (no kernel of such a shape is built)."""
+    m = MODES.index("ring" if ring else mode)
     words = itemsize // 4
-    regs = (((5 * group + 9) * cpt * words + 1) // 2 + 26 + 32 * (words - 1)
-            + RING_REGS * ring)
+    regs = (((5 * group + 9 + CELL_REGS_G[m] * group) * cpt * words + 1)
+            // 2 + 26 + 32 * (words - 1) + RING_REGS * ring)
     for threads in (1024, 768, 512, 384, 256):
         # ptxas's cap at this block size: the register file over the
         # threads, in steps of 8, at most 255
@@ -130,30 +156,41 @@ def row_bands(ny: int, csize: int) -> list[tuple[int, int]]:
 
 
 def cluster_shapes(ny: int, nz: int, dtype: torch.dtype, csize: int,
-                   group: int, ring: bool = False) -> list[ClusterShape]:
+                   group: int, ring: bool = False, mode: str = "exact",
+                   nslab: int = 0) -> list[ClusterShape]:
     """Every launch shape of C = csize, G = group on a ny x nz plane (of
-    the ring's instances with `ring`), one per cells-per-thread whose block
-    (of at least 128 threads, or the one block a small plane takes) fits
-    the register file, fewest cells per thread first; none where there are
-    more CTAs than rows or the staging planes exceed one CTA's shared
-    memory.  A ring shape also stages its incoming lines (rows_max values
-    a direction) and has a thread for every row."""
-    if csize not in CLUSTER_SIZES or group not in (
-            RING_GROUP_SIZES if ring else GROUP_SIZES):
-        raise ValueError(f"no {'ring ' * ring}kernel for C={csize}, "
-                         f"G={group}")
+    the ring's instances with `ring`, of an experiment's Mode with `mode`
+    on nslab slabs), one per cells-per-thread whose block (of at least 128
+    threads, or the one block a small plane takes) fits the register file,
+    fewest cells per thread first; none where there are more CTAs than rows
+    or the staging planes exceed one CTA's shared memory.  A ring shape
+    also stages its incoming lines (rows_max values a direction) and has a
+    thread for every row; an experiment's also stages its directions' rows
+    and chain codes of every slab, and without shifts has no planes
+    (csrc/sweep_cluster.cuh's smem_bytes)."""
+    experiment = mode in _ROW_SLOTS
+    groups = (RING_GROUP_SIZES if ring else
+              EXP_GROUP_SIZES if experiment else GROUP_SIZES)
+    if csize not in CLUSTER_SIZES or group not in groups:
+        what = "ring " if ring else f"{mode} " if experiment else ""
+        raise ValueError(f"no {what}kernel for C={csize}, G={group}")
     if csize > ny:
         return []
     itemsize = torch.finfo(dtype).bits // 8
     rows_max = -(-ny // csize)
     cells = rows_max * nz
-    smem = group * rows_max * (2 * nz + ring) * itemsize
+    planes = 2 * nz * rows_max if mode in _SHIFTS else 0
+    smem = group * (planes + rows_max * ring) * itemsize
+    if experiment:
+        smem += group * nslab * (_ROW_SLOTS[mode] * itemsize + 8)
     if smem > sweep_cuda._SMEM_OPTIN_BYTES:
         return []
     shapes = []
-    for cpt in RING_CELLS_PER_THREAD if ring else CELLS_PER_THREAD:
+    for cpt in (RING_CELLS_PER_THREAD if ring else
+                EXP_CELLS_PER_THREAD if experiment
+                else CELLS_PER_THREAD):
         threads = max(32, (-(-cells // cpt) + 31) // 32 * 32)
-        if threads <= max_threads(group, cpt, itemsize, ring) and (
+        if threads <= max_threads(group, cpt, itemsize, ring, mode) and (
                 threads >= 128 or not shapes) and (
                 not ring or threads >= rows_max):
             shapes.append(ClusterShape(csize, group, cpt, threads, smem))
@@ -266,17 +303,24 @@ def _run(fields, tables, uvb, weight: float, logmean: str, dims, strides,
         int(logmean == "clamped"), shape.csize, shape.group, shape.cpt,
         shape.threads, int(query_only), occupancy,
         torch.cuda.current_stream(device).cuda_stream)
+    check_launch(rc, occupancy, shape, lib.rt_cluster_error_string,
+                 "cluster sweep kernel")
+    return occupancy[0]
+
+
+def check_launch(rc: int, occupancy, shape: ClusterShape, error_string,
+                 what: str) -> None:
+    """Raise on a launch of a cluster library that returned rc: a shape no
+    cluster of which the card can schedule, or any other refusal."""
     if rc == _NOT_SCHEDULABLE:
-        query = lib.rt_cluster_error_string(occupancy[1]).decode()
+        query = error_string(occupancy[1]).decode()
         raise RuntimeError(
-            f"cluster sweep kernel refused: a cluster of {shape.csize} CTAs "
-            f"x {shape.threads} threads cannot be scheduled on the card "
+            f"{what} refused: a cluster of {shape.csize} CTAs x "
+            f"{shape.threads} threads cannot be scheduled on the card "
             f"({occupancy[0]} resident clusters; occupancy query: {query})")
     if rc != 0:
-        raise RuntimeError(f"cluster sweep kernel launch failed: "
-                           f"{lib.rt_cluster_error_string(rc).decode()} "
-                           f"({rc})")
-    return occupancy[0]
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{error_string(rc).decode()} ({rc})")
 
 
 def _call(kappa, plan: SweepPlan, uvb, cell_size, logmean: str,

@@ -14,12 +14,16 @@ Counterpart of two TPU kernels of the JAX package's scripts/:
   Its plain version, `lean_sweep_reference`, repeats the TPU kernel's
   arithmetic for every flag.
 
-Both kernels are in csrc/sweep_variants.cu (built and bound by
-sweep_cuda.build_variants) and take every direction of the plan in one
-launch, one CTA per (direction, band) plane, as csrc/sweep_merged.cu does.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  `LAUNCHES` counts the kernel launches by variant ("pair", "lean",
-"clamp", ...).
+Each has two kernels.  The cluster instances (csrc/sweep_cluster_exp.cu,
+the main path's cluster kernel body of csrc/sweep_cluster.cuh in the
+experiment's Mode: a cluster of C CTAs per plane, G directions a CTA) are
+what `sweep_pair` and `lean_sweep` launch, in `choose_variant_cluster`'s
+shape; where no shape fits the plane they take the plane kernels of
+csrc/sweep_variants.cu (`sweep_pair_plane_kernel`, `lean_sweep_plane_kernel`:
+one CTA per (direction, band) plane, as csrc/sweep_merged.cu), which stay as
+the yardstick.  A CPU tensor takes the plain version; a CUDA tensor
+launches a kernel or raises.  `CLUSTER_LAUNCHES` and `LAUNCHES` count the
+two kernels' launches by variant ("pair", "lean", "clamp", ...).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from ..geometry.patterns import SEG_NONE, SEG_XZ
-from . import sweep_cuda
+from . import cuda_build, sweep_cluster, sweep_cuda
 from .sweep import SweepPlan, _tau_eps
 
 LOG2E = float(np.log2(np.e))
@@ -53,8 +57,10 @@ _DEFAULTS = dict(use_exp2=False, seg1_only=False, no_emi=False,
 _EPS_CL = 3.5e-4
 _A_EPS = float(np.exp(-_EPS_CL))
 
-# kernel launches by variant ("pair" for the two-slab kernel)
+# launches of csrc/sweep_variants.cu's plane kernels by variant ("pair" for
+# the two-slab kernel), and of the cluster instances the same way
 LAUNCHES: collections.Counter = collections.Counter()
+CLUSTER_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def flags(variant: str) -> dict:
@@ -205,7 +211,163 @@ def lean_sweep_reference(kappa, plan: SweepPlan, uvb, cell_size,
 
 
 # ---------------------------------------------------------------------------
-# The kernels' wrappers
+# The cluster kernel's instances (csrc/sweep_cluster_exp.cu) and their size
+# rule
+# ---------------------------------------------------------------------------
+
+
+# rt_sweep_cluster_variant's code of each Mode: the lean variants in
+# VARIANTS' order, then the pair
+_CODES = {**{v: i for i, v in enumerate(VARIANTS)}, "pair": len(VARIANTS)}
+MODES = tuple(_CODES)
+# the size rule (choose_variant_cluster) by Mode and item size: its order of
+# directions per work item and its cells per thread.  Measured on the H100
+# at 128^3 and 256^3 x 192 in float32, every launch shape (exp_sweep_variants
+# and exp_sweep_pair, PERF.md): the lean variants keep the
+# merged sweep's order (G 2, 4 cells; within 8% of the fastest shape at
+# 128^3, the fastest at 256^3), the pair runs fastest at 2 cells per thread
+# (C 16, G 2, 512 x 2 at 128^3; 256^3 fits G 1 x 4 only); float64 keeps the
+# merged sweep's order, not measured
+RULE_PREFERENCE = {mode: {4: ((2, 1), 2 if mode == "pair" else 4),
+                          8: ((1, 2), 2)} for mode in MODES}
+
+_LIB = None
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if not built yet) and load csrc/sweep_cluster_exp.cu."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = cuda_build.build("sweep_cluster_exp")["sweep_cluster_exp"]
+    p, pp, i, d = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.c_int, ctypes.c_double)
+    lib.rt_sweep_cluster_variant.argtypes = (
+        [i, i, i, pp, pp, pp] + [p] * 4 + [d] * 7 + [i] * 9
+        + [ctypes.POINTER(i), p])
+    lib.rt_sweep_cluster_variant.restype = i
+    lib.rt_cluster_variant_error_string.argtypes = [i]
+    lib.rt_cluster_variant_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _CODES:
+        raise ValueError(f"unknown variant {mode!r}")
+
+
+def variant_shapes(n: int, dtype: torch.dtype, mode: str
+                   ) -> list[sweep_cluster.ClusterShape]:
+    """Every launch shape of one Mode's instances ("pair" or a lean variant)
+    on an n^3 field, by C, then G (sweep_cluster.cluster_shapes)."""
+    _check_mode(mode)
+    return [s for c in sweep_cluster.CLUSTER_SIZES
+            for g in sweep_cluster.EXP_GROUP_SIZES
+            for s in sweep_cluster.cluster_shapes(n, n, dtype, c, g,
+                                                  mode=mode, nslab=n)]
+
+
+def choose_variant_cluster(n: int, dtype: torch.dtype, mode: str
+                           ) -> sweep_cluster.ClusterShape | None:
+    """The experiments' size rule: of every launch shape of the Mode that
+    fits an n^3 field, the first in RULE_PREFERENCE's order of G, its cells
+    per thread, then the block nearest 512 threads, the smallest cluster;
+    None where none fits (the wrappers then take csrc/sweep_variants.cu's
+    plane kernel)."""
+    shapes = variant_shapes(n, dtype, mode)
+    if not shapes:
+        return None
+    groups, cpt = RULE_PREFERENCE[mode][torch.finfo(dtype).bits // 8]
+    return min(shapes, key=lambda s: (groups.index(s.group), s.cpt != cpt,
+                                      abs(s.threads - 512), s.csize))
+
+
+def _tables(plan: SweepPlan, cell_size: float, mode: str, dtype, device):
+    """(perms, dir_meta, lens, chains): kernel_tables' 8-slot rows for the
+    pair, _lean_tables' 16-slot rows for a lean variant."""
+    if mode == "pair":
+        return sweep_cuda.kernel_tables(plan, cell_size, dtype, device)
+    return _lean_tables(plan, cell_size, mode, dtype, device)
+
+
+def _cluster_call(kappa, plan: SweepPlan, uvb, cell_size, mode: str,
+                  shape: sweep_cluster.ClusterShape, query_only: bool):
+    """One rt_sweep_cluster_variant call: (Jmean or None, resident
+    clusters).  The library checks the shape's block against the plane and
+    its registers, and asks the card whether such a cluster can be
+    scheduled, before any launch."""
+    _check_mode(mode)
+    sweep_cuda.check_sweep_field(kappa, plan)
+    if mode != "pair" and kappa.dtype != torch.float32:
+        raise TypeError(f"the lean sweep kernel takes float32, got "
+                        f"{kappa.dtype}")
+    if mode == "pair":
+        _check_pair(plan)
+    if (shape.group not in sweep_cluster.EXP_GROUP_SIZES
+            or shape.cpt not in sweep_cluster.EXP_CELLS_PER_THREAD):
+        raise ValueError(f"no {mode} kernel for {shape}")
+    lib = build()
+    n = plan.nslab
+    dtype, device = kappa.dtype, kappa.device
+    eps = (_tau_eps(dtype) if mode == "pair"
+           else _eps_c(dtype, flags(mode)["use_exp2"]))
+    with torch.cuda.device(device):
+        perms, meta, lens, chains = _tables(plan, cell_size, mode, dtype,
+                                            device)
+        items = sweep_cluster._item_table("cluster_items", plan, meta,
+                                          shape.group, device)
+        if query_only:
+            jmean = None
+            fields = ([kappa] * len(perms),) * 3
+        else:
+            jmean, *fields = sweep_cuda.launch_buffers(kappa, "exact", perms)
+        occupancy = (ctypes.c_int * 2)()
+        rc = lib.rt_sweep_cluster_variant(
+            _CODES[mode], 0 if dtype == torch.float32 else 1, len(perms),
+            *(sweep_cuda.pointer_array(f) for f in fields), meta.data_ptr(),
+            lens.data_ptr(), chains.data_ptr(), items.data_ptr(),
+            *sweep_cuda.uvb_floats(uvb), plan.weight, eps, _A_EPS,
+            1.0 / _EPS_CL, items.shape[0], n, n, n, shape.csize, shape.group,
+            shape.cpt, shape.threads, int(query_only), occupancy,
+            torch.cuda.current_stream(device).cuda_stream)
+        sweep_cluster.check_launch(
+            rc, occupancy, shape, lib.rt_cluster_variant_error_string,
+            f"cluster {mode} sweep kernel")
+    if query_only:
+        return None, occupancy[0]
+    return sweep_cuda.gather_jmean(jmean, fields[2], perms), occupancy[0]
+
+
+def cluster_kernel(kappa, plan: SweepPlan, uvb, cell_size, mode: str,
+                   shape: sweep_cluster.ClusterShape | None = None
+                   ) -> torch.Tensor:
+    """One experiment through its cluster instances: the pair ("pair",
+    float32 or float64, nslab even) or a lean variant (float32): (3, n, n,
+    n) kappa -> (3, n, n, n) Jmean, in `shape` (choose_variant_cluster's by
+    default).  A CUDA tensor only: raises where the shape does not fit the
+    plane or cannot be scheduled, before any launch.  Counts its launches
+    in CLUSTER_LAUNCHES[mode]."""
+    if shape is None:
+        shape = choose_variant_cluster(plan.nslab, kappa.dtype, mode)
+        if shape is None:
+            raise ValueError(f"no {mode} cluster shape fits a "
+                             f"{plan.nslab}^3 {kappa.dtype} plane")
+    jmean, _ = _cluster_call(kappa, plan, uvb, cell_size, mode, shape, False)
+    CLUSTER_LAUNCHES[mode] += 1
+    return jmean
+
+
+def resident_variant_clusters(kappa, plan: SweepPlan, cell_size, mode: str,
+                              shape: sweep_cluster.ClusterShape) -> int:
+    """How many clusters of `shape` of the Mode's instances the card holds
+    at once; launches nothing."""
+    return _cluster_call(kappa, plan, np.zeros(3), cell_size, mode, shape,
+                         True)[1]
+
+
+# ---------------------------------------------------------------------------
+# The plane kernels (csrc/sweep_variants.cu) and the wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -232,9 +394,9 @@ def _lean_tables(plan: SweepPlan, cell_size: float, variant: str, dtype,
 
 def _launch(fn, what: str, kappa, plan: SweepPlan, uvb, tables, head,
             tail, plane_memory: str):
-    """Shared launch of the pair and lean kernels: permuted buffers, the
-    hoisted 1/kappa (no floor, as both TPU kernels), scratch, the call and
-    the gather back to grid order.  head: the arguments before the
+    """Shared launch of the pair and lean plane kernels: permuted buffers,
+    the hoisted 1/kappa (no floor, as both TPU kernels), scratch, the call
+    and the gather back to grid order.  head: the arguments before the
     pointers, tail: the scalars between the UVB and the sizes."""
     n = plan.nslab
     if tuple(kappa.shape) != (3, n, n, n):
@@ -264,15 +426,19 @@ def _launch(fn, what: str, kappa, plan: SweepPlan, uvb, tables, head,
     return sweep_cuda.gather_jmean(jmean, jperm, perms)
 
 
-def sweep_pair(kappa, plan: SweepPlan, uvb, cell_size,
-               plane_memory: str = "auto") -> torch.Tensor:
-    """The two-slab merged sweep (exact logmean): (3, n, n, n) kappa ->
-    (3, n, n, n) Jmean; n must be even.  A CPU tensor takes
-    sweep_pair_reference; a CUDA tensor launches the pair kernel (float32 or
-    float64), or raises."""
+def _check_pair(plan: SweepPlan) -> None:
     if plan.nslab % 2:
         raise ValueError(f"the pair sweep walks slabs two at a time; nslab "
                          f"{plan.nslab} is odd")
+
+
+def sweep_pair_plane_kernel(kappa, plan: SweepPlan, uvb, cell_size,
+                            plane_memory: str = "auto") -> torch.Tensor:
+    """The two-slab sweep through csrc/sweep_variants.cu's plane kernel, one
+    CTA per (direction, band) plane: (3, n, n, n) kappa -> (3, n, n, n)
+    Jmean; n even.  A CPU tensor takes sweep_pair_reference; a CUDA tensor
+    launches the kernel (float32 or float64), or raises."""
+    _check_pair(plan)
     if kappa.device.type == "cpu":
         return sweep_pair_reference(kappa, plan, uvb, cell_size)
     sweep_cuda.check_device_field(kappa)
@@ -287,11 +453,13 @@ def sweep_pair(kappa, plan: SweepPlan, uvb, cell_size,
     return out
 
 
-def lean_sweep(kappa, plan: SweepPlan, uvb, cell_size, variant: str = "lean",
-               plane_memory: str = "auto") -> torch.Tensor:
-    """One lean variant: (3, n, n, n) kappa -> (3, n, n, n) Jmean.  A CPU
-    tensor takes lean_sweep_reference; a CUDA tensor launches the lean
-    kernel (float32, the experiment's type), or raises."""
+def lean_sweep_plane_kernel(kappa, plan: SweepPlan, uvb, cell_size,
+                            variant: str = "lean",
+                            plane_memory: str = "auto") -> torch.Tensor:
+    """One lean variant through csrc/sweep_variants.cu's plane kernel:
+    (3, n, n, n) kappa -> (3, n, n, n) Jmean.  A CPU tensor takes
+    lean_sweep_reference; a CUDA tensor launches the kernel (float32, the
+    experiment's type), or raises."""
     f = flags(variant)
     if kappa.device.type == "cpu":
         return lean_sweep_reference(kappa, plan, uvb, cell_size, variant)
@@ -306,3 +474,34 @@ def lean_sweep(kappa, plan: SweepPlan, uvb, cell_size, variant: str = "lean",
                        1.0 / _EPS_CL), plane_memory)
     LAUNCHES[variant] += 1
     return out
+
+
+def sweep_pair(kappa, plan: SweepPlan, uvb, cell_size) -> torch.Tensor:
+    """The two-slab merged sweep (exact logmean): (3, n, n, n) kappa ->
+    (3, n, n, n) Jmean; n must be even.  A CPU tensor takes
+    sweep_pair_reference; a CUDA tensor (float32 or float64) launches the
+    cluster instance in choose_variant_cluster's shape or, where no shape
+    fits the plane, sweep_pair_plane_kernel; the rule decides before any
+    launch, and each kernel's count records it."""
+    _check_pair(plan)
+    if kappa.device.type == "cpu":
+        return sweep_pair_reference(kappa, plan, uvb, cell_size)
+    shape = choose_variant_cluster(plan.nslab, kappa.dtype, "pair")
+    if shape is None:
+        return sweep_pair_plane_kernel(kappa, plan, uvb, cell_size)
+    return cluster_kernel(kappa, plan, uvb, cell_size, "pair", shape)
+
+
+def lean_sweep(kappa, plan: SweepPlan, uvb, cell_size,
+               variant: str = "lean") -> torch.Tensor:
+    """One lean variant: (3, n, n, n) kappa -> (3, n, n, n) Jmean.  A CPU
+    tensor takes lean_sweep_reference; a CUDA tensor (float32, the
+    experiment's type) launches the variant's cluster instance in
+    choose_variant_cluster's shape or, where no shape fits the plane,
+    lean_sweep_plane_kernel; the rule decides before any launch."""
+    if kappa.device.type == "cpu":
+        return lean_sweep_reference(kappa, plan, uvb, cell_size, variant)
+    shape = choose_variant_cluster(plan.nslab, kappa.dtype, variant)
+    if shape is None:
+        return lean_sweep_plane_kernel(kappa, plan, uvb, cell_size, variant)
+    return cluster_kernel(kappa, plan, uvb, cell_size, variant, shape)

@@ -11,6 +11,10 @@
 //   act-folded 16-slot tables (lm from i_out - i_in, no masks), with the
 //   flags clamped, exp2, seg1, noemi and noshift of its variants.
 //
+// The pair and lean kernels here are the plane kernels that the cluster
+// instances of csrc/sweep_cluster_exp.cu are timed against (core/
+// variants_cuda.py launches those, and these where no cluster shape fits).
+//
 // Every kernel keeps the design of csrc/sweep_merged.cu (kernel #1), whose
 // bound is FP32 issue and the special-function unit once the planes stay on
 // chip: one CTA per (direction, band) plane walks all slabs in its own loop,

@@ -1,8 +1,8 @@
 """PyTorch port on a CUDA device: the hand-written cluster sweep, plane
 sweep, per-zone sweep, ring sweeps (the cluster ring and the plane ring),
-sweep-experiment, scatter and probe kernels against their plain PyTorch
-versions, the tracer against its CPU
-run, and the mode-9 and mode-8 steps through the cluster sweep kernel
+sweep-experiment (the cluster instances and the plane kernels), scatter
+and probe kernels against their plain PyTorch versions, the tracer against
+its CPU run, and the mode-9 and mode-8 steps through the cluster sweep kernel
 (mode 9 also on a mesh through the ring kernel).  Every test needs a
 card and skips without one.  This file imports no JAX, so on a machine
 without it run it past tests/conftest.py:
@@ -388,8 +388,8 @@ def test_pair_kernel_matches_plain_version(card, level, n, plane_memory,
     kappa = _kappa(n, dtype, card)
     plan = sweep.build_sweep_plan(level, n)
     before = variants_cuda.LAUNCHES["pair"]
-    j = variants_cuda.sweep_pair(kappa, plan, UVB, KPC,
-                                 plane_memory=plane_memory)
+    j = variants_cuda.sweep_pair_plane_kernel(kappa, plan, UVB, KPC,
+                                              plane_memory=plane_memory)
     torch.cuda.synchronize()
     assert variants_cuda.LAUNCHES["pair"] == before + 1
     ref = variants_cuda.sweep_pair_reference(kappa, plan, UVB, KPC)
@@ -403,8 +403,8 @@ def test_lean_kernel_matches_plain_version(card, variant, plane_memory):
     kappa = _kappa(n, torch.float32, card)
     plan = sweep.build_sweep_plan(2, n)
     before = variants_cuda.LAUNCHES[variant]
-    j = variants_cuda.lean_sweep(kappa, plan, UVB, KPC, variant,
-                                 plane_memory=plane_memory)
+    j = variants_cuda.lean_sweep_plane_kernel(kappa, plan, UVB, KPC, variant,
+                                              plane_memory=plane_memory)
     torch.cuda.synchronize()
     assert variants_cuda.LAUNCHES[variant] == before + 1
     ref = variants_cuda.lean_sweep_reference(kappa, plan, UVB, KPC, variant)
@@ -422,6 +422,70 @@ def test_variant_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="shape"):
         variants_cuda.sweep_pair(_kappa(6, torch.float32, card), plan, UVB,
                                  KPC)
+
+
+@pytest.mark.parametrize("mode,dtype,rtol", [
+    (mode, torch.float32, 2e-6) for mode in variants_cuda.MODES] + [
+    ("pair", torch.float64, 1e-12)])
+@pytest.mark.parametrize("level,n", [(1, 6), (1, 7), (2, 8)])
+def test_cluster_variant_matches_plain_version(card, level, n, mode, dtype,
+                                               rtol):
+    # every launch shape of the experiment's cluster instances: ragged row
+    # bands (n 6, 7) and ragged groups (level 1's launches of 1-2
+    # directions at G 2); the pair's slabs go in twos
+    if mode == "pair" and n % 2:
+        n += 1
+    kappa = _kappa(n, dtype, card)
+    plan = sweep.build_sweep_plan(level, n)
+    ref = (variants_cuda.sweep_pair_reference(kappa, plan, UVB, KPC)
+           if mode == "pair" else
+           variants_cuda.lean_sweep_reference(kappa, plan, UVB, KPC, mode))
+    shapes = variants_cuda.variant_shapes(n, dtype, mode)
+    assert shapes
+    before = variants_cuda.CLUSTER_LAUNCHES[mode]
+    for shape in shapes:
+        j = variants_cuda.cluster_kernel(kappa, plan, UVB, KPC, mode, shape)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(j.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=rtol, err_msg=str(shape))
+    assert variants_cuda.CLUSTER_LAUNCHES[mode] == before + len(shapes)
+
+
+def test_variant_wrappers_take_cluster_kernel(card):
+    # the wrappers launch the cluster instances in the size rule's shape,
+    # the plane kernels nowhere
+    plan = sweep.build_sweep_plan(2, 8)
+    variants_cuda.LAUNCHES.clear()
+    variants_cuda.CLUSTER_LAUNCHES.clear()
+    kappa = _kappa(8, torch.float32, card)
+    for mode in variants_cuda.VARIANTS:
+        j = variants_cuda.lean_sweep(kappa, plan, UVB, KPC, mode)
+        np.testing.assert_allclose(
+            j.cpu().numpy(), variants_cuda.lean_sweep_reference(
+                kappa, plan, UVB, KPC, mode).cpu().numpy(), rtol=2e-6)
+    for dtype in (torch.float32, torch.float64):
+        variants_cuda.sweep_pair(_kappa(8, dtype, card), plan, UVB, KPC)
+    torch.cuda.synchronize()
+    assert dict(variants_cuda.CLUSTER_LAUNCHES) == {
+        **{mode: 1 for mode in variants_cuda.VARIANTS}, "pair": 2}
+    assert sum(variants_cuda.LAUNCHES.values()) == 0
+
+
+def test_cluster_variant_rejects_what_it_does_not_take(card):
+    plan = sweep.build_sweep_plan(1, 8)
+    with pytest.raises(TypeError):
+        variants_cuda.cluster_kernel(_kappa(8, torch.float64, card), plan,
+                                     UVB, KPC, "lean")
+    with pytest.raises(ValueError, match="odd"):
+        variants_cuda.cluster_kernel(_kappa(7, torch.float32, card),
+                                     sweep.build_sweep_plan(1, 7), UVB, KPC,
+                                     "pair", sweep_cluster.ClusterShape(
+                                         1, 1, 2, 32, 0))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        # 8 rows split over 16 CTAs: refused by the library, not launched
+        variants_cuda.cluster_kernel(
+            _kappa(8, torch.float32, card), plan, UVB, KPC, "noemi",
+            sweep_cluster.ClusterShape(16, 1, 2, 32, 0))
 
 
 @pytest.mark.parametrize("m", [1, 1000, 98304])

@@ -76,38 +76,50 @@ def test_size_rule_takes_the_plane_kernel_where_nothing_fits():
 
 
 def test_register_model_matches_the_kernel_source():
-    # csrc/sweep_cluster.cu's kRegs and max_threads (its launch bounds and
+    # csrc/sweep_cluster.cuh's kRegs and max_threads (its launch bounds and
     # the check before launch) against sweep_cluster.max_threads (the size
-    # rule's), read from the source, for the merged and zone instances and
-    # the ring's (RING, G 1 and 2)
+    # rule's), read from the source, for the merged and zone instances, the
+    # ring's (RING, G 1 and 2) and the experiments' Modes (their terms
+    # kCellRegsG against CELL_REGS_G)
     src = (Path(sweep_cluster.__file__).parents[1] / "csrc"
-           / "sweep_cluster.cu").read_text()
+           / "sweep_cluster.cuh").read_text()
     ring_regs = int(re.search(r"constexpr int RING_REGS = (\d+);",
                               src).group(1))
     assert ring_regs == sweep_cluster.RING_REGS
+    modes = re.search(r"enum Mode : int \{(.*?)\};", src, re.S).group(1)
+    assert len(modes.split(",")) - 1 == len(sweep_cluster.MODES)
+    cell_g = [int(x) for x in re.search(
+        r"constexpr int kCellRegsG\[\] = \{(.*?)\};", src).group(1).split(",")]
+    assert tuple(cell_g) == sweep_cluster.CELL_REGS_G
     expr = re.search(r"constexpr int kRegs =(.*?);", src, re.S).group(1)
     expr = " ".join(expr.split()).replace("kWords<T>", "W").replace(
-        "RING_REGS", str(ring_regs))
-    assert re.fullmatch(r"[\dGCPTWRIN+*/() -]+", expr), expr
+        "RING_REGS", str(ring_regs)).replace("kCellRegsG[M]", "X").replace(
+        "(M == kRing)", "RING")
+    assert re.fullmatch(r"[\dGCPTWRINX+*/() -]+", expr), expr
     body = re.search(r"constexpr int max_threads\(\) \{(.*?)\n\}", src,
                      re.S).group(1)
     caps = [(int(r), int(t))
             for r, t in re.findall(r"regs <= (\d+) \? (\d+)", body)]
     assert [t for _, t in caps] == [1024, 768, 512, 384, 256]
-    for ring, groups, built in (
-            (False, sweep_cluster.GROUP_SIZES,
+    for mode, groups, built in (
+            ("exact", sweep_cluster.GROUP_SIZES,
              sweep_cluster.CELLS_PER_THREAD),
-            (True, sweep_cluster.RING_GROUP_SIZES,
-             sweep_cluster.RING_CELLS_PER_THREAD)):
+            ("ring", sweep_cluster.RING_GROUP_SIZES,
+             sweep_cluster.RING_CELLS_PER_THREAD)) + tuple(
+            (mode, sweep_cluster.EXP_GROUP_SIZES,
+             sweep_cluster.EXP_CELLS_PER_THREAD)
+            for mode in sweep_cluster.MODES[3:]):
+        ring = mode == "ring"
         for itemsize in (4, 8):
             for group in groups:
                 for cpt in sweep_cluster.CELLS_PER_THREAD + (8, 16):
                     regs = eval(expr.replace("/", "//"), {
                         "G": group, "CPT": cpt, "W": itemsize // 4,
-                        "RING": int(ring)})
+                        "RING": int(ring),
+                        "X": cell_g[sweep_cluster.MODES.index(mode)]})
                     cu = next((t for r, t in caps if regs <= r), 0)
-                    assert cu == sweep_cluster.max_threads(group, cpt,
-                                                           itemsize, ring)
+                    assert cu == sweep_cluster.max_threads(
+                        group, cpt, itemsize, ring, mode)
                     # every instance the library builds has a block
                     assert cu > 0 or cpt not in built
 
