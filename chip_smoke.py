@@ -5,10 +5,10 @@
 
 Drives radiativetransfer_tpu_torch's paths through their public entry
 points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
-8 (point sources + UVB), the roofline script, the bench and mode 9 on a
-1-D grid mesh -- and holds each hand-written kernel against its plain
-PyTorch version.  Phases, one
-line or more each; any failure raises and the script exits non-zero:
+8 (point sources + UVB), the roofline script, the bench, mode 9 on a 1-D
+grid mesh and the CLI from files -- and holds each hand-written kernel
+against its plain PyTorch version.  Phases, one line or more each; any
+failure raises and the script exits non-zero:
 
 1. probe: torch, CUDA, the device, its power limit, nvcc, triton;
 2. build every kernel source of radiativetransfer_tpu_torch/csrc/, one
@@ -92,7 +92,21 @@ line or more each; any failure raises and the script exits non-zero:
     device's; 3 steps of the zones strategy at 128^3 x 192 on 4 ranks (24
     cluster zone launches each), and one step of the pipelined strategy
     at 64^3, held the same way; and a ring of each kernel that cannot be
-    co-resident, refused.
+    co-resident, refused;
+16. the CLI on the card, from files written by the port's own grid_io
+    (write_cli_inputs: examples/make_test_data.py's galaxy and 12
+    sources): the 24^3 anchor through a restart from the neutral box
+    (write_anchor_inputs); mode 9 at 128^3 x 192 through cli.main, 3
+    iterations (the cluster kernel's launches, none of the plane
+    kernel's; the `time` log, 3 snapshots, the last read back onto the
+    equilibrium state); a restart through python -m
+    radiativetransfer_tpu_torch.cli (itime 4 against the same iteration
+    in this process); mode 8 with the 12 sources, 2 iterations (the
+    `weight` file, cosmicSpectrum.npz, fesc in [0, 1]); mode 9 on 4 ranks
+    through --sweep-strategy rdma (the cluster ring) and zones (the
+    per-zone cluster kernel), 2 iterations each, against the one-device
+    run; each iteration's dt from the CLI's lines, the ingestion and one
+    write_snapshot at 128^3 timed (host), and the phase's seconds.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -101,8 +115,13 @@ without a CUDA device.  Needs no JAX and no network.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -140,6 +159,99 @@ def _kappa(n: int, dtype=torch.float32, seed: int = 42) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     k = rng.lognormal(0, 1, (3, n, n, n)) * 0.7 / KPC
     return torch.tensor(k, dtype=dtype, device=DEVICE)
+
+
+def write_cli_inputs(directory: str, n: int, mode: int = 9,
+                     restart: int = 0) -> str:
+    """The CLI's inputs in `directory`, made as examples/make_test_data.py
+    makes them (that script imports the JAX package, so the formulas are
+    copied and the grid written with the port's own grid_io): the
+    synthetic galaxy `testgrid_velmet.npz` (n^3 cells in a 300 kpc box,
+    seed 0, velocities and metals), `testsources.dat` (12 sources, seed 1,
+    ages 1-30 Myr) and `inputParameters` (its keys: z 6.55,
+    selfShieldingThreshold 0.1 kpc, upperAgeLimit 34 Myr, reionizationModel
+    10; the given mode and restart; the default angular level 3, 192
+    directions).  Returns the config's path."""
+    from radiativetransfer_tpu_torch.io import grid_io
+    os.makedirs(directory, exist_ok=True)
+    box_kpc, n_src = 300.0, 12
+    rng = np.random.default_rng(0)
+    ax = (np.arange(n) + 0.5) / n * box_kpc - box_kpc / 2
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    pos = np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1).astype(
+        np.float32)
+    r = np.sqrt(x ** 2 + y ** 2 + z ** 2).ravel()
+    nh = 3e-3 * (1.0 + (r / (0.15 * box_kpc)) ** 2) ** -1
+    nh = nh * rng.lognormal(0.0, 0.4, nh.shape)
+    vel = rng.normal(0, 30, (n ** 3, 3)).astype(np.float32)
+    abun = np.zeros((n ** 3, 4), np.float32)
+    abun[:, 1] = 0.004 * np.exp(-r / (0.3 * box_kpc))
+    grid_io.write_level_npz(
+        os.path.join(directory, "testgrid_velmet.npz"),
+        [grid_io.LevelData(pos=pos, lT=np.full(nh.shape, 4.0, np.float32),
+                           lnH=np.log10(nh).astype(np.float32),
+                           lx=np.zeros(nh.shape, np.float32), vel=vel,
+                           abun=abun)])
+    rng = np.random.default_rng(1)
+    rows = []
+    for _ in range(n_src):
+        p = rng.normal(0, 0.08 * box_kpc, 3)
+        age = rng.uniform(1.0, 30.0)
+        rows.append(f"1 {p[0]:.4f} {p[1]:.4f} {p[2]:.4f} {age:.3f}")
+    with open(os.path.join(directory, "testsources.dat"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    path = os.path.join(directory, "inputParameters")
+    with open(path, "w") as fh:
+        fh.write(f"""sphDir = '{directory}/'
+synthesisDir = '{directory}/'
+grid = 'testgrid_velmet'
+sources = 'testsources.dat'
+currentRedshift = 6.55
+mode = {mode}
+dustApproximation = 0
+selfShieldingThreshold = 0.1
+massStellarParticle = 1
+upperAgeLimit = 34.
+restart = {restart}
+restartCellArrayName = ''
+reionizationModel = 10
+""")
+    return path
+
+
+def write_anchor_inputs(directory: str) -> str:
+    """The 24^3 mode-9 anchor's inputs for the CLI: a uniform box (200 kpc,
+    nH = 1e-4, T = 2e4, fully neutral) written with the port's grid_io,
+    and `cellArray0000.npz`, its ingested state before any chemistry,
+    which the config restarts from (restart = 1), so the CLI's first
+    iteration is the anchor's one step from the neutral box (run it with
+    --angular-level 1).  Returns the config's path."""
+    from radiativetransfer_tpu_torch.io import grid_io, snapshot
+    os.makedirs(directory, exist_ok=True)
+    n, box = 24, 200.0
+    ax = (np.arange(n) + 0.5) / n * box - box / 2
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    pos = np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1).astype(
+        np.float32)
+    m = n ** 3
+    levels = [grid_io.LevelData(
+        pos=pos, lT=np.full(m, np.log10(2e4), np.float32),
+        lnH=np.full(m, -4.0, np.float32), lx=np.zeros(m, np.float32))]
+    grid_io.write_level_npz(os.path.join(directory, "anchor.npz"), levels)
+    state, geom = grid_io.build_uniform_state(levels, False, device="cpu")
+    snapshot.write_snapshot(os.path.join(directory, "cellArray0000.npz"),
+                            state, 0, geom.physical_box_size)
+    path = os.path.join(directory, "inputParameters")
+    with open(path, "w") as fh:
+        fh.write(f"""sphDir = '{directory}/'
+grid = 'anchor'
+currentRedshift = 6.55
+mode = 9
+restart = 1
+restartCellArrayName = 'cellArray0000.npz'
+reionizationModel = 10
+""")
+    return path
 
 
 def phase_probe() -> str:
@@ -1461,6 +1573,267 @@ def phase_mesh(smi: str) -> dict:
                                    for r in full.values())}
 
 
+def _cli(config: str, outdir: str, *flags) -> tuple[str, float]:
+    """cli.main in this process on the card; (its output, echoed here,
+    and the call's seconds)."""
+    from radiativetransfer_tpu_torch import cli
+    os.makedirs(outdir, exist_ok=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main([config, "--snapshot-dir", outdir, *flags])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"[16 cli]   {line}")
+    return buf.getvalue(), seconds
+
+
+def _config_variant(config: str, dest: str, **subs) -> str:
+    """A copy of an inputParameters file at `dest` with `key = value`
+    lines replaced (e.g. mode=8, restart=1)."""
+    with open(config) as fh:
+        text = fh.read()
+    for key, value in subs.items():
+        text, n = re.subn(rf"(?m)^{key} = .*$", f"{key} = {value}", text)
+        assert n == 1, key
+    with open(dest, "w") as fh:
+        fh.write(text)
+    return dest
+
+
+def _time_log(outdir: str) -> dict[int, float]:
+    with open(os.path.join(outdir, "time")) as fh:
+        rows = [re.fullmatch(r"itime =\s*(\d+)\s+(\S+)", line.rstrip("\n"))
+                for line in fh]
+    return {int(m.group(1)): float(m.group(2)) for m in rows if m}
+
+
+def _iteration_dts(out: str, cells_angles: int) -> list[float]:
+    """Each iteration's wall seconds from the CLI's own lines, to three
+    digits: cells*angles over the printed rate (the printed dt has two
+    decimals)."""
+    return [cells_angles / float(x) for x in re.findall(
+        r"itime=\d+ neutral=\S+ dt=\S+s \((\S+) cells\*angles/s\)", out)]
+
+
+def _device_busy(trace_path: str) -> tuple[float, float, int]:
+    """(device-busy ms, traced wall ms, device events) of a chrome trace
+    written by torch.profiler: the union of the kernels', copies' and
+    sets' intervals on the card, and the span of every traced event."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    wall = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events))
+    return busy / 1e3, wall / 1e3, len(spans)
+
+
+def _fmt(xs) -> str:
+    return "[" + ", ".join(f"{x:.4g}" for x in xs) + "]"
+
+
+def phase_cli(smi: str) -> dict:
+    """16: the CLI on the card (python -m radiativetransfer_tpu_torch.cli
+    and cli.main) from files written by the port's own grid_io."""
+    import tempfile
+
+    from radiativetransfer_tpu_torch import RTModel
+    from radiativetransfer_tpu_torch.config import load_config
+    from radiativetransfer_tpu_torch.core import sweep_cluster, sweep_cuda
+    from radiativetransfer_tpu_torch.io import grid_io, snapshot
+    from radiativetransfer_tpu_torch.parallel import sweep_rdma
+    t_phase = time.perf_counter()
+    n = MAIN_N
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the 24^3 anchor through the CLI: one f32 step from the neutral
+        # box restored from cellArray0000.npz
+        anchor = os.path.join(tmp, "anchor")
+        config = write_anchor_inputs(anchor)
+        _zero_sweep_launches()
+        _cli(config, anchor, "--iters", "1", "--angular-level", "1")
+        nf = _time_log(anchor)[1]
+        rel = abs(nf - ANCHOR_NF) / ANCHOR_NF
+        print(f"[16 cli] 24^3 anchor through a restart: neutral fraction "
+              f"{nf:.7f} vs {ANCHOR_NF} (rel {rel:.2e}); cluster, plane "
+              f"kernel launches {_sweep_launches()}")
+        assert rel <= ANCHOR_RTOL and _sweep_launches() == (1, 0), nf
+        launches["cli_anchor"] = sweep_cluster.LAUNCHES
+
+        # the inputs at n^3: the synthetic galaxy, 12 sources
+        inputs = os.path.join(tmp, "inputs")
+        t0 = time.perf_counter()
+        config = write_cli_inputs(inputs, n)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        levels = grid_io.read_level_npz(os.path.join(inputs,
+                                                     "testgrid_velmet.npz"))
+        state, geom = grid_io.build_uniform_state(levels, True,
+                                                  device=DEVICE)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        print(f"[16 cli] inputs at {n}^3 written in {write_s:.3f} s; "
+              f"ingested (read_level_npz + build_uniform_state onto the "
+              f"card) in {ingest_s:.3f} s (host)")
+
+        # mode 9, 3 iterations in this process
+        d9 = os.path.join(tmp, "mode9")
+        _zero_sweep_launches()
+        out9, call9 = _cli(config, d9, "--iters", "3")
+        launches["cli_mode9"] = sweep_cluster.LAUNCHES
+        log9 = _time_log(d9)
+        dts9 = _iteration_dts(out9, n ** 3 * 192)
+        print(f"[16 cli] mode 9 {n}^3 x 192 f32: call {call9:.3f} s, "
+              f"iterations' dt {_fmt(dts9)} s, neutral fractions "
+              f"{list(log9.values())}, cluster kernel launches "
+              f"{sweep_cluster.LAUNCHES}, plane kernel {sweep_cuda.LAUNCHES}")
+        assert sweep_cluster.LAUNCHES > 0 and sweep_cuda.LAUNCHES == 0
+        assert list(log9) == [1, 2, 3], log9
+        assert all(np.isfinite(v) and 0.0 <= v <= 1.0
+                   for v in log9.values()), log9
+        snaps = [snapshot.snapshot_name(i, d9) for i in (1, 2, 3)]
+        assert all(os.path.exists(p) for p in snaps)
+        assert snapshot.latest_snapshot(d9) == snaps[-1]
+
+        # the loop of 2 iterations under --profile: the card's busy share
+        # of the traced wall (snapshots included)
+        prof = os.path.join(tmp, "profile")
+        _zero_sweep_launches()
+        _cli(config, os.path.join(tmp, "mode9_profiled"), "--iters", "2",
+             "--profile", prof)
+        launches["cli_profiled"] = sweep_cluster.LAUNCHES
+        busy_ms, traced_ms, n_dev = _device_busy(os.path.join(prof,
+                                                              "trace.json"))
+        print(f"[16 cli] mode 9 {n}^3 --profile, 2 iterations: device busy "
+              f"{busy_ms:.3f} ms of {traced_ms:.3f} ms traced "
+              f"({100 * busy_ms / traced_ms:.2f}%), {n_dev} device events")
+        assert n_dev > 0 and busy_ms > 0, "the trace shows no device time"
+
+        # the last snapshot onto the equilibrium state: HI as written
+        model = RTModel.setup(load_config(config), geom, torch.float32,
+                              DEVICE)
+        eq = model.initialize_equilibrium(state)
+        back, itime = snapshot.read_snapshot(snaps[-1], eq)
+        with np.load(snaps[-1]) as f:
+            written = f["HI"].reshape(back.shape)
+        hi = back.HI.detach().cpu().numpy()
+        err = float(np.max(np.abs(hi - written) / np.maximum(written,
+                                                            1e-30)))
+        print(f"[16 cli] read_snapshot of {os.path.basename(snaps[-1])} "
+              f"(itime {itime}) onto the equilibrium state: HI max rel "
+              f"diff {err:.2e} from the written field (tol 1.2e-7)")
+        assert itime == 3 and err <= 1.2e-7, err
+        t0 = time.perf_counter()
+        snapshot.write_snapshot(os.path.join(tmp, "timed.npz"), back, 3,
+                                geom.physical_box_size)
+        snap_s = time.perf_counter() - t0
+        snap_mb = os.path.getsize(os.path.join(tmp, "timed.npz")) / 1e6
+        print(f"[16 cli] write_snapshot at {n}^3 alone: {snap_s:.3f} s "
+              f"(host; {snap_mb:.1f} MB compressed)")
+        del back, eq, state, model
+
+        # restart through the real entry point, one more iteration
+        restart = _config_variant(config, os.path.join(tmp, "restart"),
+                                  restart=1)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radiativetransfer_tpu_torch.cli",
+             restart, "--snapshot-dir", d9, "--iters", "1"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        restart_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"[16 cli]   {line}")
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert (f"restarted from {snaps[-1]} at itime=3" in proc.stdout), \
+            proc.stdout
+        with open(os.path.join(d9, "time")) as fh:
+            assert "itime =    4" in fh.read()
+        # the same 4th iteration in this process, from the same snapshot
+        d9b = os.path.join(tmp, "mode9_restart")
+        os.makedirs(d9b)
+        shutil.copy(snaps[-1], d9b)
+        _zero_sweep_launches()
+        _cli(restart, d9b, "--iters", "1")
+        launches["cli_restart"] = sweep_cluster.LAUNCHES
+        nf_sub, nf_in = _time_log(d9)[4], _time_log(d9b)[4]
+        rel = abs(nf_sub - nf_in) / nf_in
+        print(f"[16 cli] restart: python -m ...cli {restart_s:.3f} s, "
+              f"itime 4 neutral fraction {nf_sub:.8f} against {nf_in:.8f} "
+              f"in this process (rel {rel:.2e}, tol 1e-4)")
+        assert rel <= 1e-4, (nf_sub, nf_in)
+
+        # mode 8, the 12 sources, 2 iterations
+        d8 = os.path.join(tmp, "mode8")
+        os.makedirs(d8)
+        mode8 = _config_variant(config, os.path.join(tmp, "mode8.cfg"),
+                                mode=8)
+        _zero_sweep_launches()
+        out8, call8 = _cli(mode8, d8, "--iters", "2")
+        launches["cli_mode8"] = sweep_cluster.LAUNCHES
+        assert sweep_cluster.LAUNCHES > 0 and sweep_cuda.LAUNCHES == 0
+        merged = int(re.search(r"non-degenerate = \d+ \d+ (\d+)",
+                               out8).group(1))
+        with open(os.path.join(d8, "weight")) as fh:
+            assert len(fh.read().splitlines()) == merged
+        with np.load(os.path.join(d8, "cosmicSpectrum.npz")) as f:
+            assert np.isfinite(f["spectrum"]).all()
+            assert np.isfinite(f["freq"]).all()
+        fesc = [float(v) for m in re.findall(r"fesc=(\S+)", out8)
+                for v in m.split("/")]
+        assert len(fesc) > 0 and all(0.0 <= v <= 1.0 for v in fesc), fesc
+        log8 = _time_log(d8)
+        assert list(log8) == [1, 2] and all(
+            0.0 <= v <= 1.0 for v in log8.values()), log8
+        dts8 = _iteration_dts(out8, n ** 3 * 192)
+        print(f"[16 cli] mode 8 {n}^3 x 192 f32, {merged} sources: call "
+              f"{call8:.3f} s, iterations' dt {_fmt(dts8)} s, cluster "
+              f"kernel "
+              f"launches {sweep_cluster.LAUNCHES}")
+
+        # mode 9 on a 4-rank mesh: the ring, then the zones strategy
+        mesh_logs, mesh = {}, {}
+        for strategy in ("rdma", "zones"):
+            d = os.path.join(tmp, strategy)
+            sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
+            sweep_cluster.ZONE_LAUNCHES = sweep_cuda.ZONE_LAUNCHES = 0
+            out, call = _cli(config, d, "--iters", "2", "--sweep-strategy",
+                             strategy, "--mesh-shape", "4")
+            mesh[strategy] = {
+                "call_s": call, "dts": _iteration_dts(out, n ** 3 * 192),
+                "ring": sweep_rdma.RING_LAUNCHES,
+                "plane_ring": sweep_rdma.RDMA_LAUNCHES,
+                "zone": sweep_cluster.ZONE_LAUNCHES,
+                "plane_zone": sweep_cuda.ZONE_LAUNCHES}
+            mesh_logs[strategy] = _time_log(d)
+            rels = [abs(mesh_logs[strategy][i] - log9[i]) / log9[i]
+                    for i in (1, 2)]
+            print(f"[16 cli] mode 9 {n}^3 on 4 ranks, {strategy}: call "
+                  f"{call:.3f} s, dt {_fmt(mesh[strategy]['dts'])} s, "
+                  f"neutral "
+                  f"fractions rel {max(rels):.2e} from one device's (tol "
+                  f"1e-4); launches {mesh[strategy]}")
+            assert max(rels) <= 1e-4, (strategy, rels)
+        assert mesh["rdma"]["ring"] > 0 and mesh["rdma"]["zone"] == 0
+        assert mesh["rdma"]["plane_ring"] == 0, "the CLI took the plane ring"
+        assert mesh["zones"]["zone"] > 0 and mesh["zones"]["plane_zone"] == 0
+        assert mesh["zones"]["ring"] == mesh["zones"]["plane_ring"] == 0
+    phase_s = time.perf_counter() - t_phase
+    print(f"[16 cli] phase 16: {phase_s:.1f} s; {smi}")
+    return {"launches": launches, "mesh": mesh, "phase_s": phase_s,
+            "busy_share": busy_ms / traced_ms,
+            "write_snapshot_s": snap_s, "ingest_s": ingest_s,
+            "dts9": dts9, "dts8": dts8, "restart_s": restart_s}
+
+
 def main() -> None:
     smi = phase_probe()
     phase_build()
@@ -1477,18 +1850,22 @@ def main() -> None:
     variants = phase_variants()
     scatter = phase_scatter()
     mesh = phase_mesh(smi)
+    cli = phase_cli(smi)
     # the cluster sweep kernel's launches on each path that runs it, each
-    # count set to 0 just before its path (the plane kernel's: phase 6)
+    # count set to 0 just before its path (the plane kernel's: phase 6);
+    # the CLI's mesh runs take the ring's and the per-zone kernel's
+    # instances, counted under their own names
     sweep_paths = {"mode9": launches9, "mode8": launches8,
                    "timing": times["launches"]["cluster"],
                    "roofline": probes["sweep_launches"],
                    "bench": bench_out["launches"]["sweep"],
                    "exp_sweep_pair": pair["sweep_launches"],
-                   "exp_sweep_variants": variants["sweep_launches"]}
+                   "exp_sweep_variants": variants["sweep_launches"],
+                   **cli["launches"]}
     assert all(v > 0 for v in sweep_paths.values()), sweep_paths
     assert times["launches"]["plane"] > 0
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)
-    line += _new_kernels(zones, pair, variants, scatter, mesh)
+    line += _new_kernels(zones, pair, variants, scatter, mesh, cli["mesh"])
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
@@ -1570,7 +1947,7 @@ def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
     return line
 
 
-def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
+def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh) -> list:
     """The kernels line's entries of kernels #2, #6, #7, #8 and #3 (#6
     and #7: the cluster instances, then the plane kernels)."""
     from radiativetransfer_tpu_torch.core import (
@@ -1585,9 +1962,11 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
         "name": "sweep_zone_cluster", "route": "cuda",
         "source": "radiativetransfer_tpu_torch/csrc/sweep_cluster.cu",
         "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:65",
-        "launches": zones["launches"] + mesh["zone_launches"],
+        "launches": (zones["launches"] + mesh["zone_launches"]
+                     + cli_mesh["zones"]["zone"]),
         "launches_by_path": {"zones": zones["launches"],
-                             "mode9_mesh_zones": mesh["zone_launches"]},
+                             "mode9_mesh_zones": mesh["zone_launches"],
+                             "cli_mesh": cli_mesh["zones"]["zone"]},
         "max_abs_err": zones["max_abs_err"], "ms": zones["ms"],
         "plain_ms": zones["plain_ms"], "bound_ms": zones["bound_ms"],
         "bound_by": zones["bound_by"], "library_ms": None,
@@ -1673,6 +2052,7 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
         "library_ms": fl["plain_ms"]})
     assert scatter_cuda.BYTES_PER_ROW == 100
     ring = mesh["full"][4]
+    ring_paths = {**mesh["launches"], "cli_mesh": cli_mesh["rdma"]["ring"]}
 
     def cluster_only(r):
         # a time under the cluster ring's name only where every zone took
@@ -1682,8 +2062,8 @@ def _new_kernels(zones, pair, variants, scatter, mesh) -> list:
         "name": "sweep_zone_ring_cluster", "route": "cuda",
         "source": "radiativetransfer_tpu_torch/csrc/sweep_cluster.cu",
         "replaces": "radiativetransfer_tpu/parallel/sweep_rdma.py:64",
-        "launches": sum(mesh["launches"].values()),
-        "launches_by_path": mesh["launches"],
+        "launches": sum(ring_paths.values()),
+        "launches_by_path": ring_paths,
         "max_abs_err": mesh["max_abs_err"],
         "ms": ring["ms"],
         "plain_ms": ring["plain_ms"], "bound_ms": mesh["bound"]["bound_ms"],

@@ -1,0 +1,381 @@
+"""Command-line entry point: the `program pointTransfer` analog, uniform grids.
+
+Counterpart of the JAX package's cli.py, with the same flags, the same
+printed lines and the same files, so a run can be restarted by either
+package and its log read by the same parser.  Run modes follow the
+reference (equiSources.f90:65-67):
+  1  point-source transfer + optically-thin UVB
+  2  stellar/gas density PDFs (print and exit)
+  3  projected metallicity map (write and exit)
+  4  cell census (print and exit)
+  6  no sources, optically-thin UVB only
+  7  clumping factor (print and exit)
+  8  point-source + diffuse UVB transfer
+  9  diffuse UVB transfer only
+
+Usage:
+  python -m radiativetransfer_tpu_torch.cli [inputParameters|config.json]
+      [--iters N] [--platform cuda|cpu] [--x64]
+
+The run is on the card (`--platform cuda`, the default) or, when asked, on
+the CPU; without a CUDA device a cuda run fails, it does not fall back to
+the CPU.  A mesh (`--mesh-shape P` or an explicit `--sweep-strategy`) is P
+virtual ranks on that one device (parallel/mesh.py); the JAX CLI spreads
+its mesh over every device it sees.  Not ported yet, and refused before any
+work with NotImplementedError naming their ROADMAP entries: grids with
+more than one data level (the AMR storage forms), `.h4` grids, `--chemistry
+noneq`, `--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact` and
+the multi-process flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import itertools
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .config import (
+    MODE_CLUMPING_FACTOR,
+    MODE_INITIAL_CONFIGURATION,
+    MODE_PLOT_PDFS,
+    MODE_PRINT_NUMBER_OF_CELLS,
+    load_config,
+)
+from .constants import KPC, MYR
+from .core import step as step_mod
+from .core.rays import cosmic_spectrum, escape_fractions
+from .io import diagnostics, grid_io, snapshot, sources_io
+from .parallel import mesh as pmesh
+from .tables import stellar as stellar_tables
+from .tables.chemistry_rates import dump_rates
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("config", nargs="?", default="inputParameters")
+    ap.add_argument("--iters", type=int, default=-1,
+                    help="max iterations; 0 = unbounded (the reference's "
+                         "run-until-judged contract, equiSources.f90:1230; "
+                         "the convergence break at |dnf| <= 1e-6 still "
+                         "applies); default: config max_iterations, itself "
+                         "0 = unbounded")
+    ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
+                    help="torch device of the run: cuda (default; fails "
+                         "without a CUDA device, never falls back to the "
+                         "CPU) or cpu")
+    ap.add_argument("--x64", action="store_true",
+                    help="run in float64 (parity mode)")
+    ap.add_argument("--snapshot-dir", default=".")
+    ap.add_argument("--angular-level", type=int, default=0,
+                    help="override nAngularLevel (12*4^(L-1) directions)")
+    ap.add_argument("--max-pixel-level", type=int, default=0,
+                    help="override the point-source ray-splitting depth")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="after every step check each state field with "
+                         "torch.isfinite and raise FloatingPointError naming "
+                         "the first non-finite field; coarser than the JAX "
+                         "CLI's jax_debug_nans, which stops at the op that "
+                         "made the NaN")
+    ap.add_argument("--debug-checkify", action="store_true",
+                    help="pre-flight bounds/NaN/division checks "
+                         "(core/debug.py): not ported yet, raises")
+    ap.add_argument("--dump-rates", action="store_true",
+                    help="write rates.out / cool_rates.out like the reference")
+    ap.add_argument("--profile", default="",
+                    help="write a torch.profiler trace of the iteration loop "
+                         "to DIR/trace.json (chrome trace format)")
+    ap.add_argument("--sweep-strategy", default="",
+                    choices=("", "auto", "pipelined", "zones", "rdma"),
+                    help="override cfg.sweep_strategy: auto (the sweep on "
+                         "one device), or an explicit schedule on a 1-D mesh "
+                         "of P ranks on the one device (pipelined = per-slab "
+                         "halo lines, zones = angle decomposition + sum, "
+                         "rdma = the ring kernel)")
+    ap.add_argument("--sweep-logmean", default="",
+                    choices=("", "auto", "exact", "clamped"),
+                    help="sweep logmean form: auto (default: clamped in "
+                         "f32, exact in f64), exact (reference two-branch), "
+                         "or clamped (branch-free)")
+    ap.add_argument("--tracer-compact", action="store_true",
+                    help="the compacting tracer: not ported yet, raises")
+    ap.add_argument("--tracer-strategy", default="",
+                    choices=("", "sources", "domain"),
+                    help="distributed tracer (not ported yet: point sources "
+                         "on a mesh raise); without a mesh both run the "
+                         "single-device tracer")
+    ap.add_argument("--mesh-shape", default="",
+                    help="P: a 1-D mesh of P virtual ranks on the run's one "
+                         "device (the JAX CLI takes every device instead); "
+                         "overrides cfg.mesh_shape; 2-D shapes raise")
+    ap.add_argument("--coordinator", default="",
+                    help="multi-process runtime: not ported yet, raises")
+    ap.add_argument("--num-processes", type=int, default=0,
+                    help="multi-process runtime: not ported yet, raises")
+    ap.add_argument("--process-id", type=int, default=-1,
+                    help="multi-process runtime: not ported yet, raises")
+    ap.add_argument("--chemistry", choices=("equilibrium", "noneq"),
+                    default="equilibrium",
+                    help="chemistry solver: ionization equilibrium (default); "
+                         "noneq is not ported yet and raises")
+    ap.add_argument("--dt-myr", type=float, default=1.0,
+                    help="noneq chemistry timestep per iteration [Myr]")
+    ap.add_argument("--evolve-energy", action="store_true",
+                    help="noneq mode: evolve the internal energy")
+    ap.add_argument("--ckpt-format", choices=("npz", "orbax"), default="npz",
+                    help="snapshot format: cellArray .npz (default); orbax "
+                         "is not ported yet and raises")
+    # the AMR storage knobs: accepted for the JAX CLI's command lines; a
+    # grid with more than one data level raises before they matter
+    ap.add_argument("--amr-depth", type=int, default=4)
+    ap.add_argument("--amr-storage", choices=("auto", "dense", "sparse"),
+                    default="auto")
+    ap.add_argument("--block-edge", type=int, default=8)
+    ap.add_argument("--coupling-depth", type=int, default=0)
+    ap.add_argument("--sweep-window", choices=("auto", "off"),
+                    default="auto")
+    ap.add_argument("--split-compile", action="store_true")
+    return ap
+
+
+def _refuse_not_ported(args, cfg) -> None:
+    """NotImplementedError for what the port does not run yet, before any
+    work."""
+    refused = [
+        (args.chemistry == "noneq", "--chemistry noneq",
+         "Non-equilibrium chemistry"),
+        (args.ckpt_format == "orbax", "--ckpt-format orbax",
+         "Remaining I/O (io/checkpoint.py)"),
+        (args.debug_checkify, "--debug-checkify", "core/debug.py"),
+        (cfg.tracer_compact, "--tracer-compact (tracer_compact)",
+         "The compacting tracer"),
+        (bool(args.coordinator) or bool(args.num_processes)
+         or args.process_id >= 0,
+         "--coordinator / --num-processes / --process-id",
+         "Distribution (ranks on several cards)"),
+    ]
+    for hit, what, item in refused:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP, "
+                                      f"{item}")
+
+
+def _read_levels(cfg):
+    grid_path = os.path.join(cfg.sph_dir, cfg.grid)
+    if os.path.exists(grid_path + ".npz"):
+        return grid_io.read_level_npz(grid_path + ".npz")
+    if os.path.exists(grid_path + ".h4"):
+        raise NotImplementedError(
+            f"{grid_path}.h4: HDF4 grids (io/convert.py, io/hdf4.py, "
+            f"io/sfc.py) are not ported yet: ROADMAP, Remaining I/O")
+    if os.path.exists(grid_path + ".dat"):
+        return grid_io.read_fortran_level_binary(
+            grid_path + ".dat", cfg.read_metals, cfg.read_kinematics)
+    sys.exit(f"grid not found: {grid_path}(.npz|.h4|.dat)")
+
+
+def _refuse_amr(levels, amr_depth: int) -> None:
+    n_data_levels = sum(1 for lv in levels if lv.ncell > 0)
+    if n_data_levels > 1:
+        item = ("L-level dense AMR and Block-sparse AMR"
+                if n_data_levels > 2 and amr_depth > 2 else "Two-level AMR")
+        raise NotImplementedError(
+            f"a grid of {n_data_levels} data levels is not ported yet: "
+            f"ROADMAP, {item}")
+
+
+def _check_finite(state, itime: int) -> None:
+    """--debug-nans: FloatingPointError naming the first non-finite
+    field."""
+    for f in dataclasses.fields(state):
+        x = getattr(state, f.name)
+        if torch.is_tensor(x) and not bool(torch.isfinite(x).all()):
+            raise FloatingPointError(
+                f"non-finite values in state.{f.name} after itime={itime}")
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    cfg = load_config(args.config)
+    if args.angular_level:
+        cfg.n_angular_level = args.angular_level
+    if args.sweep_strategy:
+        cfg.sweep_strategy = args.sweep_strategy
+    if args.sweep_logmean:
+        cfg.sweep_logmean = args.sweep_logmean
+    if args.tracer_compact:
+        cfg.tracer_compact = True
+    if args.mesh_shape:
+        cfg.mesh_shape = tuple(int(x) for x in args.mesh_shape.split(","))
+    if args.tracer_strategy:
+        cfg.tracer_strategy = args.tracer_strategy
+    _refuse_not_ported(args, cfg)
+
+    device = torch.device(args.platform)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.exit("--platform cuda: no CUDA device is available (pass "
+                 "--platform cpu to run on the CPU)")
+    mesh = None
+    if cfg.mesh_shape or cfg.sweep_strategy != "auto":
+        mesh = pmesh.make_grid_mesh(shape=cfg.mesh_shape or None,
+                                    device=device)
+        print(f"device mesh: {{{mesh.axis_name!r}: {mesh.n_ranks}}}"
+              f" strategy = {cfg.sweep_strategy}")
+    dtype = torch.float64 if args.x64 else torch.float32
+    print(f"mode = {cfg.mode}   grid = {cfg.grid}   z = {cfg.current_redshift}")
+
+    # ---- grid ingestion -------------------------------------------------
+    levels = _read_levels(cfg)
+    if cfg.mode == MODE_PRINT_NUMBER_OF_CELLS:
+        for i, lv in enumerate(levels):
+            print(f"level = {i + 1}  cells = {lv.ncell}")
+        return
+    _refuse_amr(levels, args.amr_depth)
+    state, geom = grid_io.build_uniform_state(levels, cfg.read_metals,
+                                              dtype=dtype, device=device)
+    print(f"grid: {geom.nx}^3, box = {geom.physical_box_size / KPC:.1f} kpc")
+
+    if cfg.mode == MODE_CLUMPING_FACTOR:
+        rho = state.rho.detach().cpu().numpy()
+        print(f"clumping = {diagnostics.clumping_factor(rho)}")
+        return
+
+    if cfg.mode == MODE_INITIAL_CONFIGURATION:
+        m = diagnostics.project_to_map(state.abun2.detach().cpu().numpy(),
+                                       state.rho.detach().cpu().numpy())
+        np.savez(os.path.join(args.snapshot_dir, "map.npz"), map=m)
+        print(f"wrote map.npz ({m.shape})")
+        return
+
+    # ---- sources --------------------------------------------------------
+    stellar_ctx = None
+    if cfg.run_stellar_transfer or cfg.mode == MODE_PLOT_PDFS:
+        src_path = os.path.join(cfg.sph_dir, cfg.sources)
+        lo, hi, _ = grid_io.grid_bounds(levels)
+        stars = sources_io.read_star_file(src_path, lo, hi)
+        n_young0 = int(np.sum(stars.age <= cfg.upper_age_limit))
+        # Starburst99 SEDs from synthesisDir when present, else blackbody
+        # (equiSources.f90:840-916); with metallicities on the grid the
+        # sources bucket to the nearest SED track and share a table
+        population, used_sb99 = stellar_tables.load_population(
+            cfg.synthesis_dir, len(stars.age), n_young0,
+            cfg.mass_stellar_particle)
+        if used_sb99:
+            print(f"Starburst99 SEDs from {cfg.synthesis_dir} "
+                  f"({len(population.metallicity_log10)} metallicity tracks)")
+        metal_edges = metal_coefs = None
+        if cfg.read_metals:
+            metal_edges, metal_coefs = stellar_tables.metal_bucket_plan(
+                population)
+        ab2 = state.abun2.detach().cpu().numpy()
+        batch, host, n_young = sources_io.prepare_sources(
+            stars, geom.nx, cfg.upper_age_limit, abun2=ab2,
+            metal_bucket_edges=metal_edges)
+        print(f"nStars/specificAge/non-degenerate = {len(stars.age)} "
+              f"{n_young} {batch.n_sources}")
+        # the reference's `weight` file (equiSources.f90:1214-1224)
+        with open(os.path.join(args.snapshot_dir, "weight"), "w") as fh:
+            for i in range(batch.n_sources):
+                hz = ab2[host[i, 0], host[i, 1], host[i, 2]]
+                fh.write(f"{i + 1:10d} ==>  {int(batch.weight[i]):10d}"
+                         f"{hz:16.4e}\n")
+
+        if cfg.mode == MODE_PLOT_PDFS:
+            rho = state.rho.detach().cpu().numpy()
+            host_rho = rho[host[:, 0], host[:, 1], host[:, 2]]
+            pdfs = diagnostics.density_pdfs(rho, host_rho)
+            for c, g, s in zip(pdfs.bin_centers, pdfs.pdf_gas, pdfs.pdf_star):
+                print(f"{c:12.4f} {g:12.1f} {s:12.1f}")
+            return
+
+        stellar_ctx = step_mod.StellarContext.build(
+            population, batch, geom, 10.0 * MYR,
+            metal_coefs=metal_coefs or [(0, 0.0)],
+            n_stars_specific_age=n_young,
+            dust_approximation=cfg.dust_approximation,
+            max_pixel_level=args.max_pixel_level or 6,
+            dtype=dtype, device=device)
+
+    # ---- model + iteration loop ----------------------------------------
+    model = step_mod.RTModel.setup(cfg, geom, dtype=dtype, device=device)
+    # point sources on a mesh (the distributed tracers) raise here, before
+    # any step
+    step = model.make_step(stellar_ctx, mesh=mesh)
+    if args.dump_rates:
+        dump_rates(model.tables,
+                   os.path.join(args.snapshot_dir, "rates.out"),
+                   os.path.join(args.snapshot_dir, "cool_rates.out"))
+        print("wrote rates.out, cool_rates.out")
+    state = model.initialize_equilibrium(state)
+    print(f"ionization equilibrium: {model.neutral_fraction(state):.8e}")
+    itime = 0
+    if cfg.restart:
+        snap = (os.path.join(args.snapshot_dir, cfg.restart_cell_array_name)
+                if cfg.restart_cell_array_name
+                else snapshot.latest_snapshot(args.snapshot_dir))
+        if snap:
+            state, itime = snapshot.read_snapshot(snap, state)
+            print(f"restarted from {snap} at itime={itime}")
+
+    tlog = snapshot.TimeLog(os.path.join(args.snapshot_dir, "time"))
+    if mesh is not None:
+        state = pmesh.shard_state(state, mesh)
+    # 0 = unbounded: the reference iterates until externally judged/killed
+    # (equiSources.f90:1230); the convergence break below still applies
+    max_iter = args.iters if args.iters >= 0 else cfg.max_iterations
+    iter_range = itertools.count() if max_iter == 0 else range(max_iter)
+    prev_nf = np.inf
+    with contextlib.ExitStack() as stack:
+        prof = None
+        if args.profile:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = stack.enter_context(torch.profiler.profile(activities=acts))
+        for _ in iter_range:
+            itime += 1
+            t0 = time.time()
+            out = step(state)
+            state, diag = out if isinstance(out, tuple) else (out, None)
+            if args.debug_nans:
+                _check_finite(state, itime)
+            nf = model.neutral_fraction(state)
+            tlog.append(itime, nf)
+            dt_it = time.time() - t0
+            throughput = geom.nx ** 3 * cfg.n_directions / max(dt_it, 1e-9)
+            msg = (f"itime={itime} neutral={nf:.8f} dt={dt_it:.2f}s "
+                   f"({throughput:.2e} cells*angles/s)")
+            if diag is not None:
+                w = stellar_ctx.sources.weight
+                frac = escape_fractions(diag, w)
+                mean_fesc = (frac * w[:, None]).sum(0) / w.sum()
+                msg += "  fesc=" + "/".join(f"{f:.3f}" for f in mean_fesc)
+                spec = cosmic_spectrum(diag, w,
+                                       stellar_ctx.n_stars_specific_age)
+                freq = stellar_ctx.tables["output_freq"]
+                np.savez(os.path.join(args.snapshot_dir,
+                                      "cosmicSpectrum.npz"),
+                         freq=freq.detach().cpu().numpy(), spectrum=spec)
+            print(msg)
+            snapshot.write_snapshot(
+                snapshot.snapshot_name(itime, args.snapshot_dir), state,
+                itime, geom.physical_box_size)
+            if abs(nf - prev_nf) <= 1e-6 * max(nf, 1e-30):
+                print("converged")
+                break
+            prev_nf = nf
+    if prof is not None:
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(f"profiler trace written to {args.profile}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,162 @@
+"""Snapshot write / restart, uniform grids.
+
+Counterpart of the JAX package's io/snapshot.py.  The reference writes
+per-iteration HDF4 files `cellArrayNNNN.h4` holding the depth-first
+(space-filling-curve) flattening of octree leaves: base-grid dims + 1-D
+arrays level, HI, HeI, HeII, temperature, density [, vel, abun2]
+(writeIonization, equiSources.f90:4797-4912; restart readLatestIonization
+:4738-4795).
+
+Both packages keep the same logical schema in NumPy `.npz` containers:
+dense single-level grids store the fields directly in C order -- which IS
+the depth-first leaf order for an unrefined grid -- so a snapshot written
+by one package restarts the other.  Restart re-inflates onto a freshly
+built grid with the same species clamping as the reference, in torch on
+the state's device.  The AMR, multilevel, block-sparse and species forms
+are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+
+import numpy as np
+import torch
+
+from ..core.state import FieldState
+
+
+def snapshot_name(itime: int, directory: str = ".") -> str:
+    """cellArrayNNNN equivalent (equiSources.f90:4838-4843)."""
+    return os.path.join(directory, f"cellArray{itime:04d}.npz")
+
+
+# the cellArray fields, snapshot key -> FieldState field
+_FIELDS = (("HI", "HI"), ("HeI", "HeI"), ("HeII", "HeII"),
+           ("temperature", "tgas"), ("density", "rho"), ("abun2", "abun2"))
+
+
+def write_snapshot(path: str, state: FieldState, itime: int,
+                   physical_box_size: float, extra: dict | None = None) -> None:
+    """Write a snapshot with the reference's cellArray field set (float32,
+    C order; the fields leave the device in one copy)."""
+    shape = state.shape
+    cols = [getattr(state, name) for _, name in _FIELDS]
+    if state.vel is not None:
+        cols += list(state.vel)
+    host = torch.stack(cols).detach().to(torch.float32).cpu().numpy()
+    host = host.reshape(len(cols), -1)
+    data = {
+        "base_grid_size": np.array(shape, np.int32),
+        "itime": np.int32(itime),
+        "physical_box_size": np.float64(physical_box_size),
+        "level": np.zeros(int(np.prod(shape)), np.int32),
+    }
+    data.update({key: host[i] for i, (key, _) in enumerate(_FIELDS)})
+    if state.vel is not None:
+        # the reference writes velx/vely/velz for kinematics runs
+        # (writeIonization, equiSources.f90:4869-4890)
+        data["velx"], data["vely"], data["velz"] = host[len(_FIELDS):]
+    if extra:
+        data.update(extra)
+    np.savez_compressed(path, **data)
+
+
+def read_snapshot(path: str, state: FieldState) -> tuple[FieldState, int]:
+    """Re-inflate a snapshot onto an existing state (restart path,
+    readLatestIonization, equiSources.f90:4738-4795).
+
+    Applies the reference's clamps in the state's dtype on its device:
+    species non-negative, HI <= nH, and HeI+HeII rescaled into <= nHe
+    (:4765-4773).
+    """
+    dtype, device = state.HI.dtype, state.HI.device
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    with np.load(path) as f:
+        shape = tuple(int(s) for s in f["base_grid_size"])
+        if shape != state.shape:
+            raise ValueError(f"snapshot grid {shape} != state grid {state.shape}")
+        itime = int(f["itime"])
+        HI = t(f["HI"].reshape(shape))
+        HeI = t(f["HeI"].reshape(shape))
+        HeII = t(f["HeII"].reshape(shape))
+        tgas = t(f["temperature"].reshape(shape))
+        vel = state.vel
+        if "velx" in f:
+            vel = t(np.stack([f["velx"].reshape(shape),
+                              f["vely"].reshape(shape),
+                              f["velz"].reshape(shape)]))
+
+    nh = state.nh
+    nhe = state.nhe
+    HI = torch.minimum(torch.clamp(HI, min=0.0), nh)
+    HeI = torch.clamp(HeI, min=0.0)
+    HeII = torch.clamp(HeII, min=0.0)
+    tot = HeI + HeII
+    scale = torch.where(tot > nhe,
+                        nhe / torch.where(tot > 0, tot, torch.ones_like(tot)),
+                        torch.ones_like(tot))
+    HeI = HeI * scale
+    HeII = HeII * scale
+    return dataclasses.replace(state, HI=HI, HeI=HeI, HeII=HeII,
+                               tgas=tgas, vel=vel), itime
+
+
+def _not_ported(what: str, item: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{what} is not ported yet: ROADMAP, {item}")
+    fn.__name__ = what
+    fn.__doc__ = f"{what}: not ported yet (ROADMAP, {item})."
+    return fn
+
+
+# the storage forms of the JAX package's io/snapshot.py:100-555
+write_snapshot_amr = _not_ported("write_snapshot_amr", "Two-level AMR")
+read_snapshot_amr = _not_ported("read_snapshot_amr", "Two-level AMR")
+write_snapshot_ml = _not_ported("write_snapshot_ml", "L-level dense AMR")
+read_snapshot_ml = _not_ported("read_snapshot_ml", "L-level dense AMR")
+species_extra = _not_ported("species_extra", "Non-equilibrium chemistry")
+read_species = _not_ported("read_species", "Non-equilibrium chemistry")
+write_snapshot_sparse = _not_ported("write_snapshot_sparse",
+                                    "Block-sparse AMR")
+read_snapshot_sparse = _not_ported("read_snapshot_sparse", "Block-sparse AMR")
+
+
+def latest_snapshot(directory: str = ".") -> str | None:
+    """Most recent cellArrayNNNN snapshot in a directory."""
+    best, best_i = None, -1
+    for name in os.listdir(directory):
+        m = re.fullmatch(r"cellArray(\d{4})\.npz", name)
+        if m and int(m.group(1)) > best_i:
+            best, best_i = os.path.join(directory, name), int(m.group(1))
+    return best
+
+
+def itime_from_name(path: str) -> int:
+    """Iteration counter parsed from the filename digits
+    (equiSources.f90:1079-1080)."""
+    m = re.search(r"(\d{4})\.(npz|h4)$", path)
+    if not m:
+        raise ValueError(f"no iteration digits in {path!r}")
+    return int(m.group(1))
+
+
+class TimeLog:
+    """Append-only neutral-fraction log, the reference's `time` file
+    (equiSources.f90:1833-1836)."""
+
+    def __init__(self, path: str = "time"):
+        self.path = path
+
+    def append(self, itime: int, neutral_fraction: float) -> None:
+        with open(self.path, "a") as fh:
+            fh.write(f"itime ={itime:5d}{neutral_fraction:18.10f}\n")
+
+    def restart_marker(self, itime: int) -> None:
+        with open(self.path, "a") as fh:
+            fh.write(f"itime ={itime:5d}\n")

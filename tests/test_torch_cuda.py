@@ -702,3 +702,28 @@ def test_mode9_step_on_mesh(card, strategy):
         before[0] + (zones if strategy == "rdma" else 0), before[1],
         before[2] + (zones if strategy == "zones" else 0), before[3])
     assert nf == pytest.approx(0.044220, rel=1e-4)
+
+
+def test_cli_reproduces_the_anchor_from_files(card, tmp_path):
+    """The CLI on the card: the 24^3 mode-9 anchor from an .npz grid
+    written by the port's grid_io, the neutral box restored from
+    cellArray0000.npz, one f32 iteration through the cluster kernel."""
+    import contextlib
+    import io
+
+    import chip_smoke
+    from radiativetransfer_tpu_torch import cli
+    config = chip_smoke.write_anchor_inputs(str(tmp_path))
+    before = (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([config, "--snapshot-dir", str(tmp_path), "--iters", "1",
+                  "--angular-level", "1"])
+    assert (sweep_cluster.LAUNCHES, sweep_cuda.LAUNCHES) == (before[0] + 1,
+                                                             before[1])
+    assert f"restarted from {tmp_path}/cellArray0000.npz at itime=0" in \
+        buf.getvalue()
+    with open(tmp_path / "time") as fh:
+        nf = float(fh.read().split()[-1])
+    assert nf == pytest.approx(0.044220, rel=1e-4)
+    assert (tmp_path / "cellArray0001.npz").exists()

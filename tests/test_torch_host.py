@@ -123,18 +123,24 @@ def test_octant_rotations_torch(izone):
 _PORT_MODULES = (
     "radiativetransfer_tpu_torch",
     "radiativetransfer_tpu_torch.bench",
+    "radiativetransfer_tpu_torch.cli",
     "radiativetransfer_tpu_torch.exp_row_scatter",
     "radiativetransfer_tpu_torch.exp_sweep_pair",
     "radiativetransfer_tpu_torch.exp_sweep_variants",
     "radiativetransfer_tpu_torch.roofline_sweep",
     "radiativetransfer_tpu_torch.profile_step",
     "radiativetransfer_tpu_torch.core.cuda_build",
+    "radiativetransfer_tpu_torch.core.expansion",
     "radiativetransfer_tpu_torch.core.probes_cuda",
     "radiativetransfer_tpu_torch.core.rays",
     "radiativetransfer_tpu_torch.core.scatter_cuda",
     "radiativetransfer_tpu_torch.core.step",
     "radiativetransfer_tpu_torch.core.sweep_cuda",
     "radiativetransfer_tpu_torch.core.variants_cuda",
+    "radiativetransfer_tpu_torch.io.diagnostics",
+    "radiativetransfer_tpu_torch.io.grid_io",
+    "radiativetransfer_tpu_torch.io.snapshot",
+    "radiativetransfer_tpu_torch.io.sources_io",
     "radiativetransfer_tpu_torch.parallel.mesh",
     "radiativetransfer_tpu_torch.parallel.sweep_dist",
     "radiativetransfer_tpu_torch.parallel.sweep_rdma",
