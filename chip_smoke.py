@@ -6,7 +6,8 @@
 Drives radiativetransfer_tpu_torch's paths through their public entry
 points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
 8 (point sources + UVB), the roofline script, the bench, mode 9 on a 1-D
-grid mesh and the CLI from files -- and holds each hand-written kernel
+grid mesh, the CLI from files and the non-equilibrium chemistry -- and
+holds each hand-written kernel
 against its plain PyTorch version.  Phases, one line or more each; any
 failure raises and the script exits non-zero:
 
@@ -106,7 +107,23 @@ failure raises and the script exits non-zero:
     through --sweep-strategy rdma (the cluster ring) and zones (the
     per-zone cluster kernel), 2 iterations each, against the one-device
     run; each iteration's dt from the CLI's lines, the ingestion and one
-    write_snapshot at 128^3 timed (host), and the phase's seconds.
+    write_snapshot at 128^3 timed (host), and the phase's seconds;
+17. the non-equilibrium 9-species chemistry (RTModel.make_noneq_step,
+    --chemistry noneq): one f64 noneq mode-9 step at 24^3, level 1, on
+    the card against the same step on the CPU (every species within 1e-9
+    of its peak); at 128^3 x 192 in f32 two noneq mode-9 steps through
+    the cluster kernel, the first against the plain slab scan's (neutral
+    fraction within 1e-4), the step layer by layer (tracer, opacity,
+    sweep, _assemble_photo_rates, evolve_noneq: device ms, host ms,
+    launches; profile_step.noneq_layers), one profiled step's device-busy
+    share, peak memory, write_snapshot with the species; one noneq mode-8
+    step with phase 9's sources (k27..k31 finite and non-negative, k31 >
+    0 somewhere, the species' nH the state's within 1e-5); then the CLI
+    from write_cli_inputs' files: noneq mode 9, 3 iterations, a restart
+    through python -m from the itime-1 snapshot (its itime 2 within 1e-4
+    of this process's), noneq mode 8 with the 12 sources, 2 iterations,
+    and noneq mode 9 on 4 ranks through rdma and zones, 1 iteration each
+    (neutral fraction and HI within 1e-4 of one device's).
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -628,7 +645,7 @@ def phase_probes() -> dict:
 
 
 def _mode8_model(n, level, box_kpc, n_src, pos, pop, max_pixel_level,
-                 **cfg_kw):
+                 noneq=False, **cfg_kw):
     import radiativetransfer_tpu_torch as rt
     from radiativetransfer_tpu_torch.config import (
         MODE_BOTH_STELLAR_UVB_TRANSFER)
@@ -645,7 +662,8 @@ def _mode8_model(n, level, box_kpc, n_src, pos, pop, max_pixel_level,
     ctx = StellarContext.build(pop, batch, geom, 10.0 * MYR,
                                metal_coefs=[(0, 0.0)],
                                max_pixel_level=max_pixel_level,
-                               dtype=torch.float32, device=DEVICE)
+                               noneq=noneq, dtype=torch.float32,
+                               device=DEVICE)
     return model, ctx
 
 
@@ -1573,7 +1591,8 @@ def phase_mesh(smi: str) -> dict:
                                    for r in full.values())}
 
 
-def _cli(config: str, outdir: str, *flags) -> tuple[str, float]:
+def _cli(config: str, outdir: str, *flags,
+         tag: str = "16 cli") -> tuple[str, float]:
     """cli.main in this process on the card; (its output, echoed here,
     and the call's seconds)."""
     from radiativetransfer_tpu_torch import cli
@@ -1585,7 +1604,7 @@ def _cli(config: str, outdir: str, *flags) -> tuple[str, float]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     for line in buf.getvalue().splitlines():
-        print(f"[16 cli]   {line}")
+        print(f"[{tag}]   {line}")
     return buf.getvalue(), seconds
 
 
@@ -1834,6 +1853,269 @@ def phase_cli(smi: str) -> dict:
             "dts9": dts9, "dts8": dts8, "restart_s": restart_s}
 
 
+def _species_worst(a, b) -> float:
+    """The largest |a - b| over the 9 species and the energy, each over its
+    peak in b."""
+    from radiativetransfer_tpu_torch.core.chemistry_noneq import SPECIES
+    worst = 0.0
+    for name in (*SPECIES, "eint"):
+        x = getattr(a, name).detach().cpu().double()
+        y = getattr(b, name).detach().cpu().double()
+        worst = max(worst, float((x - y).abs().max() / y.abs().max()))
+    return worst
+
+
+def phase_noneq(smi: str) -> dict:
+    """17: the non-equilibrium 9-species chemistry (RTModel.make_noneq_step,
+    the CLI's --chemistry noneq) on the card, driving the cluster kernel,
+    the ring and the per-zone kernel."""
+    import tempfile
+
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch import profile_step
+    from radiativetransfer_tpu_torch.bench import bench_sources
+    from radiativetransfer_tpu_torch.config import MODE_UVB_TRANSFER_ONLY
+    from radiativetransfer_tpu_torch.constants import KPC, MYR
+    from radiativetransfer_tpu_torch.core import chemistry_noneq as cn
+    from radiativetransfer_tpu_torch.core import sweep_cluster, sweep_cuda
+    from radiativetransfer_tpu_torch.io import snapshot
+    from radiativetransfer_tpu_torch.parallel import sweep_rdma
+    from radiativetransfer_tpu_torch.profile_step import galaxy_state
+    from radiativetransfer_tpu_torch.tables import stellar
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    launches, out = {}, {}
+
+    def model9(n, level, dtype, device, **kw):
+        cfg = rt.RunConfig(mode=MODE_UVB_TRANSFER_ONLY, current_redshift=6.55,
+                           n_angular_level=level, reionization_model=10,
+                           self_shielding_threshold_kpc=0.1, **kw)
+        return rt.RTModel.setup(cfg, rt.GridGeometry(n, n, n, 300.0 * KPC),
+                                dtype, device)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    # (a) f64 at 24^3, level 1: one step on the card against the CPU's,
+    # both from the CPU's equilibrium
+    cpu = model9(24, 1, f64, "cpu")
+    eq = cpu.initialize_equilibrium(galaxy_state(24, 300.0, "cpu",
+                                                 dtype=f64))
+    runs = {}
+    for device, model in (("cpu", cpu), (DEVICE, model9(24, 1, f64, DEVICE))):
+        st = rt.FieldState.from_numpy(eq.to_numpy(), dtype=f64, device=device)
+        sp = cn.species_from_field_state(st, f_h2=1e-4)
+        _zero_sweep_launches()
+        (st, sp), dt = timed(lambda: model.make_noneq_step(MYR)(st, sp))
+        runs[device] = (sp, dt, _sweep_launches())
+    worst = _species_worst(runs[DEVICE][0], runs["cpu"][0])
+    print(f"[17 noneq] 24^3 level 1 f64 mode 9, one noneq step: card "
+          f"{runs[DEVICE][1]:.3f} s, CPU {runs['cpu'][1]:.3f} s; species "
+          f"max diff {worst:.2e} of each peak (tol 1e-9); cluster, plane "
+          f"kernel launches {runs[DEVICE][2]}")
+    assert worst <= 1e-9 and runs[DEVICE][2] == (1, 0), (worst,
+                                                        runs[DEVICE][2])
+    launches["noneq_f64"] = runs[DEVICE][2][0]
+
+    # (b) 128^3 x 192 f32 in this process: mode 9 with the cluster kernel,
+    # its first step against the plain slab scan's
+    n, level = MAIN_N, MAIN_LEVEL
+    model = model9(n, level, f32, DEVICE)
+    state = model.initialize_equilibrium(galaxy_state(n, 300.0, DEVICE))
+    species = cn.species_from_field_state(state)
+    step = model.make_noneq_step(MYR)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_sweep_launches()
+    st, sp, nfs, dts = state, species, [], []
+    for it in (1, 2):
+        (st, sp), dt = timed(lambda: step(st, sp))
+        nfs.append(model.neutral_fraction(st))
+        dts.append(dt)
+        print(f"[17 noneq] {n}^3 x 192 f32 mode 9 noneq: step {it} "
+              f"neutral fraction {nfs[-1]:.7f} wall {dt:.4f} s, "
+              f"sweep_cluster.LAUNCHES {sweep_cluster.LAUNCHES}")
+        assert np.isfinite(nfs[-1]) and 0.0 <= nfs[-1] <= 1.0, nfs
+    launches["noneq_mode9"] = sweep_cluster.LAUNCHES
+    assert sweep_cluster.LAUNCHES == 2 and sweep_cuda.LAUNCHES == 0
+    peak9 = torch.cuda.max_memory_allocated() / 2 ** 30
+    scan = model9(n, level, f32, DEVICE, use_pallas_sweep=False)
+    (st_scan, _), dt_scan = timed(lambda: scan.make_noneq_step(MYR)(
+        state, species))
+    nf_scan = scan.neutral_fraction(st_scan)
+    rel = abs(nfs[0] - nf_scan) / nf_scan
+    print(f"[17 noneq] step 1 with the plain slab scan: neutral fraction "
+          f"{nf_scan:.7f} wall {dt_scan:.3f} s; kernel step rel {rel:.2e} "
+          f"(tol 1e-4); peak device memory {peak9:.3f} GiB")
+    assert rel <= 1e-4, (nfs[0], nf_scan)
+    del st_scan, scan
+    # the step layer by layer, and its device-busy share
+    rows = profile_step.noneq_layers(model, st, sp)
+    print("[17 noneq] layers (device ms by CUDA events, host ms to enqueue, "
+          "kernel launches): " + ", ".join(
+              f"{k} {ms:.3f} / {host:.3f} / {k_n}"
+              for k, (ms, host, k_n) in rows.items()))
+    _, wall, busy, kernels, top = profile_step.profiled(
+        lambda c: step(*c), (st, sp), steps=1)
+    print(f"[17 noneq] one profiled noneq step: wall {wall * 1e3:.3f} ms, "
+          f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.2f}%), "
+          f"{kernels:.0f} device events; top kernels "
+          + "; ".join(f"{name[:48]} {ms:.2f} ms x{c}"
+                      for name, ms, c in top[:4]))
+    assert kernels > 0 and busy > 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cellArray0001.npz")
+        _, snap_s = timed(lambda: snapshot.write_snapshot(
+            path, st, 1, model.geom.physical_box_size,
+            extra=snapshot.species_extra(sp)))
+        snap_mb = os.path.getsize(path) / 1e6
+    print(f"[17 noneq] write_snapshot at {n}^3 with the species: {snap_s:.3f}"
+          f" s (host; {snap_mb:.1f} MB compressed)")
+    out.update(dts9=dts, peak9_gib=peak9, layers=rows, busy_share=busy / wall,
+               profiled_wall_s=wall, write_snapshot_s=snap_s)
+    del st, sp, state, species, model, step
+
+    # mode 8 with phase 9's sources, one step
+    pos = bench_sources(n, MODE8_SOURCES).position
+    pop = stellar.blackbody_population(q_ionizing=1.0e51)
+    m8, ctx = _mode8_model(n, level, 2000.0, MODE8_SOURCES, pos, pop, 6,
+                           noneq=True)
+    s8 = rt.uniform_state(n, nh=2e-4, tgas=1.5e4, dtype=f32, device=DEVICE)
+    sp8 = cn.species_from_field_state(s8, f_h2=1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_sweep_launches()
+    (st8, sp8b, diag), dt8 = timed(lambda: m8.make_noneq_step(MYR, ctx)(
+        s8, sp8))
+    launches["noneq_mode8"] = sweep_cluster.LAUNCHES
+    assert sweep_cluster.LAUNCHES == 1 and sweep_cuda.LAUNCHES == 0
+    peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, rf, _ = m8.trace(s8.zero_rates(), ctx, "quadrature_noneq")
+    k_max = {}
+    for c in range(27, 32):
+        k = getattr(rf, f"krate{c}")
+        assert bool(torch.isfinite(k).all()) and float(k.min()) >= 0.0, c
+        k_max[c] = float(k.max())
+    nh_rel = float(((sp8b.nh - st8.nh).abs() / st8.nh).max())
+    nf8 = m8.neutral_fraction(st8)
+    print(f"[17 noneq] {n}^3 x 192 f32 mode 8 noneq, {MODE8_SOURCES} "
+          f"sources: wall {dt8:.3f} s, neutral fraction {nf8:.7f}, "
+          f"k27..k31 max {k_max}, species nh vs state nh max rel "
+          f"{nh_rel:.2e} (tol 1e-5), peak device memory {peak8:.3f} GiB")
+    assert k_max[31] > 0.0 and nh_rel <= 1e-5 and 0.0 <= nf8 <= 1.0
+    assert bool(torch.isfinite(diag.ndot_remaining).all())
+    out.update(dt8=dt8, peak8_gib=peak8)
+    del st8, sp8b, s8, sp8, rf, m8, ctx
+
+    # (c) the CLI: mode 9, a restart through python -m, mode 8, 4 ranks
+    noneq = ("--chemistry", "noneq")
+    cells_angles = n ** 3 * 192
+    with tempfile.TemporaryDirectory() as tmp:
+        config = write_cli_inputs(os.path.join(tmp, "inputs"), n)
+        d9 = os.path.join(tmp, "noneq9")
+        _zero_sweep_launches()
+        out9, call9 = _cli(config, d9, "--iters", "3", *noneq,
+                           tag="17 noneq")
+        launches["cli_noneq_mode9"] = sweep_cluster.LAUNCHES
+        assert sweep_cluster.LAUNCHES == 3 and sweep_cuda.LAUNCHES == 0
+        log9 = _time_log(d9)
+        dts9 = _iteration_dts(out9, cells_angles)
+        assert list(log9) == [1, 2, 3] and all(
+            0.0 <= v <= 1.0 for v in log9.values()), log9
+        with np.load(snapshot.snapshot_name(3, d9)) as f:
+            keys = [k for k in f if k.startswith("species0_")]
+            assert len(keys) == 10 and all(
+                f[k].shape == (n,) * 3 and f[k].dtype == np.float32
+                and np.isfinite(f[k]).all() for k in keys), keys
+        print(f"[17 noneq] CLI mode 9 noneq {n}^3 x 192: call {call9:.3f} s, "
+              f"iterations' dt {_fmt(dts9)} s, neutral fractions "
+              f"{list(log9.values())}")
+
+        # restart through the entry point from the itime-1 snapshot
+        dr = os.path.join(tmp, "noneq9_restart")
+        os.makedirs(dr)
+        shutil.copy(snapshot.snapshot_name(1, d9), dr)
+        restart = _config_variant(config, os.path.join(tmp, "restart"),
+                                  restart=1)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radiativetransfer_tpu_torch.cli",
+             restart, "--snapshot-dir", dr, "--iters", "1", *noneq],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        restart_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"[17 noneq]   {line}")
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert "restored 9-species noneq state from snapshot" in proc.stdout
+        assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
+                in proc.stdout), proc.stdout
+        nf_sub = _time_log(dr)[2]
+        rel = abs(nf_sub - log9[2]) / log9[2]
+        print(f"[17 noneq] restart: python -m ...cli {restart_s:.3f} s, "
+              f"itime 2 neutral fraction {nf_sub:.8f} against {log9[2]:.8f}"
+              f" in this process (rel {rel:.2e}, tol 1e-4)")
+        assert rel <= 1e-4, (nf_sub, log9[2])
+
+        # mode 8, the 12 sources, 2 iterations
+        d8 = os.path.join(tmp, "noneq8")
+        os.makedirs(d8)
+        mode8 = _config_variant(config, os.path.join(tmp, "mode8.cfg"),
+                                mode=8)
+        _zero_sweep_launches()
+        out8, call8 = _cli(mode8, d8, "--iters", "2", *noneq,
+                           tag="17 noneq")
+        launches["cli_noneq_mode8"] = sweep_cluster.LAUNCHES
+        assert sweep_cluster.LAUNCHES == 2 and sweep_cuda.LAUNCHES == 0
+        log8 = _time_log(d8)
+        dts8 = _iteration_dts(out8, cells_angles)
+        fesc = [float(v) for m in re.findall(r"fesc=(\S+)", out8)
+                for v in m.split("/")]
+        assert fesc and all(0.0 <= v <= 1.0 for v in fesc), fesc
+        assert list(log8) == [1, 2] and all(
+            0.0 <= v <= 1.0 for v in log8.values()), log8
+        print(f"[17 noneq] CLI mode 8 noneq {n}^3 x 192, 12 sources: call "
+              f"{call8:.3f} s, iterations' dt {_fmt(dts8)} s")
+
+        # mode 9 on 4 ranks through the ring and the zones strategy
+        with np.load(snapshot.snapshot_name(1, d9)) as f:
+            hi_one = f["HI"]
+        mesh = {}
+        for strategy in ("rdma", "zones"):
+            d = os.path.join(tmp, f"noneq_{strategy}")
+            sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
+            sweep_cluster.ZONE_LAUNCHES = sweep_cuda.ZONE_LAUNCHES = 0
+            out_m, call = _cli(config, d, "--iters", "1", *noneq,
+                               "--sweep-strategy", strategy, "--mesh-shape",
+                               "4", tag="17 noneq")
+            mesh[strategy] = {
+                "call_s": call, "dts": _iteration_dts(out_m, cells_angles),
+                "ring": sweep_rdma.RING_LAUNCHES,
+                "plane_ring": sweep_rdma.RDMA_LAUNCHES,
+                "zone": sweep_cluster.ZONE_LAUNCHES,
+                "plane_zone": sweep_cuda.ZONE_LAUNCHES}
+            nf = _time_log(d)[1]
+            rel = abs(nf - log9[1]) / log9[1]
+            with np.load(snapshot.snapshot_name(1, d)) as f:
+                hi_err = float(np.abs(f["HI"] - hi_one).max()
+                               / np.abs(hi_one).max())
+            print(f"[17 noneq] CLI mode 9 noneq on 4 ranks, {strategy}: "
+                  f"call {call:.3f} s, dt {_fmt(mesh[strategy]['dts'])} s, "
+                  f"neutral fraction rel {rel:.2e}, HI max diff "
+                  f"{hi_err:.2e} of its peak from one device's (tol 1e-4); "
+                  f"launches {mesh[strategy]}")
+            assert rel <= 1e-4 and hi_err <= 1e-4, (strategy, rel, hi_err)
+        assert mesh["rdma"]["ring"] > 0 and mesh["rdma"]["zone"] == 0
+        assert mesh["rdma"]["plane_ring"] == 0, "the CLI took the plane ring"
+        assert mesh["zones"]["zone"] > 0 and mesh["zones"]["plane_zone"] == 0
+    phase_s = time.perf_counter() - t_phase
+    print(f"[17 noneq] phase 17: {phase_s:.1f} s; {smi}")
+    out.update(launches=launches, mesh=mesh, phase_s=phase_s, cli_dts9=dts9,
+               cli_dts8=dts8, restart_s=restart_s)
+    return out
+
+
 def main() -> None:
     smi = phase_probe()
     phase_build()
@@ -1851,6 +2133,7 @@ def main() -> None:
     scatter = phase_scatter()
     mesh = phase_mesh(smi)
     cli = phase_cli(smi)
+    noneq = phase_noneq(smi)
     # the cluster sweep kernel's launches on each path that runs it, each
     # count set to 0 just before its path (the plane kernel's: phase 6);
     # the CLI's mesh runs take the ring's and the per-zone kernel's
@@ -1861,11 +2144,12 @@ def main() -> None:
                    "bench": bench_out["launches"]["sweep"],
                    "exp_sweep_pair": pair["sweep_launches"],
                    "exp_sweep_variants": variants["sweep_launches"],
-                   **cli["launches"]}
+                   **cli["launches"], **noneq["launches"]}
     assert all(v > 0 for v in sweep_paths.values()), sweep_paths
     assert times["launches"]["plane"] > 0
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)
-    line += _new_kernels(zones, pair, variants, scatter, mesh, cli["mesh"])
+    line += _new_kernels(zones, pair, variants, scatter, mesh, cli["mesh"],
+                         noneq["mesh"])
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
@@ -1947,7 +2231,8 @@ def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
     return line
 
 
-def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh) -> list:
+def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh,
+                 noneq_mesh) -> list:
     """The kernels line's entries of kernels #2, #6, #7, #8 and #3 (#6
     and #7: the cluster instances, then the plane kernels)."""
     from radiativetransfer_tpu_torch.core import (
@@ -1963,10 +2248,12 @@ def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh) -> list:
         "source": "radiativetransfer_tpu_torch/csrc/sweep_cluster.cu",
         "replaces": "radiativetransfer_tpu/core/sweep_pallas.py:65",
         "launches": (zones["launches"] + mesh["zone_launches"]
-                     + cli_mesh["zones"]["zone"]),
+                     + cli_mesh["zones"]["zone"]
+                     + noneq_mesh["zones"]["zone"]),
         "launches_by_path": {"zones": zones["launches"],
                              "mode9_mesh_zones": mesh["zone_launches"],
-                             "cli_mesh": cli_mesh["zones"]["zone"]},
+                             "cli_mesh": cli_mesh["zones"]["zone"],
+                             "cli_noneq_mesh": noneq_mesh["zones"]["zone"]},
         "max_abs_err": zones["max_abs_err"], "ms": zones["ms"],
         "plain_ms": zones["plain_ms"], "bound_ms": zones["bound_ms"],
         "bound_by": zones["bound_by"], "library_ms": None,
@@ -2052,7 +2339,8 @@ def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh) -> list:
         "library_ms": fl["plain_ms"]})
     assert scatter_cuda.BYTES_PER_ROW == 100
     ring = mesh["full"][4]
-    ring_paths = {**mesh["launches"], "cli_mesh": cli_mesh["rdma"]["ring"]}
+    ring_paths = {**mesh["launches"], "cli_mesh": cli_mesh["rdma"]["ring"],
+                  "cli_noneq_mesh": noneq_mesh["rdma"]["ring"]}
 
     def cluster_only(r):
         # a time under the cluster ring's name only where every zone took

@@ -9,7 +9,9 @@ CPU (core/sweep.py); the point-source tracer (core/rays.py) is PyTorch.
 Modes 9 and 6 also run on a 1-D grid mesh of P ranks on one device
 (parallel/mesh.py), with the pipelined, zones or ring sweep
 (parallel/sweep_dist.py, parallel/sweep_rdma.py; the ring is a CUDA
-kernel on the card).
+kernel on the card).  In every one of these the non-equilibrium 9-species
+network (core/chemistry_noneq.py, RTModel.make_noneq_step) can take the
+equilibrium chemistry's place.
 The measuring entry points are `python -m radiativetransfer_tpu_torch.bench`
 and `python -m radiativetransfer_tpu_torch.roofline_sweep`.
 
@@ -23,6 +25,8 @@ Public API:
     ctx = StellarContext.build(pop, sources, geom, age_s, metal_coefs)
     state, diag = model.make_step(ctx)(state)     # modes 1 and 8
     model.neutral_fraction(state)
+    species = chemistry_noneq.species_from_field_state(state)
+    state, species = model.make_noneq_step(dt_s)(state, species)
 """
 
 __version__ = "0.1.0"

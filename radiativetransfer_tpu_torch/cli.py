@@ -16,6 +16,12 @@ reference (equiSources.f90:65-67):
 Usage:
   python -m radiativetransfer_tpu_torch.cli [inputParameters|config.json]
       [--iters N] [--platform cuda|cpu] [--x64]
+      [--chemistry noneq [--dt-myr X] [--evolve-energy]]
+
+`--chemistry noneq` advances the non-equilibrium 9-species H/He/H2 network
+(core/chemistry_noneq.py) by --dt-myr per iteration in place of the
+equilibrium solve, and writes its species into every snapshot; a restart
+continues them from the snapshot.
 
 The run is on the card (`--platform cuda`, the default) or, when asked, on
 the CPU; without a CUDA device a cuda run fails, it does not fall back to
@@ -23,9 +29,9 @@ the CPU.  A mesh (`--mesh-shape P` or an explicit `--sweep-strategy`) is P
 virtual ranks on that one device (parallel/mesh.py); the JAX CLI spreads
 its mesh over every device it sees.  Not ported yet, and refused before any
 work with NotImplementedError naming their ROADMAP entries: grids with
-more than one data level (the AMR storage forms), `.h4` grids, `--chemistry
-noneq`, `--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact` and
-the multi-process flags.
+more than one data level (the AMR storage forms), `.h4` grids,
+`--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`, point
+sources on a mesh and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from .config import (
     load_config,
 )
 from .constants import KPC, MYR
+from .core import chemistry_noneq
 from .core import step as step_mod
 from .core.rays import cosmic_spectrum, escape_fractions
 from .io import diagnostics, grid_io, snapshot, sources_io
@@ -123,8 +130,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="multi-process runtime: not ported yet, raises")
     ap.add_argument("--chemistry", choices=("equilibrium", "noneq"),
                     default="equilibrium",
-                    help="chemistry solver: ionization equilibrium (default); "
-                         "noneq is not ported yet and raises")
+                    help="chemistry solver: the reference's ionization "
+                         "equilibrium (default) or the non-equilibrium "
+                         "9-species H/He/H2 network (core.chemistry_noneq)")
     ap.add_argument("--dt-myr", type=float, default=1.0,
                     help="noneq chemistry timestep per iteration [Myr]")
     ap.add_argument("--evolve-energy", action="store_true",
@@ -149,8 +157,6 @@ def _refuse_not_ported(args, cfg) -> None:
     """NotImplementedError for what the port does not run yet, before any
     work."""
     refused = [
-        (args.chemistry == "noneq", "--chemistry noneq",
-         "Non-equilibrium chemistry"),
         (args.ckpt_format == "orbax", "--ckpt-format orbax",
          "Remaining I/O (io/checkpoint.py)"),
         (args.debug_checkify, "--debug-checkify", "core/debug.py"),
@@ -201,6 +207,21 @@ def _check_finite(state, itime: int) -> None:
                 f"non-finite values in state.{f.name} after itime={itime}")
 
 
+def _restore_noneq(species, restart_snap):
+    """The species of a noneq restart: those of the snapshot the fields
+    were restored from, else (no restart, or a snapshot without species)
+    the equilibrium ones given, with a warning in the latter case.  A
+    snapshot whose species do not fit the grid raises (read_species)."""
+    if restart_snap is not None:
+        sp2 = snapshot.read_species(restart_snap, species)
+        if sp2 is not None:
+            print("restored 9-species noneq state from snapshot")
+            return sp2
+        print("warning: snapshot carries no species state; "
+              "H2/H2+/H-/energy re-initialized from equilibrium")
+    return species
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     cfg = load_config(args.config)
@@ -217,6 +238,7 @@ def main(argv=None):
     if args.tracer_strategy:
         cfg.tracer_strategy = args.tracer_strategy
     _refuse_not_ported(args, cfg)
+    noneq = args.chemistry == "noneq"
 
     device = torch.device(args.platform)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -301,13 +323,18 @@ def main(argv=None):
             n_stars_specific_age=n_young,
             dust_approximation=cfg.dust_approximation,
             max_pixel_level=args.max_pixel_level or 6,
-            dtype=dtype, device=device)
+            noneq=noneq, dtype=dtype, device=device)
 
     # ---- model + iteration loop ----------------------------------------
     model = step_mod.RTModel.setup(cfg, geom, dtype=dtype, device=device)
     # point sources on a mesh (the distributed tracers) raise here, before
     # any step
-    step = model.make_step(stellar_ctx, mesh=mesh)
+    if noneq:
+        step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
+                                     evolve_energy=args.evolve_energy,
+                                     mesh=mesh)
+    else:
+        step = model.make_step(stellar_ctx, mesh=mesh)
     if args.dump_rates:
         dump_rates(model.tables,
                    os.path.join(args.snapshot_dir, "rates.out"),
@@ -316,6 +343,7 @@ def main(argv=None):
     state = model.initialize_equilibrium(state)
     print(f"ionization equilibrium: {model.neutral_fraction(state):.8e}")
     itime = 0
+    restart_snap = None
     if cfg.restart:
         snap = (os.path.join(args.snapshot_dir, cfg.restart_cell_array_name)
                 if cfg.restart_cell_array_name
@@ -323,10 +351,21 @@ def main(argv=None):
         if snap:
             state, itime = snapshot.read_snapshot(snap, state)
             print(f"restarted from {snap} at itime={itime}")
+            restart_snap = snap
 
     tlog = snapshot.TimeLog(os.path.join(args.snapshot_dir, "time"))
     if mesh is not None:
         state = pmesh.shard_state(state, mesh)
+    species = None
+    if noneq:
+        species = _restore_noneq(
+            chemistry_noneq.species_from_field_state(state), restart_snap)
+        if mesh is not None:
+            species = pmesh.shard_species(species, mesh)
+        print(f"non-equilibrium chemistry: dt = {args.dt_myr} Myr, "
+              f"evolve_energy = {args.evolve_energy}"
+              + (f", mesh = {(mesh.n_ranks,)}" if mesh is not None
+                 else ""))
     # 0 = unbounded: the reference iterates until externally judged/killed
     # (equiSources.f90:1230); the convergence break below still applies
     max_iter = args.iters if args.iters >= 0 else cfg.max_iterations
@@ -342,8 +381,12 @@ def main(argv=None):
         for _ in iter_range:
             itime += 1
             t0 = time.time()
-            out = step(state)
-            state, diag = out if isinstance(out, tuple) else (out, None)
+            if noneq:
+                state, species, *traced = step(state, species)
+                diag = traced[0] if traced else None
+            else:
+                out = step(state)
+                state, diag = out if isinstance(out, tuple) else (out, None)
             if args.debug_nans:
                 _check_finite(state, itime)
             nf = model.neutral_fraction(state)
@@ -366,7 +409,8 @@ def main(argv=None):
             print(msg)
             snapshot.write_snapshot(
                 snapshot.snapshot_name(itime, args.snapshot_dir), state,
-                itime, geom.physical_box_size)
+                itime, geom.physical_box_size,
+                extra=snapshot.species_extra(species) if noneq else None)
             if abs(nf - prev_nf) <= 1e-6 * max(nf, 1e-30):
                 print("converged")
                 break

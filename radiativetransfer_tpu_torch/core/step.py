@@ -9,9 +9,11 @@ the loop (calc_rates, uniformTable, UVB amplitudes, powerSpectrumIndex,
 uvbBetaTable; equiSources.f90:172-289) on the host and keeps the device
 tables as buffers of the module.  The port covers the uniform grid in
 modes 1, 6, 8 and 9 on one device, and modes 6 and 9 on a 1-D grid mesh
-of P ranks on one device (parallel/mesh.py) with every sweep strategy;
-the compacting tracer and the distributed tracers (ROADMAP, "The
-compacting tracer" and "Distribution") raise NotImplementedError.
+of P ranks on one device (parallel/mesh.py) with every sweep strategy,
+with equilibrium chemistry (make_step) or the non-equilibrium 9-species
+network (make_noneq_step); the compacting tracer and the distributed
+tracers (ROADMAP, "The compacting tracer" and "Distribution") raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..parallel import sweep_dist, sweep_rdma
 from ..parallel.mesh import GridMesh
 from ..tables import chemistry_rates, spectral, uvb_models
 from ..tables import stellar as stellar_tables
-from . import chemistry, opacity, rays, sweep, sweep_cuda
+from . import chemistry, chemistry_noneq, opacity, rays, sweep, sweep_cuda
 from .state import FieldState, GridGeometry
 
 # the six point-source deposit fields, in RateFields order
@@ -78,15 +80,12 @@ class StellarContext:
 
         The tables are divided by the cell volume (in float64, on the host)
         so the ray deposits are volumetric rates [1/s/cm^3]: CGS cell
-        volumes overflow float32 on the device.
+        volumes overflow float32 on the device.  noneq=True adds the
+        k27..k31 weights 'quad_W27' of the tracer's quadrature_noneq mode.
         """
-        if noneq:
-            raise NotImplementedError(
-                "the non-equilibrium deposit weights (noneq=True) are not "
-                "ported yet: ROADMAP, Non-equilibrium chemistry")
         i_spec, coef_spec = population.age_bracket(age_s)
         log_vol = float(np.log(geom.cell_volume))
-        reaction, energy, quad_w = [], [], []
+        reaction, energy, quad_w, quad_w27 = [], [], [], []
         out = quad_a = None
         for i_metal, coef_metal in metal_coefs:
             t = stellar_tables.build_source_tables(
@@ -97,6 +96,11 @@ class StellarContext:
             quad_a, w = stellar_tables.quadrature_arrays(
                 population, i_spec, coef_spec, i_metal, coef_metal, dust=dust)
             quad_w.append(w / geom.cell_volume)
+            if noneq:
+                w27 = stellar_tables.quadrature_noneq_weights(
+                    population, i_spec, coef_spec, i_metal, coef_metal,
+                    dust=dust)
+                quad_w27.append(w27 / geom.cell_volume)
         host = {
             "reaction_log": np.stack(reaction),
             "energy_log": np.stack(energy),
@@ -110,6 +114,8 @@ class StellarContext:
             "output_sigma26": out.output_sigma26,
             "output_sigma_dust": out.output_sigma_dust,
         }
+        if noneq:
+            host["quad_W27"] = np.stack(quad_w27)
         tables = {k: torch.as_tensor(v, dtype=dtype, device=device)
                   for k, v in host.items()}
         return cls(population=population, sources=sources, tables=tables,
@@ -251,6 +257,17 @@ class RTModel(nn.Module):
                        + self.uniform_stellar * s.gammaHeI),
         )
 
+    @property
+    def photo_thin_all(self) -> np.ndarray:
+        """Optically-thin uniform-UVB rates [1/s] for all 8 photo channels
+        k24..k31 (the reference integrates its uniform ksi above nu1 only,
+        uniformTable.f90:137-192; followed here)."""
+        q, s = self.quasar, self.stellar
+        return np.array([
+            FOUR_PI * (self.uniform_quasar * q.ksi[c]
+                       + self.uniform_stellar * s.ksi[c])
+            for c in range(24, 32)])
+
     # ----- setup-time equilibrium ----------------------------------------
 
     def initialize_equilibrium(self, state: FieldState) -> FieldState:
@@ -293,20 +310,21 @@ class RTModel(nn.Module):
                 "tracer_compact=True (the compacting tracer) is not ported "
                 "yet: ROADMAP, The compacting tracer")
 
-    def trace(self, state: FieldState, stellar: StellarContext
-              ) -> tuple[FieldState, rays.RayDiagnostics]:
+    def trace(self, state: FieldState, stellar: StellarContext,
+              rates_mode: str = "auto"):
         """The point-source phase: trace every source and put the six
-        deposit fields into the (zero-rate) state."""
+        deposit fields into the (zero-rate) state; (state, RateFields,
+        RayDiagnostics).  rates_mode: rays.trace_point_sources's."""
         rf, diag = rays.trace_point_sources(
             state, self.geom, stellar.sources, stellar.tables,
             dust_approximation=stellar.dust_approximation,
             max_pixel_level=stellar.max_pixel_level,
-            dtype=state.rho.dtype)
+            dtype=state.rho.dtype, rates_mode=rates_mode)
         shape = state.shape
         state = dataclasses.replace(
             state, **{name: getattr(rf, name).reshape(shape)
                       for name in _RATE_FIELDS})
-        return state, diag
+        return state, rf, diag
 
     def transport_chemistry_step(self, state: FieldState,
                                  stellar: StellarContext | None = None,
@@ -319,7 +337,7 @@ class RTModel(nn.Module):
         state = state.zero_rates()
         if not (self.config.run_stellar_transfer and stellar is not None):
             return self._sweep_and_chemistry(state, mesh)
-        state, diag = self.trace(state, stellar)
+        state, _, diag = self.trace(state, stellar)
         return self._sweep_and_chemistry(state), diag
 
     def _run_sweep(self, kappa: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -388,10 +406,125 @@ class RTModel(nn.Module):
                                      mesh=mesh)
 
         def step(state: FieldState):
-            state, diag = self.trace(state.zero_rates(), stellar)
+            state, _, diag = self.trace(state.zero_rates(), stellar)
             return self._sweep_and_chemistry(state), diag
 
         return step
+
+    # ----- non-equilibrium chemistry mode ---------------------------------
+
+    def _assemble_photo_rates(self, state: FieldState, rf=None
+                              ) -> chemistry_noneq.PhotoRates:
+        """Per-cell PhotoRates for the 9-species network from the transport
+        products: point-source deposits (krate/crate fields + the k27..k31
+        channels of a NoneqRateFields) plus diffuse-band or uniform-thin UVB
+        contributions.  Rate assembly mirrors solveRateEquations
+        (equiSources.f90:3519-3562) extended to the secondary channels."""
+        cfg = self.config
+        nh, nhe = state.nh, state.nhe
+        HI, HeI, HeII = chemistry.clamp_species(nh, nhe, state.HI, state.HeI,
+                                                state.HeII)
+        k24 = chemistry.photo_rates_from_sources(state.krate24, HI)
+        k25 = chemistry.photo_rates_from_sources(state.krate25, HeII)
+        k26 = chemistry.photo_rates_from_sources(state.krate26, HeI)
+        heat = state.crate24 + state.crate25 + state.crate26  # [erg/cm^3/s]
+        k_sec = [0.0] * 5
+        if isinstance(rf, rays.NoneqRateFields):
+            k_sec = [getattr(rf, f"krate{c}").reshape(state.shape)
+                     for c in range(27, 32)]
+
+        if cfg.run_uvb_transfer:
+            j = FOUR_PI * state.Jmean                      # (3, nx, ny, nz)
+            ch = torch.tensordot(self.ksi_all, j, dims=([0], [0]))  # (8, ...)
+            k24, k25, k26 = k24 + ch[0], k25 + ch[1], k26 + ch[2]
+            k_sec = [k + ch[3 + i] for i, k in enumerate(k_sec)]
+            gm = self.gamma_matrix
+            heat = heat + (
+                torch.tensordot(gm[:, 0], j, dims=([0], [0])) * HI
+                + torch.tensordot(gm[:, 1], j, dims=([0], [0])) * HeII
+                + torch.tensordot(gm[:, 2], j, dims=([0], [0])) * HeI)
+        else:
+            thin_all = self.photo_thin_all
+            u24, u25, u26 = chemistry.uniform_photo_rates(
+                HI, HeI, HeII, cfg.self_shielding_threshold,
+                tuple(thin_all[:3]))
+            # the same self-shielding switch gates the secondary channels
+            shielded_off = (u24 > 0.0).to(HI.dtype)
+            k24, k25, k26 = k24 + u24, k25 + u25, k26 + u26
+            k_sec = [k + float(thin_all[3 + i]) * shielded_off
+                     for i, k in enumerate(k_sec)]
+            ht = self.heat_thin
+            heat = heat + shielded_off * (ht[0] * HI + ht[1] * HeII
+                                          + ht[2] * HeI)
+
+        return chemistry_noneq.PhotoRates(
+            k24=k24, k25=k25, k26=k26, k27=k_sec[0], k28=k_sec[1],
+            k29=k_sec[2], k30=k_sec[3], k31=k_sec[4], heat=heat)
+
+    def make_noneq_step(self, dt: float,
+                        stellar: StellarContext | None = None,
+                        noneq_tables=None, n_substeps: int = 200,
+                        evolve_energy: bool = False, mesh=None):
+        """Transport + NON-EQUILIBRIUM chemistry iteration advancing the
+        9-species network by dt [s] per step (the capability the reference
+        built its k1..k19/k13dd/sigma24..31 tables for but never wired;
+        coll_rates.f:3-234, colh2diss.f:3-120).
+
+        Returns step(state, species) -> (state, species), or with a
+        StellarContext (state, species, RayDiagnostics): `state` is the
+        FieldState the transport sees (HI/HeI/HeII synced from the species
+        each step, tgas too with evolve_energy), `species` the
+        chemistry_noneq.SpeciesState; initialize it with
+        chemistry_noneq.species_from_field_state.  The tracer runs in its
+        quadrature_noneq mode (the StellarContext needs noneq=True).
+
+        noneq_tables: a chemistry_noneq.NoneqTablesDevice, by default built
+        from the model's tables in the run's dtype on its device.  With a
+        `mesh` (parallel.mesh.GridMesh; no StellarContext: the distributed
+        tracers are not ported) the sweep runs the configured strategy on
+        it and the network, elementwise, runs on the whole field.
+        """
+        self._check_supported(stellar, mesh)
+        if noneq_tables is None:
+            k16 = self.dev_tables.k16
+            noneq_tables = chemistry_noneq.NoneqTablesDevice.from_tables(
+                self.tables, k16.dtype, k16.device)
+        cfg = self.config
+
+        def sweep_and_evolve(state: FieldState, species, rf):
+            if cfg.run_uvb_transfer:
+                kappa = opacity.compute_opacities(
+                    state.HI, state.HeI, state.HeII, self.opacity_coef)
+                # the mesh must reach _run_sweep: the explicit strategies
+                # (pipelined/zones/rdma) raise without it
+                state = dataclasses.replace(state,
+                                            Jmean=self._run_sweep(kappa, mesh))
+            photo = self._assemble_photo_rates(state, rf)
+            species = chemistry_noneq.evolve_noneq(
+                species, dt, noneq_tables, photo=photo,
+                n_substeps=n_substeps, evolve_energy=evolve_energy,
+                tgas_fixed=None if evolve_energy else state.tgas,
+                current_redshift=cfg.current_redshift)
+            dtype = state.HI.dtype
+            state = dataclasses.replace(
+                state, HI=species.HI.to(dtype), HeI=species.HeI.to(dtype),
+                HeII=species.HeII.to(dtype),
+                tgas=(species.tgas.to(dtype) if evolve_energy
+                      else state.tgas))
+            return state, species
+
+        if stellar is None:
+            def step(state: FieldState, species):
+                return sweep_and_evolve(state.zero_rates(), species, None)
+            return step
+
+        def step_traced(state: FieldState, species):
+            state, rf, diag = self.trace(state.zero_rates(), stellar,
+                                         "quadrature_noneq")
+            state, species = sweep_and_evolve(state, species, rf)
+            return state, species, diag
+
+        return step_traced
 
     def neutral_fraction(self, state: FieldState) -> float:
         """Global neutral-hydrogen mass fraction (computeMass,

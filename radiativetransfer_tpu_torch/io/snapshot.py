@@ -12,8 +12,10 @@ dense single-level grids store the fields directly in C order -- which IS
 the depth-first leaf order for an unrefined grid -- so a snapshot written
 by one package restarts the other.  Restart re-inflates onto a freshly
 built grid with the same species clamping as the reference, in torch on
-the state's device.  The AMR, multilevel, block-sparse and species forms
-are not ported yet and raise.
+the state's device.  A non-equilibrium run adds its 9-species state
+(`species_extra`, `read_species`) under keys that `read_snapshot` does not
+read, so an equilibrium run restarts from it too.  The AMR, multilevel and
+block-sparse forms are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import re
 import numpy as np
 import torch
 
+from ..core.chemistry_noneq import SPECIES, SpeciesState
 from ..core.state import FieldState
 
 
@@ -120,11 +123,64 @@ write_snapshot_amr = _not_ported("write_snapshot_amr", "Two-level AMR")
 read_snapshot_amr = _not_ported("read_snapshot_amr", "Two-level AMR")
 write_snapshot_ml = _not_ported("write_snapshot_ml", "L-level dense AMR")
 read_snapshot_ml = _not_ported("read_snapshot_ml", "L-level dense AMR")
-species_extra = _not_ported("species_extra", "Non-equilibrium chemistry")
-read_species = _not_ported("read_species", "Non-equilibrium chemistry")
 write_snapshot_sparse = _not_ported("write_snapshot_sparse",
                                     "Block-sparse AMR")
 read_snapshot_sparse = _not_ported("read_snapshot_sparse", "Block-sparse AMR")
+
+
+# the non-equilibrium prognostic state: chemistry_noneq.SpeciesState's fields
+SPECIES_FIELDS = (*SPECIES, "eint")
+
+
+def species_extra(species, prefix: str = "species0") -> dict:
+    """Snapshot payload for a chemistry_noneq.SpeciesState, at the run's
+    full precision and grid shape: the 9-species abundances and internal
+    energy are PROGNOSTIC, so a restart continues them instead of
+    re-deriving them from equilibrium (the reference's restart restores
+    every prognostic field, equiSources.f90:1071-1167).  The keys are the
+    JAX package's, `species0_{field}`; its other prefixes, one per level
+    of a nested grid, are not ported (ROADMAP, L-level dense AMR)."""
+    if prefix != "species0":
+        raise NotImplementedError(
+            f"species_extra(prefix={prefix!r}): per-level species of nested "
+            f"grids are not ported yet: ROADMAP, L-level dense AMR")
+    host = torch.stack([getattr(species, k) for k in SPECIES_FIELDS])
+    host = host.detach().cpu().numpy()
+    return {f"{prefix}_{k}": host[i] for i, k in enumerate(SPECIES_FIELDS)}
+
+
+def read_species(path: str, template):
+    """The 9-species state of a snapshot, in the template's dtype on its
+    device, or None when the snapshot carries none (an equilibrium run
+    wrote it).  template: a chemistry_noneq.SpeciesState on the run's grid.
+
+    A snapshot with some of the species arrays, or with arrays of another
+    shape than the grid's, raises ValueError: the restart stops there, it
+    never carries on from a fresh equilibrium.  A tuple of per-level
+    templates (nested grids, in the JAX package) raises
+    NotImplementedError."""
+    if isinstance(template, tuple):
+        raise NotImplementedError(
+            "read_species of per-level species (nested grids) is not "
+            "ported yet: ROADMAP, L-level dense AMR")
+    dtype, device = template.HI.dtype, template.HI.device
+    shape = tuple(template.HI.shape)
+    keys = [f"species0_{k}" for k in SPECIES_FIELDS]
+    with np.load(path) as f:
+        present = [k for k in keys if k in f]
+        if not present:
+            return None
+        if len(present) != len(keys):
+            missing = sorted(set(keys) - set(present))
+            raise ValueError(f"{path}: species state incomplete, missing "
+                             f"{missing}")
+        arrays = {k: f[key] for k, key in zip(SPECIES_FIELDS, keys)}
+    for k, a in arrays.items():
+        if a.shape != shape:
+            raise ValueError(f"{path}: species0_{k} has shape {a.shape}, "
+                             f"the grid is {shape}")
+    return SpeciesState(**{k: torch.as_tensor(a, dtype=dtype, device=device)
+                           for k, a in arrays.items()})
 
 
 def latest_snapshot(directory: str = ".") -> str | None:

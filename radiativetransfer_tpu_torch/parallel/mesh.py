@@ -76,6 +76,16 @@ def shard_state(state, mesh: GridMesh):
         if torch.is_tensor(getattr(state, f.name))})
 
 
+def shard_species(species, mesh: GridMesh):
+    """The chemistry_noneq.SpeciesState on the mesh's device, as
+    shard_state places a FieldState (all its tensors share the (nx, ny, nz)
+    grid shape); ValueError when P does not divide nz."""
+    check_divides(mesh, species.HI.shape[-1])
+    return dataclasses.replace(species, **{
+        f.name: getattr(species, f.name).to(mesh.device)
+        for f in dataclasses.fields(species)})
+
+
 def to_blocks(x: torch.Tensor, mesh: GridMesh) -> torch.Tensor:
     """(..., nz) -> (P, ..., nz/P), rank r's k-block [r*nz/P, (r+1)*nz/P)
     contiguous."""

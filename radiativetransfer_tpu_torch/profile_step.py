@@ -1,7 +1,7 @@
 """Profile steps of the port on one CUDA device, layer by layer.
 
     python3 -m radiativetransfer_tpu_torch.profile_step [n] [level] [mode] \
-        [ranks]
+        [ranks] [noneq]
 
 Mode 9 (the default) builds the synthetic galaxy of chip_smoke.py (n^3,
 default 128, angular level default 3) and runs initialize_equilibrium.
@@ -9,9 +9,14 @@ Mode 8 runs bench.py's step configuration: a uniform box (nH = 2e-4,
 T = 1.5e4, 2000 kpc) with 8 sources from seed 0 at maxPixelLevel 6.
 ranks > 0 (mode 9 only) runs the step on a 1-D mesh of that many ranks on
 the card, the sweep through the ring kernel (sweep_strategy "rdma").
+noneq 1 runs the non-equilibrium step (RTModel.make_noneq_step, 1 Myr, 200
+substeps, the temperature held; the tracer in its quadrature_noneq mode)
+in place of the equilibrium one.
 Either then runs one warm-up step, times each layer of a step with CUDA
 events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
-per march step), and traces two steps with torch.profiler: the device
+per march step; noneq: tracer, opacity, sweep, _assemble_photo_rates and
+evolve_noneq, each also with its host milliseconds to enqueue and its
+kernel launches), and traces two steps with torch.profiler: the device
 kernels by total time, the device-busy share of the traced wall time, the
 kernel launches per step and the peak device memory.  Needs a CUDA
 device; prints the card's name and power limit.
@@ -20,23 +25,26 @@ device; prints the card's name and power limit.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import GridGeometry, RTModel, RunConfig, make_state, uniform_state
 from .config import MODE_BOTH_STELLAR_UVB_TRANSFER, MODE_UVB_TRANSFER_ONLY
 from .constants import KPC, MH, MYR, PSI
-from .core import chemistry, opacity, rays
+from .core import chemistry, chemistry_noneq, opacity, rays
 from .parallel.mesh import make_grid_mesh
 from .roofline_sweep import nvidia_smi
 
 
-def galaxy_state(n: int, box_kpc: float, device):
+def galaxy_state(n: int, box_kpc: float, device,
+                 dtype: torch.dtype = torch.float32):
     """Centrally concentrated density, lognormal(0, 0.4) fluctuations from
     seed 0, T = 1e4 K, fully neutral (examples/make_test_data.py)."""
     rng = np.random.default_rng(0)
@@ -47,7 +55,7 @@ def galaxy_state(n: int, box_kpc: float, device):
     nh = nh * rng.lognormal(0.0, 0.4, nh.shape)
     nh = 10.0 ** np.log10(nh).astype(np.float32).astype(np.float64)
     return make_state(nh * MH / PSI, np.full(nh.shape, 1e4), nh,
-                      dtype=torch.float32, device=device)
+                      dtype=dtype, device=device)
 
 
 def _event_ms(fn):
@@ -60,7 +68,97 @@ def _event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def _setup(n: int, level: int, mode: int, ranks: int):
+def _trace_kernels(prof) -> list[tuple[str, float, float]]:
+    """(name, start us, end us) of every kernel, copy and set on the device
+    in a torch.profiler run, read from its chrome trace (prof.events()
+    builds a Python object per event, minutes at the noneq step's ~1e5
+    launches; the trace's export takes about a second)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def _layer(fn):
+    """(fn(), device ms between CUDA events around it, host ms to enqueue
+    it, kernel launches): fn runs twice, the second time under
+    torch.profiler to count the kernels it launches (copies and sets
+    apart)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(1 for name, _, _ in _trace_kernels(prof)
+                   if not name.startswith(("Memcpy", "Memset")))
+    return out, start.elapsed_time(end), host_ms, launches
+
+
+def noneq_layers(model, state, species, ctx=None, mesh=None,
+                 dt: float = MYR, n_substeps: int = 200) -> dict:
+    """One non-equilibrium step, layer by layer, from `state` and
+    `species` (temperature held): {layer: (device ms, host ms, launches)}
+    for the tracer (with a StellarContext built noneq=True), opacity,
+    sweep, _assemble_photo_rates and evolve_noneq."""
+    cfg = model.config
+    tables = chemistry_noneq.NoneqTablesDevice.from_tables(
+        model.tables, state.HI.dtype, state.HI.device)
+    s0 = state.zero_rates()
+    rows, rf = {}, None
+    if ctx is not None:
+        (s0, rf, _), *rows["tracer"] = _layer(
+            lambda: model.trace(s0, ctx, "quadrature_noneq"))
+    kappa, *rows["opacity"] = _layer(lambda: opacity.compute_opacities(
+        s0.HI, s0.HeI, s0.HeII, model.opacity_coef))
+    jmean, *rows["sweep"] = _layer(lambda: model._run_sweep(kappa, mesh))
+    s1 = dataclasses.replace(s0, Jmean=jmean)
+    photo, *rows["assemble_photo_rates"] = _layer(
+        lambda: model._assemble_photo_rates(s1, rf))
+    _, *rows["evolve_noneq"] = _layer(lambda: chemistry_noneq.evolve_noneq(
+        species, dt, tables, photo=photo, n_substeps=n_substeps,
+        evolve_energy=False, tgas_fixed=s1.tgas,
+        current_redshift=cfg.current_redshift))
+    return {k: tuple(v) for k, v in rows.items()}
+
+
+def profiled(run, carry, steps: int = 2):
+    """`steps` calls of carry = run(carry) under torch.profiler: (carry,
+    wall s, device-busy s: the union of the device events' intervals,
+    device events per step, the 12 kernels of most device time as
+    (name, total ms, count))."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            carry = run(carry)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = _trace_kernels(prof)
+    device_us, reach = 0.0, float("-inf")
+    totals = {}
+    for name, start, end in sorted(spans, key=lambda x: x[1]):
+        device_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        ms, count = totals.get(name, (0.0, 0))
+        totals[name] = (ms + (end - start) / 1e3, count + 1)
+    top = sorted(((k, ms, c) for k, (ms, c) in totals.items()),
+                 key=lambda x: -x[1])[:12]
+    return carry, wall, device_us / 1e6, len(spans) / steps, top
+
+
+def _setup(n: int, level: int, mode: int, ranks: int, noneq: bool = False):
     """(model, first state, StellarContext or None) of the profiled run."""
     if mode == MODE_UVB_TRANSFER_ONLY:
         box = 300.0
@@ -85,73 +183,73 @@ def _setup(n: int, level: int, mode: int, ranks: int):
     ctx = StellarContext.build(
         stellar.blackbody_population(q_ionizing=1.0e51),
         bench_sources(n, 8), geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
-        dtype=torch.float32, device="cuda")
+        noneq=noneq, dtype=torch.float32, device="cuda")
     state = uniform_state(n, nh=2e-4, tgas=1.5e4, dtype=torch.float32,
                           device="cuda")
     return model, state, ctx
 
 
-def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0) -> None:
+def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
+         noneq: int = 0) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
-    model, state, ctx = _setup(n, level, mode, ranks)
+    model, state, ctx = _setup(n, level, mode, ranks, bool(noneq))
     cfg = model.config
     mesh = make_grid_mesh(ranks) if ranks else None
-    step = model.make_step(ctx, mesh=mesh)
+    if noneq:
+        step = model.make_noneq_step(MYR, ctx, mesh=mesh)
+        carry = (state, chemistry_noneq.species_from_field_state(state))
 
-    def run(s):
-        return step(s)[0] if ctx is not None else step(s)
+        def run(c):
+            return step(*c)[:2]
+    else:
+        step = model.make_step(ctx, mesh=mesh)
+        carry = state
 
-    state = run(state)
+        def run(c):
+            return step(c)[0] if ctx is not None else step(c)
+
+    carry = run(carry)
     torch.cuda.synchronize()
 
     # per layer, CUDA events around each phase of one step
-    s0 = state.zero_rates()
     layers = []
-    if ctx is not None:
-        steps0 = rays.MARCH_STEPS
-        (s0, _), t_tr = _event_ms(lambda: model.trace(s0, ctx))
-        march = rays.MARCH_STEPS - steps0
-        layers.append(f"tracer {t_tr:.3f} ms ({march} march steps, "
-                      f"{t_tr / max(march, 1):.4f} ms per step)")
-    kappa, t_op = _event_ms(lambda: opacity.compute_opacities(
-        s0.HI, s0.HeI, s0.HeII, model.opacity_coef))
-    jmean, t_sw = _event_ms(lambda: model._run_sweep(kappa, mesh))
-    s1 = dataclasses.replace(s0, Jmean=jmean)
-    _, t_ch = _event_ms(lambda: chemistry.solve_rate_equations(
-        s1, model.geom, model.dev_tables, ksi_matrix=model.ksi_matrix,
-        gamma_thin=model.gamma_thin,
-        self_shielding_threshold=cfg.self_shielding_threshold,
-        run_uvb_transfer=True, n_iter=60))
-    layers += [f"opacity {t_op:.3f} ms", f"sweep {t_sw:.3f} ms",
-               f"chemistry {t_ch:.3f} ms"]
-    where = f" on {ranks} ranks (rdma)" if ranks else ""
-    print(f"mode {mode}{where} layers at {n}^3 x "
-          f"{model.sweep_plan.n_directions} dirs f32: {', '.join(layers)}; "
-          f"card {smi}")
+    if noneq:
+        rows = noneq_layers(model, *carry, ctx=ctx, mesh=mesh)
+        layers = [f"{k} {ms:.3f} ms (host {host:.3f} ms, {k_launches} "
+                  f"launches)" for k, (ms, host, k_launches) in rows.items()]
+    else:
+        s0 = carry.zero_rates()
+        if ctx is not None:
+            steps0 = rays.MARCH_STEPS
+            (s0, _, _), t_tr = _event_ms(lambda: model.trace(s0, ctx))
+            march = rays.MARCH_STEPS - steps0
+            layers.append(f"tracer {t_tr:.3f} ms ({march} march steps, "
+                          f"{t_tr / max(march, 1):.4f} ms per step)")
+        kappa, t_op = _event_ms(lambda: opacity.compute_opacities(
+            s0.HI, s0.HeI, s0.HeII, model.opacity_coef))
+        jmean, t_sw = _event_ms(lambda: model._run_sweep(kappa, mesh))
+        s1 = dataclasses.replace(s0, Jmean=jmean)
+        _, t_ch = _event_ms(lambda: chemistry.solve_rate_equations(
+            s1, model.geom, model.dev_tables, ksi_matrix=model.ksi_matrix,
+            gamma_thin=model.gamma_thin,
+            self_shielding_threshold=cfg.self_shielding_threshold,
+            run_uvb_transfer=True, n_iter=60))
+        layers += [f"opacity {t_op:.3f} ms", f"sweep {t_sw:.3f} ms",
+                   f"chemistry {t_ch:.3f} ms"]
+    what = f"mode {mode}" + (" noneq" if noneq else "") + (
+        f" on {ranks} ranks (rdma)" if ranks else "")
+    print(f"{what} layers at {n}^3 x {model.sweep_plan.n_directions} dirs "
+          f"f32: {', '.join(layers)}; card {smi}")
 
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            state = run(state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device busy: the union of the kernels' intervals on the device
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    device_us, reach = 0.0, float("-inf")
-    for start, end in spans:
-        device_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=15))
-    print(f"mode {mode}{where}, 2 steps: wall {wall * 1e3:.3f} ms, device "
-          f"busy {device_us / 1e3:.3f} ms "
-          f"({100 * device_us / 1e6 / wall:.1f}% of wall), "
-          f"{len(spans) / 2:.0f} device kernels per step, peak device memory "
+    carry, wall, busy, kernels, top = profiled(run, carry)
+    for name, ms, count in top:
+        print(f"  {ms:10.3f} ms {count:7d}x  {name[:100]}")
+    print(f"{what}, 2 steps: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall), "
+          f"{kernels:.0f} device kernels per step, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
           f"GiB; card {smi}")
 

@@ -280,7 +280,9 @@ def _h4_grid(directory):
 
 
 @pytest.mark.parametrize("flags,mode,edit,match", [
-    (("--chemistry", "noneq"), 9, None, "Non-equilibrium chemistry"),
+    (("--chemistry", "noneq", "--ckpt-format", "orbax"), 9, None,
+     "Remaining I/O"),
+    (("--chemistry", "noneq", "--mesh-shape", "4"), 8, None, "Distribution"),
     (("--ckpt-format", "orbax"), 9, None, "Remaining I/O"),
     (("--debug-checkify",), 9, None, "core/debug.py"),
     (("--tracer-compact",), 8, None, "compacting tracer"),

@@ -129,6 +129,7 @@ _PORT_MODULES = (
     "radiativetransfer_tpu_torch.exp_sweep_variants",
     "radiativetransfer_tpu_torch.roofline_sweep",
     "radiativetransfer_tpu_torch.profile_step",
+    "radiativetransfer_tpu_torch.core.chemistry_noneq",
     "radiativetransfer_tpu_torch.core.cuda_build",
     "radiativetransfer_tpu_torch.core.expansion",
     "radiativetransfer_tpu_torch.core.probes_cuda",

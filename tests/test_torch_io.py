@@ -392,5 +392,9 @@ def test_snapshot_names_and_time_log(tmp_path):
     "read_snapshot_ml", "species_extra", "read_species",
     "write_snapshot_sparse", "read_snapshot_sparse"])
 def test_storage_forms_not_ported(name):
+    # the species forms are ported for uniform grids: what is not is their
+    # per-level form of nested grids (a level prefix, a tuple of templates)
+    args = {"species_extra": (None, "species1"),
+            "read_species": (None, (None, None))}.get(name, (None, None))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tsnap, name)(None, None)
+        getattr(tsnap, name)(*args)

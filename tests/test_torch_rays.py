@@ -226,10 +226,6 @@ def test_unported_modes_raise():
     geom = tstate.GridGeometry(4, 4, 4, BOX)
     src = trays.SourceBatch(**{k: v[:1] for k, v in _sources().items()})
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP, Non-equilibrium chemistry"):
-        trays.trace_point_sources(ts, geom, src, _tables(),
-                                  rates_mode="quadrature_noneq")
-    with pytest.raises(NotImplementedError,
                        match="ROADMAP, The compacting tracer"):
         trays.trace_point_sources_compact(ts, geom, src, _tables())
 

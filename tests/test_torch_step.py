@@ -153,12 +153,6 @@ def test_unported_paths_raise():
     tm.config = dataclasses.replace(base, sweep_strategy="zones")
     with pytest.raises(ValueError, match="needs a mesh"):
         tm.make_step()(state)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, Non-equilibrium chemistry"):
-        rt.StellarContext.build(tstellar.blackbody_population(),
-                                _batch(trays, np.full((1, 3), 0.5)), geom,
-                                10.0 * MYR, [(0, 0.0)], noneq=True,
-                                device="cpu")
 
 
 def test_state_numpy_round_trip():
