@@ -1877,7 +1877,9 @@ def phase_noneq(smi: str) -> dict:
     from radiativetransfer_tpu_torch.config import MODE_UVB_TRANSFER_ONLY
     from radiativetransfer_tpu_torch.constants import KPC, MYR
     from radiativetransfer_tpu_torch.core import chemistry_noneq as cn
-    from radiativetransfer_tpu_torch.core import sweep_cluster, sweep_cuda
+    from radiativetransfer_tpu_torch.core import (rays, sweep_cluster,
+                                                  sweep_cuda)
+    from radiativetransfer_tpu_torch.core.step import StellarContext
     from radiativetransfer_tpu_torch.io import snapshot
     from radiativetransfer_tpu_torch.parallel import sweep_rdma
     from radiativetransfer_tpu_torch.profile_step import galaxy_state
@@ -1957,8 +1959,8 @@ def phase_noneq(smi: str) -> dict:
           "kernel launches): " + ", ".join(
               f"{k} {ms:.3f} / {host:.3f} / {k_n}"
               for k, (ms, host, k_n) in rows.items()))
-    _, wall, busy, kernels, top = profile_step.profiled(
-        lambda c: step(*c), (st, sp), steps=1)
+    wall, busy, kernels, top = profile_step.profiled(
+        lambda c: step(*c), [(st, sp)], steps=1)
     print(f"[17 noneq] one profiled noneq step: wall {wall * 1e3:.3f} ms, "
           f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.2f}%), "
           f"{kernels:.0f} device events; top kernels "
@@ -1997,15 +1999,46 @@ def phase_noneq(smi: str) -> dict:
         k = getattr(rf, f"krate{c}")
         assert bool(torch.isfinite(k).all()) and float(k.min()) >= 0.0, c
         k_max[c] = float(k.max())
+    # the k27..k31 deposits with the weights StellarContext.build makes,
+    # against the same trace in float64: with float32's kills on both
+    # sides (printed) and with the kills off (held within 1e-5 of each
+    # channel's peak, as float32 traces are held).  A kill falls a march
+    # step apart in the two dtypes and cuts the channels the gas leaves
+    # unattenuated (k27, k28, k31) there.
+    ctx64 = StellarContext.build(pop, ctx.sources, m8.geom, 10.0 * MYR,
+                                 metal_coefs=[(0, 0.0)], max_pixel_level=6,
+                                 noneq=True, dtype=f64, device=DEVICE)
+
+    def trace(dtype, tables, tau_kill, rel_kill):
+        s = rt.uniform_state(n, nh=2e-4, tgas=1.5e4, dtype=dtype,
+                             device=DEVICE)
+        return rays.trace_point_sources(
+            s, m8.geom, ctx.sources, tables, max_pixel_level=6, dtype=dtype,
+            rates_mode="quadrature_noneq", tau_kill=tau_kill,
+            rel_kill=rel_kill)[0]
+
+    kills = (rays.default_tau_kill(f32), rays.default_rel_kill(f32))
+    pairs = {"f32 kills": (rf, trace(f64, ctx64.tables, *kills)),
+             "no kills": (trace(f32, ctx.tables, float("inf"), 0.0),
+                          trace(f64, ctx64.tables, float("inf"), 0.0))}
+    k_err = {tag: max(
+        float((getattr(a, f"krate{c}").double() - getattr(b, f"krate{c}"))
+              .abs().max() / getattr(b, f"krate{c}").abs().max())
+        for c in range(27, 32)) for tag, (a, b) in pairs.items()}
+    del pairs, ctx64
     nh_rel = float(((sp8b.nh - st8.nh).abs() / st8.nh).max())
     nf8 = m8.neutral_fraction(st8)
     print(f"[17 noneq] {n}^3 x 192 f32 mode 8 noneq, {MODE8_SOURCES} "
           f"sources: wall {dt8:.3f} s, neutral fraction {nf8:.7f}, "
-          f"k27..k31 max {k_max}, species nh vs state nh max rel "
-          f"{nh_rel:.2e} (tol 1e-5), peak device memory {peak8:.3f} GiB")
+          f"k27..k31 max {k_max}, their max diff from the f64 trace of "
+          f"each peak: with f32's kills {k_err['f32 kills']:.2e}, without "
+          f"kills {k_err['no kills']:.2e} (tol 1e-5); species nh vs state "
+          f"nh max rel {nh_rel:.2e} (tol 1e-5), peak device memory "
+          f"{peak8:.3f} GiB")
     assert k_max[31] > 0.0 and nh_rel <= 1e-5 and 0.0 <= nf8 <= 1.0
+    assert k_err["no kills"] <= 1e-5, k_err
     assert bool(torch.isfinite(diag.ndot_remaining).all())
-    out.update(dt8=dt8, peak8_gib=peak8)
+    out.update(dt8=dt8, peak8_gib=peak8, k_f32_err=k_err)
     del st8, sp8b, s8, sp8, rf, m8, ctx
 
     # (c) the CLI: mode 9, a restart through python -m, mode 8, 4 ranks

@@ -353,17 +353,20 @@ def _cooling_rate(sp: SpeciesState, tgas, tables: NoneqTablesDevice,
     return cool + lam_h2
 
 
+# the largest relative change of de, HI, H2 (and eint) in one substep
+SAFETY = 0.1
+
+
 def evolve_noneq(sp: SpeciesState, dt: float, tables: NoneqTablesDevice,
                  photo: PhotoRates | None = None,
                  n_substeps: int = 200,
                  evolve_energy: bool = True,
                  tgas_fixed: torch.Tensor | None = None,
-                 current_redshift: float = 0.0,
-                 safety: float = 0.1) -> SpeciesState:
+                 current_redshift: float = 0.0) -> SpeciesState:
     """Advance the 9-species network by dt [s].
 
     Fixed-trip-count vectorized sub-cycling: each cell consumes its own
-    remaining time with per-cell steps limited to `safety` (10%) relative
+    remaining time with per-cell steps limited to SAFETY (10%) relative
     change in electron density, HI and H2 (and internal energy, when
     evolved).  Cells that finish early take zero-length substeps.  If
     n_substeps is too small for the stiffest cell the update is still
@@ -391,7 +394,7 @@ def evolve_noneq(sp: SpeciesState, dt: float, tables: NoneqTablesDevice,
     def limit(x, cd):
         c, d = cd
         xdot = c - d * x
-        return safety * torch.maximum(x, floor) / torch.clamp(
+        return SAFETY * torch.maximum(x, floor) / torch.clamp(
             torch.abs(xdot), min=tiny)
 
     for _ in range(n_substeps):
@@ -416,7 +419,7 @@ def evolve_noneq(sp: SpeciesState, dt: float, tables: NoneqTablesDevice,
         if evolve_energy:
             cool = _cooling_rate(sp, tgas, tables, current_redshift)
             edot = photo.heat - cool
-            dt_e = safety * sp.eint / torch.clamp(torch.abs(edot), min=tiny)
+            dt_e = SAFETY * sp.eint / torch.clamp(torch.abs(edot), min=tiny)
             dtit = torch.minimum(dtit, dt_e)
         dtit = torch.clamp(dtit, min=0.0)
 

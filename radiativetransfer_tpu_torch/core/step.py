@@ -81,7 +81,12 @@ class StellarContext:
         The tables are divided by the cell volume (in float64, on the host)
         so the ray deposits are volumetric rates [1/s/cm^3]: CGS cell
         volumes overflow float32 on the device.  noneq=True adds the
-        k27..k31 weights 'quad_W27' of the tracer's quadrature_noneq mode.
+        k27..k31 weights 'quad_W27' of the tracer's quadrature_noneq mode,
+        divided by the cell's face area: the tracer weighs them by the
+        segment length in cells.  Over the cell volume, as the JAX package
+        divides them, they fall below float32's normal range (8.6e-39 at
+        most at 16^3 in a 300 kpc box), where a device that flushes
+        subnormals deposits nothing.
         """
         i_spec, coef_spec = population.age_bracket(age_s)
         log_vol = float(np.log(geom.cell_volume))
@@ -100,7 +105,7 @@ class StellarContext:
                 w27 = stellar_tables.quadrature_noneq_weights(
                     population, i_spec, coef_spec, i_metal, coef_metal,
                     dust=dust)
-                quad_w27.append(w27 / geom.cell_volume)
+                quad_w27.append(w27 / geom.cell_size ** 2)
         host = {
             "reaction_log": np.stack(reaction),
             "energy_log": np.stack(energy),
@@ -463,7 +468,7 @@ class RTModel(nn.Module):
 
     def make_noneq_step(self, dt: float,
                         stellar: StellarContext | None = None,
-                        noneq_tables=None, n_substeps: int = 200,
+                        n_substeps: int = 200,
                         evolve_energy: bool = False, mesh=None):
         """Transport + NON-EQUILIBRIUM chemistry iteration advancing the
         9-species network by dt [s] per step (the capability the reference
@@ -478,17 +483,16 @@ class RTModel(nn.Module):
         chemistry_noneq.species_from_field_state.  The tracer runs in its
         quadrature_noneq mode (the StellarContext needs noneq=True).
 
-        noneq_tables: a chemistry_noneq.NoneqTablesDevice, by default built
-        from the model's tables in the run's dtype on its device.  With a
-        `mesh` (parallel.mesh.GridMesh; no StellarContext: the distributed
-        tracers are not ported) the sweep runs the configured strategy on
-        it and the network, elementwise, runs on the whole field.
+        The network's tables are the model's, in the run's dtype on its
+        device.  With a `mesh` (parallel.mesh.GridMesh; no StellarContext:
+        the distributed tracers are not ported) the sweep runs the
+        configured strategy on it and the network, elementwise, runs on the
+        whole field.
         """
         self._check_supported(stellar, mesh)
-        if noneq_tables is None:
-            k16 = self.dev_tables.k16
-            noneq_tables = chemistry_noneq.NoneqTablesDevice.from_tables(
-                self.tables, k16.dtype, k16.device)
+        k16 = self.dev_tables.k16
+        noneq_tables = chemistry_noneq.NoneqTablesDevice.from_tables(
+            self.tables, k16.dtype, k16.device)
         cfg = self.config
 
         def sweep_and_evolve(state: FieldState, species, rf):

@@ -126,27 +126,26 @@ read_snapshot_ml = _not_ported("read_snapshot_ml", "L-level dense AMR")
 write_snapshot_sparse = _not_ported("write_snapshot_sparse",
                                     "Block-sparse AMR")
 read_snapshot_sparse = _not_ported("read_snapshot_sparse", "Block-sparse AMR")
+# the species of nested grids, one set per level: the JAX package's
+# species_extra(prefix=f"species{ell}") and read_species(tuple of templates)
+species_extra_ml = _not_ported("species_extra_ml", "L-level dense AMR")
+read_species_ml = _not_ported("read_species_ml", "L-level dense AMR")
 
 
 # the non-equilibrium prognostic state: chemistry_noneq.SpeciesState's fields
 SPECIES_FIELDS = (*SPECIES, "eint")
 
 
-def species_extra(species, prefix: str = "species0") -> dict:
+def species_extra(species) -> dict:
     """Snapshot payload for a chemistry_noneq.SpeciesState, at the run's
     full precision and grid shape: the 9-species abundances and internal
     energy are PROGNOSTIC, so a restart continues them instead of
     re-deriving them from equilibrium (the reference's restart restores
     every prognostic field, equiSources.f90:1071-1167).  The keys are the
-    JAX package's, `species0_{field}`; its other prefixes, one per level
-    of a nested grid, are not ported (ROADMAP, L-level dense AMR)."""
-    if prefix != "species0":
-        raise NotImplementedError(
-            f"species_extra(prefix={prefix!r}): per-level species of nested "
-            f"grids are not ported yet: ROADMAP, L-level dense AMR")
+    JAX package's, `species0_{field}`."""
     host = torch.stack([getattr(species, k) for k in SPECIES_FIELDS])
     host = host.detach().cpu().numpy()
-    return {f"{prefix}_{k}": host[i] for i, k in enumerate(SPECIES_FIELDS)}
+    return {f"species0_{k}": host[i] for i, k in enumerate(SPECIES_FIELDS)}
 
 
 def read_species(path: str, template):
@@ -156,13 +155,7 @@ def read_species(path: str, template):
 
     A snapshot with some of the species arrays, or with arrays of another
     shape than the grid's, raises ValueError: the restart stops there, it
-    never carries on from a fresh equilibrium.  A tuple of per-level
-    templates (nested grids, in the JAX package) raises
-    NotImplementedError."""
-    if isinstance(template, tuple):
-        raise NotImplementedError(
-            "read_species of per-level species (nested grids) is not "
-            "ported yet: ROADMAP, L-level dense AMR")
+    never carries on from a fresh equilibrium."""
     dtype, device = template.HI.dtype, template.HI.device
     shape = tuple(template.HI.shape)
     keys = [f"species0_{k}" for k in SPECIES_FIELDS]

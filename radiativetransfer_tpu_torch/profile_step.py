@@ -68,26 +68,66 @@ def _event_ms(fn):
     return out, start.elapsed_time(end)
 
 
+# the spin kernels that open and close each profiler window (_traced):
+# 20 of ~1 ms each (2e6 clock cycles)
+_MARKERS, _MARKER_CYCLES = 20, 2_000_000
+
+
 def _trace_kernels(prof) -> list[tuple[str, float, float]]:
     """(name, start us, end us) of every kernel, copy and set on the device
-    in a torch.profiler run, read from its chrome trace (prof.events()
-    builds a Python object per event, minutes at the noneq step's ~1e5
-    launches; the trace's export takes about a second)."""
+    in a torch.profiler run, by start, read from its chrome trace
+    (prof.events() builds a Python object per event, minutes at the noneq
+    step's ~1e5 launches; the trace's export takes about a second)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-            for e in events if e.get("ph") == "X" and e.get("cat") in (
-                "kernel", "gpu_memcpy", "gpu_memset")]
+    return sorted(((e["name"], float(e["ts"]), float(e["ts"] + e["dur"]))
+                   for e in events if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda x: x[1])
+
+
+def _markers() -> None:
+    for _ in range(_MARKERS):
+        torch.cuda._sleep(_MARKER_CYCLES)
+    torch.cuda.synchronize()
+
+
+def _traced(fn):
+    """(fn(), its device events), fn traced by a torch.profiler of its
+    own.  A profiler loses device events at the start of its window: up to
+    a dozen kernels of a layer (the same ten-kernel layer read 10, 0 and 1
+    launches in three runs), all 32 one-cycle spin kernels opening a
+    window in another run, and thousands in the second window of one
+    profiler (80,209 and 58,249 launches of one network step).  So fn runs
+    between _MARKERS spin kernels of ~1 ms each on either side, and its
+    events are those between the markers.  Raises unless a marker was
+    recorded on each side."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _markers()
+        out = fn()
+        torch.cuda.synchronize()
+        _markers()
+    events = _trace_kernels(prof)
+    inner = [i for i, e in enumerate(events) if "spin_kernel" not in e[0]]
+    if (not inner or inner[0] == 0 or inner[-1] == len(events) - 1
+            or inner[-1] - inner[0] + 1 != len(inner)):
+        raise RuntimeError(
+            f"a profiler window recorded {len(events) - len(inner)} of its "
+            f"2 x {_MARKERS} marker kernels, not one on each side of the "
+            f"traced call")
+    return out, events[inner[0]:inner[-1] + 1]
 
 
 def _layer(fn):
     """(fn(), device ms between CUDA events around it, host ms to enqueue
-    it, kernel launches): fn runs twice, the second time under
-    torch.profiler to count the kernels it launches (copies and sets
-    apart)."""
+    it, kernel launches): fn runs three times, the last two each traced
+    by a profiler of its own (_traced) to count the kernels it launches
+    (copies and sets apart).  Raises unless both traces count the same
+    kernels, and more than 0."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -97,13 +137,12 @@ def _layer(fn):
     end.record()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    launches = sum(1 for name, _, _ in _trace_kernels(prof)
-                   if not name.startswith(("Memcpy", "Memset")))
-    return out, start.elapsed_time(end), host_ms, launches
+    counts = [sum(1 for name, _, _ in events
+                  if not name.startswith(("Memcpy", "Memset")))
+              for _, events in (_traced(fn), _traced(fn))]
+    if counts[0] != counts[1] or counts[0] == 0:
+        raise RuntimeError(f"two traces of one layer count {counts} kernels")
+    return out, start.elapsed_time(end), host_ms, counts[0]
 
 
 def noneq_layers(model, state, species, ctx=None, mesh=None,
@@ -133,29 +172,30 @@ def noneq_layers(model, state, species, ctx=None, mesh=None,
     return {k: tuple(v) for k, v in rows.items()}
 
 
-def profiled(run, carry, steps: int = 2):
-    """`steps` calls of carry = run(carry) under torch.profiler: (carry,
-    wall s, device-busy s: the union of the device events' intervals,
-    device events per step, the 12 kernels of most device time as
-    (name, total ms, count))."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def profiled(run, box: list, steps: int = 2):
+    """`steps` calls of box[0] = run(box[0]) in one window of _traced
+    (the box lets each step drop its input, as a run's loop does): (wall
+    s, device-busy s: the union of the device events' intervals, device
+    events per step, the 12 kernels of most device time as (name, total
+    ms, count))."""
+    def body():
         t0 = time.perf_counter()
         for _ in range(steps):
-            carry = run(carry)
+            box[0] = run(box[0])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = _trace_kernels(prof)
+        return time.perf_counter() - t0
+
+    wall, spans = _traced(body)
     device_us, reach = 0.0, float("-inf")
     totals = {}
-    for name, start, end in sorted(spans, key=lambda x: x[1]):
+    for name, start, end in spans:
         device_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
         ms, count = totals.get(name, (0.0, 0))
         totals[name] = (ms + (end - start) / 1e3, count + 1)
     top = sorted(((k, ms, c) for k, (ms, c) in totals.items()),
                  key=lambda x: -x[1])[:12]
-    return carry, wall, device_us / 1e6, len(spans) / steps, top
+    return wall, device_us / 1e6, len(spans) / steps, top
 
 
 def _setup(n: int, level: int, mode: int, ranks: int, noneq: bool = False):
@@ -210,6 +250,7 @@ def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
         def run(c):
             return step(c)[0] if ctx is not None else step(c)
 
+    del state
     carry = run(carry)
     torch.cuda.synchronize()
 
@@ -244,7 +285,9 @@ def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
           f"f32: {', '.join(layers)}; card {smi}")
 
     torch.cuda.reset_peak_memory_stats()
-    carry, wall, busy, kernels, top = profiled(run, carry)
+    box = [carry]
+    del carry
+    wall, busy, kernels, top = profiled(run, box)
     for name, ms, count in top:
         print(f"  {ms:10.3f} ms {count:7d}x  {name[:100]}")
     print(f"{what}, 2 steps: wall {wall * 1e3:.3f} ms, device busy "

@@ -288,8 +288,12 @@ def _trace_noneq_both(dtype, volume=1.0):
         js, jstate.GridGeometry(N, N, N, BOX), jrays.SourceBatch(**src),
         tables, max_pixel_level=3, dtype=jd, rates_mode="quadrature_noneq")
     tgeom = rt.GridGeometry(N, N, N, BOX)
+    # the port's quad_W27 is per cell face area, the JAX package's per
+    # cell volume
+    t_tables = dict(tables,
+                    quad_W27=tables["quad_W27"] * tgeom.cell_size)
     t = trays.trace_point_sources(ts, tgeom, trays.SourceBatch(**src),
-                                  tables, max_pixel_level=3, dtype=dtype,
+                                  t_tables, max_pixel_level=3, dtype=dtype,
                                   rates_mode="quadrature_noneq")
     plain = trays.trace_point_sources(ts, tgeom, trays.SourceBatch(**src),
                                       tables, max_pixel_level=3, dtype=dtype,
@@ -304,11 +308,12 @@ def test_quadrature_noneq_deposits_match_jax(dtype, rel):
     and the spectrum-exhaustion kill, whose envelope now bounds the
     k27..k31 weights too, on both sides; 1e-5 of the peak, as
     tests/test_torch_rays.py holds f32 traces.  The weights are divided by
-    1e48, not by the cell volume (1.9e68 here) as StellarContext divides
-    them: that puts every k27..k31 weight below float32's normal range
-    (8.6e-39 at most), where XLA's CPU flushes to zero and PyTorch keeps
-    the subnormals (ROADMAP, faults found in the port); over 1e48 the
-    subnormal ones are below 1e-20 of the largest."""
+    1e48, not by the cell volume (1.9e68 here) as the JAX package's
+    StellarContext divides them: that puts every k27..k31 weight below
+    float32's normal range (8.6e-39 at most), where XLA's CPU flushes to
+    zero (ROADMAP, faults found in the port); over 1e48 the subnormal ones
+    are below 1e-20 of the largest.  The port's own scaling is held in
+    test_noneq_deposits_f32_at_production_scaling."""
     volume = 1.0 if dtype == torch.float64 else 1e48
     (jrf, jdiag), (trf, tdiag), (prf, pdiag) = _trace_noneq_both(dtype,
                                                                  volume)
@@ -333,6 +338,45 @@ def test_quadrature_noneq_deposits_match_jax(dtype, rel):
         k = getattr(trf, f"krate{c}").numpy()
         assert np.all(np.isfinite(k)) and np.all(k >= 0.0), c
         assert k.max() > 0.0, c
+
+
+@pytest.mark.parametrize("flush", [False, True])
+def test_noneq_deposits_f32_at_production_scaling(flush):
+    """The port's float32 deposits with the weights StellarContext.build
+    makes (16^3 in a 300 kpc box, 3 sources of q = 5e48, seed 11), held
+    against its float64 trace of the same inputs within 1e-5 of each
+    channel's peak, as float32 traces are held (measured: 7.2e-7).
+    flush: float32 subnormals flushed to zero during the float32 trace,
+    as XLA's CPU does and a device may; over the cell volume every
+    k27..k31 weight here is subnormal and then deposits nothing, over the
+    face area the largest is 1.8e-16.  Flushed, the band heating channels
+    are held within 1e-4: crate25 peaks at 2.9e-33 erg/cm^3/s and its
+    deposits reach below 1.2e-38, float32's smallest normal, so it loses
+    1.7e-5 of its peak (ROADMAP, faults found in the port)."""
+    geom = rt.GridGeometry(N, N, N, BOX)
+    src = trays.SourceBatch(**dict(_sources(),
+                                   table_idx=np.zeros(3, np.int32)))
+    pop = tstellar.blackbody_population(q_ionizing=5.0e48)
+    rf = {}
+    for dtype in (torch.float64, torch.float32):
+        ctx = rt.StellarContext.build(pop, src, geom, 10.0 * MYR,
+                                      metal_coefs=[(0, 0.0)],
+                                      max_pixel_level=3, noneq=True,
+                                      dtype=dtype, device="cpu")
+        state = rt.make_state(**_fields(), dtype=dtype, device="cpu")
+        torch.set_flush_denormal(flush and dtype == torch.float32)
+        try:
+            rf[dtype], _ = trays.trace_point_sources(
+                state, geom, ctx.sources, ctx.tables, max_pixel_level=3,
+                dtype=dtype, rates_mode="quadrature_noneq")
+        finally:
+            torch.set_flush_denormal(False)
+    for f in dataclasses.fields(rf[torch.float64]):
+        rel = 1e-4 if flush and f.name.startswith("crate") else 1e-5
+        _assert_peak_close(getattr(rf[torch.float32], f.name).double(),
+                           getattr(rf[torch.float64], f.name), rel, f.name)
+    for c in range(27, 32):
+        assert float(getattr(rf[torch.float64], f"krate{c}").max()) > 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -388,8 +432,11 @@ def test_noneq_step_matches_jax(mode, n, evolve_energy):
     jc = tc = None
     if mode == MODE_BOTH_STELLAR_UVB_TRANSFER:
         jc, tc = _contexts(jg, tg)
-        np.testing.assert_array_equal(tc.tables["quad_W27"].numpy(),
-                                      np.asarray(jc.tables["quad_W27"]))
+        # the port's quad_W27 is per cell face area, the JAX package's per
+        # cell volume
+        np.testing.assert_allclose(
+            tc.tables["quad_W27"].numpy() / tg.cell_size,
+            np.asarray(jc.tables["quad_W27"]), rtol=1e-15, atol=0)
     kw = dict(n_substeps=20, evolve_energy=evolve_energy)
     j_step = jm.make_noneq_step(2.0 * MYR, jc, **kw)
     t_step = tm.make_noneq_step(2.0 * MYR, tc, **kw)
