@@ -6,8 +6,8 @@
 Drives radiativetransfer_tpu_torch's paths through their public entry
 points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
 8 (point sources + UVB), the roofline script, the bench, mode 9 on a 1-D
-grid mesh, the CLI from files and the non-equilibrium chemistry -- and
-holds each hand-written kernel
+grid mesh, the CLI from files, the non-equilibrium chemistry and two-level
+AMR -- and holds each hand-written kernel
 against its plain PyTorch version.  Phases, one line or more each; any
 failure raises and the script exits non-zero:
 
@@ -123,7 +123,33 @@ failure raises and the script exits non-zero:
     through python -m from the itime-1 snapshot (its itime 2 within 1e-4
     of this process's), noneq mode 8 with the 12 sources, 2 iterations,
     and noneq mode 9 on 4 ranks through rdma and zones, 1 iteration each
-    (neutral fraction and HI within 1e-4 of one device's).
+    (neutral fraction and HI within 1e-4 of one device's);
+18. two-level AMR (core/step_amr.py::AMRModel, plain PyTorch: no
+    hand-written kernel runs on it, and every kernel's count is held
+    across the phase but for check (c)): (a) 3 f64 mode-9 steps at 24^3
+    with its refined centre, level 2, on the card against the CPU's (every
+    species within 1e-9 of its peak on both levels); (b) the full-width
+    cell, make_test_data.py's galaxy at 128^3 with its central half
+    refined (262,144 parents, a dense 256^3 fine level) x 192 f32: the
+    inputs written and ingested (amr_from_levels), the plan's setup, one
+    step layer by layer (profile_step.amr_layers: opacity and chemistry
+    on each level, the sweep, sync_restriction; CUDA events and host ms),
+    peak memory, the neutral fraction below its start, one zone's first
+    32 and 16 base slabs traced at the full width (launches, the
+    device-busy share), the sweep's bytes floor, write_snapshot_amr
+    timed; (c) 64^3 with nothing refined: the two-level step against the
+    uniform step through the cluster kernel in the exact logmean form
+    (base Jmean and the neutral fraction within 1e-4); (d) the CLI on
+    the two-level 32^3 grid with its central half refined (cut from
+    128^3: (b) times the full width, (d) covers the CLI's branch), mode
+    9, 2 iterations, a restart of one through python -m from the itime-1
+    snapshot (within 1e-4), mode 8 on the 128^3 grid refused before the
+    grid is ingested; (e) the launches of each layer at 32^3, level 3,
+    from two profiler windows that must agree, the sweep's by zone (one
+    zone at 32^3 from two windows, equal to (b)'s first 32 slabs at
+    128^3 width; (b)'s 16 and 32 slabs: the launches a base slab and a
+    zone, whence a whole zone's count at 128^3, derived); the profiler
+    windows the phase took again (profile_step.RETAKES).
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -133,6 +159,7 @@ without a CUDA device.  Needs no JAX and no network.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -179,13 +206,16 @@ def _kappa(n: int, dtype=torch.float32, seed: int = 42) -> torch.Tensor:
 
 
 def write_cli_inputs(directory: str, n: int, mode: int = 9,
-                     restart: int = 0) -> str:
+                     restart: int = 0, refine_center: bool = False,
+                     refine_core: bool = False) -> str:
     """The CLI's inputs in `directory`, made as examples/make_test_data.py
     makes them (that script imports the JAX package, so the formulas are
     copied and the grid written with the port's own grid_io): the
     synthetic galaxy `testgrid_velmet.npz` (n^3 cells in a 300 kpc box,
-    seed 0, velocities and metals), `testsources.dat` (12 sources, seed 1,
-    ages 1-30 Myr) and `inputParameters` (its keys: z 6.55,
+    seed 0, velocities and metals; with refine_center its level-2 cells
+    over the central half of each axis, with refine_core also level-3
+    cells over the central quarter), `testsources.dat` (12 sources, seed
+    1, ages 1-30 Myr) and `inputParameters` (its keys: z 6.55,
     selfShieldingThreshold 0.1 kpc, upperAgeLimit 34 Myr, reionizationModel
     10; the given mode and restart; the default angular level 3, 192
     directions).  Returns the config's path."""
@@ -193,22 +223,38 @@ def write_cli_inputs(directory: str, n: int, mode: int = 9,
     os.makedirs(directory, exist_ok=True)
     box_kpc, n_src = 300.0, 12
     rng = np.random.default_rng(0)
-    ax = (np.arange(n) + 0.5) / n * box_kpc - box_kpc / 2
-    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
-    pos = np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1).astype(
-        np.float32)
-    r = np.sqrt(x ** 2 + y ** 2 + z ** 2).ravel()
-    nh = 3e-3 * (1.0 + (r / (0.15 * box_kpc)) ** 2) ** -1
-    nh = nh * rng.lognormal(0.0, 0.4, nh.shape)
-    vel = rng.normal(0, 30, (n ** 3, 3)).astype(np.float32)
-    abun = np.zeros((n ** 3, 4), np.float32)
-    abun[:, 1] = 0.004 * np.exp(-r / (0.3 * box_kpc))
-    grid_io.write_level_npz(
-        os.path.join(directory, "testgrid_velmet.npz"),
-        [grid_io.LevelData(pos=pos, lT=np.full(nh.shape, 4.0, np.float32),
-                           lnH=np.log10(nh).astype(np.float32),
-                           lx=np.zeros(nh.shape, np.float32), vel=vel,
-                           abun=abun)])
+
+    def galaxy(pos):
+        """One level's cells at `pos` (kpc): the density profile with
+        lognormal fluctuations, velocities and metals, drawn from rng."""
+        r = np.sqrt((pos.astype(np.float64) ** 2).sum(axis=1))
+        nh = 3e-3 * (1.0 + (r / (0.15 * box_kpc)) ** 2) ** -1
+        nh = nh * rng.lognormal(0.0, 0.4, nh.shape)
+        vel = rng.normal(0, 30, (len(nh), 3)).astype(np.float32)
+        abun = np.zeros((len(nh), 4), np.float32)
+        abun[:, 1] = 0.004 * np.exp(-r / (0.3 * box_kpc))
+        m = len(nh)
+        return grid_io.LevelData(
+            pos=pos.astype(np.float32), lT=np.full(m, 4.0, np.float32),
+            lnH=np.log10(nh).astype(np.float32),
+            lx=np.zeros(m, np.float32), vel=vel, abun=abun)
+
+    def centers(first: int, per_cell: int):
+        """Cell centers (kpc) of the level with per_cell cells a base
+        cell, over base cells first .. n - first - 1 of each axis."""
+        ax = np.array([(i + (j + 0.5) / per_cell) / n * box_kpc - box_kpc / 2
+                       for i in range(first, n - first)
+                       for j in range(per_cell)])
+        x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+        return np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1)
+
+    levels = [galaxy(centers(0, 1))]
+    if refine_center:
+        levels.append(galaxy(centers(n // 4, 2)))
+    if refine_center and refine_core:
+        levels.append(galaxy(centers(3 * n // 8, 4)))
+    grid_io.write_level_npz(os.path.join(directory, "testgrid_velmet.npz"),
+                            levels)
     rng = np.random.default_rng(1)
     rows = []
     for _ in range(n_src):
@@ -2149,6 +2195,323 @@ def phase_noneq(smi: str) -> dict:
     return out
 
 
+def _kernel_counts() -> dict:
+    """Every hand-written kernel's launches so far, by kernel."""
+    from radiativetransfer_tpu_torch.core import (
+        probes_cuda,
+        scatter_cuda,
+        sweep_cluster,
+        sweep_cuda,
+        variants_cuda,
+    )
+    from radiativetransfer_tpu_torch.parallel import sweep_rdma
+    return {"sweep_cluster": sweep_cluster.LAUNCHES,
+            "sweep_merged": sweep_cuda.LAUNCHES,
+            "sweep_zone_cluster": sweep_cluster.ZONE_LAUNCHES,
+            "sweep_zone": sweep_cuda.ZONE_LAUNCHES,
+            "sweep_zone_ring_cluster": sweep_rdma.RING_LAUNCHES,
+            "sweep_zone_rdma": sweep_rdma.RDMA_LAUNCHES,
+            "probes": sum(probes_cuda.LAUNCHES.values()),
+            "scatter_rows": scatter_cuda.LAUNCHES,
+            "scatter_red_floor": scatter_cuda.FLOOR_LAUNCHES,
+            "sweep_variants": sum(variants_cuda.LAUNCHES.values()),
+            "sweep_variants_cluster": sum(
+                variants_cuda.CLUSTER_LAUNCHES.values())}
+
+
+def phase_amr(smi: str) -> dict:
+    """18: two-level AMR (core/step_amr.py::AMRModel, the CLI on a
+    two-level grid) on the card.  Its sweep is plain PyTorch: the path
+    launches none of the hand-written kernels (every count is held), but
+    check (c), which holds it against the uniform step through the
+    cluster kernel."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_amr(tmp, smi)
+
+
+def _phase_amr(tmp: str, smi: str) -> dict:
+    """phase_amr's checks, with `tmp` a directory of their own."""
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch import profile_step
+    from radiativetransfer_tpu_torch.config import MODE_UVB_TRANSFER_ONLY
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import (
+        amr,
+        probes_cuda,
+        step_amr,
+        sweep_cluster,
+    )
+    from radiativetransfer_tpu_torch.io import grid_io, snapshot
+    from radiativetransfer_tpu_torch.profile_step import galaxy_state
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+
+    def model(n, level, dtype, device, **kw):
+        cfg = rt.RunConfig(mode=MODE_UVB_TRANSFER_ONLY, current_redshift=6.55,
+                           n_angular_level=level, reionization_model=10,
+                           self_shielding_threshold_kpc=0.1, **kw)
+        return rt.RTModel.setup(cfg, rt.GridGeometry(n, n, n, 300.0 * KPC),
+                                dtype, device)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    def equilibrium(m, state):
+        return amr.sync_restriction(dataclasses.replace(
+            state, base=m.initialize_equilibrium(state.base),
+            fine=m.initialize_equilibrium(state.fine)))
+
+    def ingest(inputs, dtype, device):
+        path = os.path.join(inputs, "testgrid_velmet.npz")
+        return timed(lambda: amr.amr_from_levels(
+            grid_io.read_level_npz(path), True, dtype, device=device)[0])
+
+    counts0 = _kernel_counts()
+    retakes0 = profile_step.RETAKES
+    inputs24, inputs32, inputs = (os.path.join(tmp, f"inputs{k}")
+                                  for k in (24, 32, 128))
+
+    # (a) 24^3 with its refined centre, level 2, f64: 3 steps on the card
+    # against the same steps on the CPU, from the CPU's equilibrium
+    cpu = model(24, 2, f64, "cpu")
+    write_cli_inputs(inputs24, 24, refine_center=True)
+    arrays = equilibrium(cpu, ingest(inputs24, f64, "cpu")[0]).to_numpy()
+    runs = {}
+    threads = torch.get_num_threads()
+    for device, m in (("cpu", cpu), (DEVICE, model(24, 2, f64, DEVICE))):
+        am = step_amr.AMRModel.setup(m)
+        st = amr.AMRState.from_numpy(arrays, dtype=f64, device=device)
+        step = am.make_step()
+
+        def three(st=st, step=step):
+            for _ in range(3):
+                st = step(st)
+            return st
+        # the eager CPU steps' small ops run fastest on one thread
+        torch.set_num_threads(1 if device == "cpu" else threads)
+        st, dt = timed(three)
+        runs[device] = (st, dt, am.neutral_fraction(st))
+    torch.set_num_threads(threads)
+    worst = 0.0
+    for level in ("base", "fine"):
+        for name in ("HI", "HeI", "HeII"):
+            a = getattr(getattr(runs[DEVICE][0], level), name).cpu()
+            b = getattr(getattr(runs["cpu"][0], level), name)
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    print(f"[18 amr] 24^3 + {int(runs['cpu'][0].refined.sum())} refined "
+          f"parents, level 2, f64 mode 9, 3 steps: card {runs[DEVICE][1]:.3f}"
+          f" s, CPU {runs['cpu'][1]:.3f} s; neutral fraction "
+          f"{runs[DEVICE][2]:.10f} (CPU {runs['cpu'][2]:.10f}); species max "
+          f"diff {worst:.2e} of each peak (tol 1e-9)")
+    assert worst <= 1e-9, worst
+    assert _kernel_counts() == counts0, "the two-level step launched a kernel"
+    del runs, arrays, cpu
+
+    # (b) the full-width cell, f32: make_test_data's galaxy at 128^3 with
+    # its refined centre, 192 directions; one step layer by layer
+    n, level = MAIN_N, MAIN_LEVEL
+    config, write_s = timed(lambda: write_cli_inputs(inputs, n,
+                                                     refine_center=True))
+    state, ingest_s = ingest(inputs, f32, DEVICE)
+    m = model(n, level, f32, DEVICE)
+    am, plan_s = timed(lambda: step_amr.AMRModel.setup(m))
+    state, eq_s = timed(lambda: equilibrium(m, state))
+    n_ref = int(state.refined.sum())
+    nf0 = am.neutral_fraction(state)
+    print(f"[18 amr] {n}^3 + {n_ref} refined parents ({8 * n_ref} fine "
+          f"leaves in a dense {2 * n}^3 level): inputs written in "
+          f"{write_s:.3f} s, ingested (read_level_npz + amr_from_levels onto "
+          f"the card) in {ingest_s:.3f} s, plan setup "
+          f"(build_amr_sweep_plan) {plan_s:.3f} s, equilibrium of both "
+          f"levels {eq_s:.3f} s (host); neutral fraction {nf0:.7f}")
+    torch.cuda.reset_peak_memory_stats()
+    (state1, rows), step_s = timed(lambda: profile_step.amr_layers(
+        am, state, count=()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nf1 = am.neutral_fraction(state1)
+    print(f"[18 amr] {n}^3 x 192 f32 two-level step: {step_s:.3f} s, layers "
+          "(device ms by CUDA events / host ms to enqueue): " + ", ".join(
+              f"{k} {ms:.3f} / {host:.3f}" for k, (ms, host, _) in
+              rows.items())
+          + f"; neutral fraction {nf0:.7f} -> {nf1:.7f}; peak device memory "
+          f"{peak:.3f} GiB; {smi}")
+    assert np.isfinite(nf1) and 0.0 < nf1 < nf0, (nf0, nf1)
+    assert all(bool(torch.isfinite(getattr(s, k)).all())
+               for s in (state1.base, state1.fine)
+               for k in ("HI", "HeI", "HeII", "Jmean"))
+    # one zone's first 32 and 16 base slabs at the full plane width, each
+    # in profiler windows of their own (a window of the whole zone, 60,333
+    # launches, lost its markers after phases 1-17 in two runs)
+    zone_wall, zone_busy, zone_32 = profile_step.amr_zone_window(
+        am, state1, slabs=32)
+    zone_16 = profile_step.amr_zone_launches(am, state1, slabs=16)
+    zones = len(am.plan.zones)
+    # the sweep's compulsory bytes: both levels' opacities and the refined
+    # map read once, both levels' Jmean written once
+    floor_mb = (2 * 3 * 4 * (n ** 3 + (2 * n) ** 3) + n ** 3) / 1e6
+    print(f"[18 amr] one zone's sweep at {n}^3 width "
+          f"({am.plan.zones[0].ndir} directions), its first 32 base slabs: "
+          f"wall {zone_wall * 1e3:.3f} ms, device busy "
+          f"{zone_busy * 1e3:.3f} ms ({100 * zone_busy / zone_wall:.2f}%), "
+          f"{zone_32} launches; 16 slabs {zone_16} launches (two windows); "
+          f"{zones} zones x {n} slabs: ~{zones * n / 32 * zone_busy:.2f} s "
+          f"of the card's time against the sweep's bytes floor of "
+          f"{floor_mb:.1f} MB, "
+          f"{1e9 * floor_mb / probes_cuda.HBM_BYTES_PER_S:.4f} ms at "
+          f"{probes_cuda.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    path = os.path.join(tmp, "cellArray0001.npz")
+    _, snap_s = timed(lambda: snapshot.write_snapshot_amr(
+        path, state1, 1, m.geom.physical_box_size))
+    snap_mb = os.path.getsize(path) / 1e6
+    print(f"[18 amr] write_snapshot_amr at {n}^3 + {n_ref} parents "
+          f"({state1.n_leaves()} leaves): {snap_s:.3f} s (host; "
+          f"{snap_mb:.1f} MB compressed)")
+    assert _kernel_counts() == counts0, "the two-level step launched a kernel"
+    out.update(step_s=step_s, layers=rows, peak_gib=peak, plan_s=plan_s,
+               ingest_s=ingest_s, write_snapshot_s=snap_s,
+               zone_busy_share=zone_busy / zone_wall, nf=(nf0, nf1))
+    del state, state1, am, m
+
+    # (c) 64^3, nothing refined: the plain two-level step against the
+    # uniform step through the cluster kernel (#1) in the exact logmean
+    # form, the form of the two-level sweep (the clamped form, f32's
+    # default, is 1.6e-4 of the peak apart there)
+    m = model(64, level, f32, DEVICE, sweep_logmean="exact")
+    am = step_amr.AMRModel.setup(m)
+    base = m.initialize_equilibrium(galaxy_state(64, 300.0, DEVICE))
+    _zero_sweep_launches()
+    uni = m.make_step()(base)
+    two = am.make_step()(amr.make_amr_state(
+        base, torch.zeros((64,) * 3, dtype=torch.bool, device=DEVICE)))
+    torch.cuda.synchronize()
+    j_err = max(float((two.base.Jmean[b] - uni.Jmean[b]).abs().max()
+                      / uni.Jmean[b].abs().max()) for b in range(3))
+    nf_u, nf_t = m.neutral_fraction(uni), am.neutral_fraction(two)
+    nf_rel = abs(nf_t - nf_u) / nf_u
+    print(f"[18 amr] 64^3 x 192 f32, nothing refined: two-level step base "
+          f"Jmean max diff {j_err:.2e} of each band's peak, neutral fraction "
+          f"{nf_t:.7f} against {nf_u:.7f} (rel {nf_rel:.2e}), both tol 1e-4, "
+          f"from the uniform step through the cluster kernel "
+          f"({sweep_cluster.LAUNCHES} launch)")
+    assert j_err <= 1e-4 and nf_rel <= 1e-4, (j_err, nf_rel)
+    assert _sweep_launches() == (1, 0)
+    out["uniform_check_launches"] = sweep_cluster.LAUNCHES
+    del uni, two, base, am, m
+    counts0 = _kernel_counts()
+
+    # (d) the CLI on a two-level grid, mode 9: 2 iterations, a restart of
+    # one through python -m from the itime-1 snapshot; mode 8 on the
+    # full-width grid raises before the grid is ingested.  The grid is
+    # 32^3 with its central half refined: the branch, the snapshot and
+    # the restart are the same at any width, (b) times the full width,
+    # and the iterations are launch-bound (~25 s at 128^3, ~14 s at
+    # 64^3), so a wider grid puts the phase over its budget
+    n_cli = out["cli_n"] = 32
+    config32 = write_cli_inputs(inputs32, n_cli, refine_center=True)
+    d9 = os.path.join(tmp, "amr9")
+    out9, call9 = _cli(config32, d9, "--iters", "2", tag="18 amr")
+    log9 = _time_log(d9)
+    dts = _iteration_dts(out9, n_cli ** 3 * 192)
+    assert (f"grid: {n_cli}^3 + refined level ({(n_cli // 2) ** 3} "
+            f"parents)") in out9, out9
+    assert list(log9) == [1, 2] and all(
+        0.0 < v < 1.0 for v in log9.values()), log9
+    assert all(os.path.exists(snapshot.snapshot_name(i, d9))
+               for i in (1, 2))
+    print(f"[18 amr] CLI mode 9 on the two-level {n_cli}^3 grid: call "
+          f"{call9:.3f} s, iterations' dt {_fmt(dts)} s, neutral "
+          f"fractions {list(log9.values())}")
+    dr = os.path.join(tmp, "restart")
+    os.makedirs(dr)
+    shutil.copy(snapshot.snapshot_name(1, d9), dr)
+    restart = _config_variant(config32, os.path.join(tmp, "restart.cfg"),
+                              restart=1)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "radiativetransfer_tpu_torch.cli",
+         restart, "--snapshot-dir", dr, "--iters", "1"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    restart_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[18 amr]   {line}")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
+            in proc.stdout), proc.stdout
+    nf_sub = _time_log(dr)[2]
+    rel = abs(nf_sub - log9[2]) / log9[2]
+    print(f"[18 amr] restart: python -m ...cli {restart_s:.3f} s, itime "
+          f"2 neutral fraction {nf_sub:.8f} against {log9[2]:.8f} in "
+          f"this process (rel {rel:.2e}, tol 1e-4)")
+    assert rel <= 1e-4, (nf_sub, log9[2])
+    mode8 = _config_variant(config, os.path.join(tmp, "mode8.cfg"),
+                            mode=8)
+    d8 = os.path.join(tmp, "amr8")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            from radiativetransfer_tpu_torch import cli
+            cli.main([mode8, "--snapshot-dir", d8, "--iters", "1"])
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("mode 8 ran on the two-level grid")
+    refused_s = time.perf_counter() - t0
+    print(f"[18 amr] CLI mode 8 on the two-level {n}^3 grid: refused in "
+          f"{refused_s:.3f} s: {refusal}")
+    assert "ROADMAP, Two-level AMR PR b" in refusal
+    assert "grid:" not in buf.getvalue(), "refused after ingestion"
+    assert not os.path.exists(os.path.join(d8, "time"))
+    assert _kernel_counts() == counts0, "the two-level CLI launched a kernel"
+    out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s)
+
+    # (e) launches per layer at 32^3, level 3, each from two profiler
+    # windows that must agree (profile_step.amr_layers), the sweep's zone
+    # by zone: a zone's launches do not depend on the plane's width (the
+    # 32^3 zone's two windows against (b)'s first 32 slabs at 128^3), and
+    # (b)'s 16 and 32 slabs give its launches per base slab and per zone,
+    # so the zones' count at 128^3 but for the wrapper's rotations and
+    # sums (the whole 32^3 sweep traced twice takes minutes: profile_step
+    # 32 3 9 0 0 1 does it)
+    m = model(32, level, f32, DEVICE)
+    am = step_amr.AMRModel.setup(m)
+    st = profile_step.amr_galaxy(m, device=DEVICE)
+    counted = tuple(k for k in profile_step.AMR_LAYERS if k != "sweep")
+    st, rows32 = profile_step.amr_layers(am, st, count=counted)
+    zone32 = profile_step.amr_zone_launches(am, st)
+    per_slab, rest = divmod(zone_32 - zone_16, 16)
+    setup = zone_16 - 16 * per_slab
+    # torch.stack of more than 128 slab planes takes a launch per 128: the
+    # 256 fine planes of a 128^3 zone one more than 128 or fewer
+    stacks = sum(-(-k // 128) for k in (n, 2 * n)) - 2
+    zone128 = setup + n * per_slab + stacks
+    print(f"[18 amr] 32^3 level {level} launches per layer (two agreeing "
+          f"traces): " + ", ".join(f"{k} {v[2]}" for k, v in rows32.items()
+                                   if k != "sweep")
+          + f"; one zone's sweep {zone32} (two agreeing traces), its first "
+          f"32 slabs at {n}^3 width {zone_32}: {per_slab} per base slab "
+          f"(remainder {rest}) and {setup} per zone; derived from these, "
+          f"not traced: a whole zone at {n}^3 {zone128} ({stacks} for its "
+          f"stacks), the sweep {zones} zones x {zone128} = "
+          f"{zones * zone128} launches and its wrapper's")
+    assert zone32 == zone_32, (zone32, zone_32)
+    assert rest == 0 and per_slab > 0, (zone_16, zone_32)
+    assert _kernel_counts() == counts0, "the two-level step launched a kernel"
+    phase_s = time.perf_counter() - t_phase
+    retakes = profile_step.RETAKES - retakes0
+    print(f"[18 amr] phase 18: {phase_s:.1f} s, {retakes} profiler windows "
+          f"taken again for lost markers (profile_step.RETAKES); {smi}")
+    out.update(launches32=rows32, per_slab=per_slab, zone128=zone128,
+               phase_s=phase_s, retakes=retakes)
+    return out
+
+
 def main() -> None:
     smi = phase_probe()
     phase_build()
@@ -2167,6 +2530,7 @@ def main() -> None:
     mesh = phase_mesh(smi)
     cli = phase_cli(smi)
     noneq = phase_noneq(smi)
+    amr_out = phase_amr(smi)
     # the cluster sweep kernel's launches on each path that runs it, each
     # count set to 0 just before its path (the plane kernel's: phase 6);
     # the CLI's mesh runs take the ring's and the per-zone kernel's
@@ -2177,7 +2541,8 @@ def main() -> None:
                    "bench": bench_out["launches"]["sweep"],
                    "exp_sweep_pair": pair["sweep_launches"],
                    "exp_sweep_variants": variants["sweep_launches"],
-                   **cli["launches"], **noneq["launches"]}
+                   **cli["launches"], **noneq["launches"],
+                   "amr_uniform_check": amr_out["uniform_check_launches"]}
     assert all(v > 0 for v in sweep_paths.values()), sweep_paths
     assert times["launches"]["plane"] > 0
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)

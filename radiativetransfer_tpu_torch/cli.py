@@ -1,4 +1,4 @@
-"""Command-line entry point: the `program pointTransfer` analog, uniform grids.
+"""Command-line entry point: the `program pointTransfer` analog.
 
 Counterpart of the JAX package's cli.py, with the same flags, the same
 printed lines and the same files, so a run can be restarted by either
@@ -27,9 +27,18 @@ The run is on the card (`--platform cuda`, the default) or, when asked, on
 the CPU; without a CUDA device a cuda run fails, it does not fall back to
 the CPU.  A mesh (`--mesh-shape P` or an explicit `--sweep-strategy`) is P
 virtual ranks on that one device (parallel/mesh.py); the JAX CLI spreads
-its mesh over every device it sees.  Not ported yet, and refused before any
-work with NotImplementedError naming their ROADMAP entries: grids with
-more than one data level (the AMR storage forms), `.h4` grids,
+its mesh over every device it sees.
+
+A grid of two data levels (or more, under `--amr-depth 2`, the deeper
+levels averaged onto the second) runs as two-level AMR
+(core/step_amr.py::AMRModel) in modes 9 and 6, and its diagnostic modes 2,
+3, 4 and 7 read the base level, as the JAX CLI's do; its snapshots are
+cellArray leaf streams (io/snapshot.py::write_snapshot_amr).
+
+Not ported yet, and refused before any work with NotImplementedError
+naming their ROADMAP entries: grids of more than two data levels under
+`--amr-depth` > 2 (the L-level and block-sparse forms), modes 1 and 8,
+`--chemistry noneq` and a mesh on a two-level grid, `.h4` grids,
 `--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`, point
 sources on a mesh and the multi-process flags.
 """
@@ -55,7 +64,7 @@ from .config import (
     load_config,
 )
 from .constants import KPC, MYR
-from .core import chemistry_noneq
+from .core import amr, chemistry_noneq, step_amr
 from .core import step as step_mod
 from .core.rays import cosmic_spectrum, escape_fractions
 from .io import diagnostics, grid_io, snapshot, sources_io
@@ -140,9 +149,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-format", choices=("npz", "orbax"), default="npz",
                     help="snapshot format: cellArray .npz (default); orbax "
                          "is not ported yet and raises")
-    # the AMR storage knobs: accepted for the JAX CLI's command lines; a
-    # grid with more than one data level raises before they matter
-    ap.add_argument("--amr-depth", type=int, default=4)
+    ap.add_argument("--amr-depth", type=int, default=4,
+                    help="levels a nested grid runs with: 2 runs a grid of "
+                         "more than two data levels as two-level AMR (the "
+                         "deeper levels averaged onto the second); deeper "
+                         "(the L-level and block-sparse forms) raises")
+    # the L-level and block-sparse knobs: accepted for the JAX CLI's
+    # command lines; the grids they apply to raise before they matter
     ap.add_argument("--amr-storage", choices=("auto", "dense", "sparse"),
                     default="auto")
     ap.add_argument("--block-edge", type=int, default=8)
@@ -187,24 +200,46 @@ def _read_levels(cfg):
     sys.exit(f"grid not found: {grid_path}(.npz|.h4|.dat)")
 
 
-def _refuse_amr(levels, amr_depth: int) -> None:
+def _use_amr(levels, args, cfg, mesh, noneq: bool) -> bool:
+    """Whether the grid runs as two-level AMR, as the JAX CLI decides it
+    (two data levels, or more under --amr-depth 2); NotImplementedError
+    naming the ROADMAP item, before any work, for a nested grid the port
+    does not run yet."""
     n_data_levels = sum(1 for lv in levels if lv.ncell > 0)
-    if n_data_levels > 1:
-        item = ("L-level dense AMR and Block-sparse AMR"
-                if n_data_levels > 2 and amr_depth > 2 else "Two-level AMR")
+    if n_data_levels <= 1:
+        return False
+    if n_data_levels > 2 and args.amr_depth > 2:
         raise NotImplementedError(
-            f"a grid of {n_data_levels} data levels is not ported yet: "
-            f"ROADMAP, {item}")
+            f"a grid of {n_data_levels} data levels under --amr-depth "
+            f"{args.amr_depth} (the L-level and block-sparse storage forms) "
+            f"is not ported yet: ROADMAP, L-level dense AMR and "
+            f"Block-sparse AMR")
+    refused = [
+        (cfg.run_stellar_transfer,
+         f"mode {cfg.mode} (point sources) on a two-level AMR grid",
+         "Two-level AMR PR b (core/rays_amr.py)"),
+        (noneq, "--chemistry noneq on a two-level AMR grid (the JAX CLI "
+         "runs it through MultiLevelModel(2))", "L-level dense AMR"),
+        (mesh is not None, "a mesh on a two-level AMR grid "
+         "(shard_amr_state)", "Distribution"),
+    ]
+    for hit, what, item in refused:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP, "
+                                      f"{item}")
+    return True
 
 
-def _check_finite(state, itime: int) -> None:
+def _check_finite(states, itime: int) -> None:
     """--debug-nans: FloatingPointError naming the first non-finite
-    field."""
-    for f in dataclasses.fields(state):
-        x = getattr(state, f.name)
-        if torch.is_tensor(x) and not bool(torch.isfinite(x).all()):
-            raise FloatingPointError(
-                f"non-finite values in state.{f.name} after itime={itime}")
+    field of the FieldStates given (a two-level run's base, then fine)."""
+    for state in states:
+        for f in dataclasses.fields(state):
+            x = getattr(state, f.name)
+            if torch.is_tensor(x) and not bool(torch.isfinite(x).all()):
+                raise FloatingPointError(
+                    f"non-finite values in state.{f.name} after "
+                    f"itime={itime}")
 
 
 def _restore_noneq(species, restart_snap):
@@ -259,9 +294,17 @@ def main(argv=None):
         for i, lv in enumerate(levels):
             print(f"level = {i + 1}  cells = {lv.ncell}")
         return
-    _refuse_amr(levels, args.amr_depth)
-    state, geom = grid_io.build_uniform_state(levels, cfg.read_metals,
+    use_amr = _use_amr(levels, args, cfg, mesh, noneq)
+    amr_state = None
+    if use_amr:
+        amr_state, geom = amr.amr_from_levels(levels, cfg.read_metals,
                                               dtype=dtype, device=device)
+        state = amr_state.base
+        print(f"grid: {geom.nx}^3 + refined level "
+              f"({int(amr_state.refined.sum())} parents)")
+    else:
+        state, geom = grid_io.build_uniform_state(levels, cfg.read_metals,
+                                                  dtype=dtype, device=device)
     print(f"grid: {geom.nx}^3, box = {geom.physical_box_size / KPC:.1f} kpc")
 
     if cfg.mode == MODE_CLUMPING_FACTOR:
@@ -299,7 +342,9 @@ def main(argv=None):
         ab2 = state.abun2.detach().cpu().numpy()
         batch, host, n_young = sources_io.prepare_sources(
             stars, geom.nx, cfg.upper_age_limit, abun2=ab2,
-            metal_bucket_edges=metal_edges)
+            metal_bucket_edges=metal_edges,
+            refined=(amr_state.refined.detach().cpu().numpy() if use_amr
+                     else None))
         print(f"nStars/specificAge/non-degenerate = {len(stars.age)} "
               f"{n_young} {batch.n_sources}")
         # the reference's `weight` file (equiSources.f90:1214-1224)
@@ -329,7 +374,10 @@ def main(argv=None):
     model = step_mod.RTModel.setup(cfg, geom, dtype=dtype, device=device)
     # point sources on a mesh (the distributed tracers) raise here, before
     # any step
-    if noneq:
+    if use_amr:
+        amodel = step_amr.AMRModel.setup(model)
+        step = amodel.make_step()
+    elif noneq:
         step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                      evolve_energy=args.evolve_energy,
                                      mesh=mesh)
@@ -340,16 +388,26 @@ def main(argv=None):
                    os.path.join(args.snapshot_dir, "rates.out"),
                    os.path.join(args.snapshot_dir, "cool_rates.out"))
         print("wrote rates.out, cool_rates.out")
-    state = model.initialize_equilibrium(state)
-    print(f"ionization equilibrium: {model.neutral_fraction(state):.8e}")
+    if use_amr:
+        amr_state = amr.sync_restriction(dataclasses.replace(
+            amr_state, base=model.initialize_equilibrium(amr_state.base),
+            fine=model.initialize_equilibrium(amr_state.fine)))
+        nf0 = amodel.neutral_fraction(amr_state)
+    else:
+        state = model.initialize_equilibrium(state)
+        nf0 = model.neutral_fraction(state)
+    print(f"ionization equilibrium: {nf0:.8e}")
     itime = 0
     restart_snap = None
     if cfg.restart:
         snap = (os.path.join(args.snapshot_dir, cfg.restart_cell_array_name)
                 if cfg.restart_cell_array_name
                 else snapshot.latest_snapshot(args.snapshot_dir))
-        if snap:
+        if snap and use_amr:
+            amr_state, itime = snapshot.read_snapshot_amr(snap, amr_state)
+        elif snap:
             state, itime = snapshot.read_snapshot(snap, state)
+        if snap:
             print(f"restarted from {snap} at itime={itime}")
             restart_snap = snap
 
@@ -381,15 +439,19 @@ def main(argv=None):
         for _ in iter_range:
             itime += 1
             t0 = time.time()
-            if noneq:
+            if use_amr:
+                amr_state, diag = step(amr_state), None
+            elif noneq:
                 state, species, *traced = step(state, species)
                 diag = traced[0] if traced else None
             else:
                 out = step(state)
                 state, diag = out if isinstance(out, tuple) else (out, None)
             if args.debug_nans:
-                _check_finite(state, itime)
-            nf = model.neutral_fraction(state)
+                _check_finite((amr_state.base, amr_state.fine) if use_amr
+                              else (state,), itime)
+            nf = (amodel.neutral_fraction(amr_state) if use_amr
+                  else model.neutral_fraction(state))
             tlog.append(itime, nf)
             dt_it = time.time() - t0
             throughput = geom.nx ** 3 * cfg.n_directions / max(dt_it, 1e-9)
@@ -407,10 +469,16 @@ def main(argv=None):
                                       "cosmicSpectrum.npz"),
                          freq=freq.detach().cpu().numpy(), spectrum=spec)
             print(msg)
-            snapshot.write_snapshot(
-                snapshot.snapshot_name(itime, args.snapshot_dir), state,
-                itime, geom.physical_box_size,
-                extra=snapshot.species_extra(species) if noneq else None)
+            if use_amr:
+                snapshot.write_snapshot_amr(
+                    snapshot.snapshot_name(itime, args.snapshot_dir),
+                    amr_state, itime, geom.physical_box_size)
+            else:
+                snapshot.write_snapshot(
+                    snapshot.snapshot_name(itime, args.snapshot_dir), state,
+                    itime, geom.physical_box_size,
+                    extra=(snapshot.species_extra(species) if noneq
+                           else None))
             if abs(nf - prev_nf) <= 1e-6 * max(nf, 1e-30):
                 print("converged")
                 break

@@ -91,18 +91,24 @@ def build_sweep_plan(n_angular_level: int, nx: int) -> SweepPlan:
     return SweepPlan(zones=tuple(zones), n_directions=len(folded), nslab=nx)
 
 
-def _attenuate(i_in, tau):
-    """One segment: returns (i_out, logmean_contribution).
-
-    logmean = (Iin - Iout)/ln(Iin/Iout) = Iin*(1-e^-tau)/tau, with the
-    small-tau limit Iin*(1 - tau/2) (branch at equiSources.f90:1618-1632 and
-    computeCellIntensity).
-    """
+def _attenuation(tau):
+    """A segment's factors (e^-tau, (1-e^-tau)/tau), the latter with the
+    small-tau limit 1 - tau/2 (branch at equiSources.f90:1618-1632 and
+    computeCellIntensity)."""
     a = torch.exp(-tau)
     eps = _tau_eps(tau.dtype)
     big = tau > eps
     emi = torch.where(big, (1.0 - a) / torch.where(big, tau, 1.0),
                       1.0 - 0.5 * tau)
+    return a, emi
+
+
+def _attenuate(i_in, tau):
+    """One segment: returns (i_out, logmean_contribution).
+
+    logmean = (Iin - Iout)/ln(Iin/Iout) = Iin*(1-e^-tau)/tau.
+    """
+    a, emi = _attenuation(tau)
     return i_in * a, i_in * emi
 
 

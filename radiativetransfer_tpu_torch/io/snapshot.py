@@ -1,4 +1,4 @@
-"""Snapshot write / restart, uniform grids.
+"""Snapshot write / restart, uniform and two-level AMR grids.
 
 Counterpart of the JAX package's io/snapshot.py.  The reference writes
 per-iteration HDF4 files `cellArrayNNNN.h4` holding the depth-first
@@ -9,12 +9,14 @@ arrays level, HI, HeI, HeII, temperature, density [, vel, abun2]
 
 Both packages keep the same logical schema in NumPy `.npz` containers:
 dense single-level grids store the fields directly in C order -- which IS
-the depth-first leaf order for an unrefined grid -- so a snapshot written
-by one package restarts the other.  Restart re-inflates onto a freshly
+the depth-first leaf order for an unrefined grid -- and two-level AMR
+states flatten their leaves through the SFC codec (io/sfc.py) under the
+JAX package's keys, so a snapshot written by one package restarts the
+other.  Restart re-inflates onto a freshly
 built grid with the same species clamping as the reference, in torch on
 the state's device.  A non-equilibrium run adds its 9-species state
 (`species_extra`, `read_species`) under keys that `read_snapshot` does not
-read, so an equilibrium run restarts from it too.  The AMR, multilevel and
+read, so an equilibrium run restarts from it too.  The multilevel and
 block-sparse forms are not ported yet and raise.
 """
 
@@ -29,6 +31,7 @@ import torch
 
 from ..core.chemistry_noneq import SPECIES, SpeciesState
 from ..core.state import FieldState
+from . import sfc
 
 
 def snapshot_name(itime: int, directory: str = ".") -> str:
@@ -41,16 +44,37 @@ _FIELDS = (("HI", "HI"), ("HeI", "HeI"), ("HeII", "HeII"),
            ("temperature", "tgas"), ("density", "rho"), ("abun2", "abun2"))
 
 
+def _clamp_species(state: FieldState, HI, HeI, HeII) -> tuple:
+    """The reference's restart clamps (:4765-4773) in the state's dtype on
+    its device: species non-negative, HI <= nH, HeI+HeII rescaled into
+    <= nHe."""
+    HI = torch.minimum(torch.clamp(HI, min=0.0), state.nh)
+    HeI = torch.clamp(HeI, min=0.0)
+    HeII = torch.clamp(HeII, min=0.0)
+    tot = HeI + HeII
+    nhe = state.nhe
+    scale = torch.where(tot > nhe,
+                        nhe / torch.where(tot > 0, tot, torch.ones_like(tot)),
+                        torch.ones_like(tot))
+    return HI, HeI * scale, HeII * scale
+
+
+def _stack_host(state: FieldState) -> np.ndarray:
+    """The cellArray fields (and vel's three components) of one level in
+    float32 on the host, one copy off the device: (fields, *grid)."""
+    cols = [getattr(state, name) for _, name in _FIELDS]
+    if state.vel is not None:
+        cols += list(state.vel)
+    return torch.stack(cols).detach().to(torch.float32).cpu().numpy()
+
+
 def write_snapshot(path: str, state: FieldState, itime: int,
                    physical_box_size: float, extra: dict | None = None) -> None:
     """Write a snapshot with the reference's cellArray field set (float32,
     C order; the fields leave the device in one copy)."""
     shape = state.shape
-    cols = [getattr(state, name) for _, name in _FIELDS]
-    if state.vel is not None:
-        cols += list(state.vel)
-    host = torch.stack(cols).detach().to(torch.float32).cpu().numpy()
-    host = host.reshape(len(cols), -1)
+    host = _stack_host(state)
+    host = host.reshape(len(host), -1)
     data = {
         "base_grid_size": np.array(shape, np.int32),
         "itime": np.int32(itime),
@@ -95,17 +119,7 @@ def read_snapshot(path: str, state: FieldState) -> tuple[FieldState, int]:
                               f["vely"].reshape(shape),
                               f["velz"].reshape(shape)]))
 
-    nh = state.nh
-    nhe = state.nhe
-    HI = torch.minimum(torch.clamp(HI, min=0.0), nh)
-    HeI = torch.clamp(HeI, min=0.0)
-    HeII = torch.clamp(HeII, min=0.0)
-    tot = HeI + HeII
-    scale = torch.where(tot > nhe,
-                        nhe / torch.where(tot > 0, tot, torch.ones_like(tot)),
-                        torch.ones_like(tot))
-    HeI = HeI * scale
-    HeII = HeII * scale
+    HI, HeI, HeII = _clamp_species(state, HI, HeI, HeII)
     return dataclasses.replace(state, HI=HI, HeI=HeI, HeII=HeII,
                                tgas=tgas, vel=vel), itime
 
@@ -118,9 +132,80 @@ def _not_ported(what: str, item: str):
     return fn
 
 
-# the storage forms of the JAX package's io/snapshot.py:100-555
-write_snapshot_amr = _not_ported("write_snapshot_amr", "Two-level AMR")
-read_snapshot_amr = _not_ported("read_snapshot_amr", "Two-level AMR")
+def write_snapshot_amr(path: str, state, itime: int,
+                       physical_box_size: float) -> None:
+    """Write a two-level AMRState in depth-first cellArray leaf order
+    (writeIonization on an AMR octree, equiSources.f90:4797-4912), with the
+    JAX package's keys: the refinement map `refined`, each leaf's `level`
+    and the leaf streams in float32."""
+    n = state.n
+    refined_np = state.refined.detach().cpu().numpy().astype(np.uint8)
+    enum = sfc.enumerate_leaves(n, n, n, [refined_np])
+    leaves = sfc.gather(enum, [_stack_host(state.base),
+                               _stack_host(state.fine)])
+    data = {
+        "base_grid_size": np.array(state.base.shape, np.int32),
+        "itime": np.int32(itime),
+        "physical_box_size": np.float64(physical_box_size),
+        "refined": refined_np,
+        "level": enum["level"].astype(np.int32),
+    }
+    data.update({key: leaves[i] for i, (key, _) in enumerate(_FIELDS)})
+    if state.base.vel is not None:
+        # the reference writes kinematics for every leaf
+        # (writeIonization, equiSources.f90:4869-4890)
+        data["velx"], data["vely"], data["velz"] = leaves[len(_FIELDS):]
+    np.savez_compressed(path, **data)
+
+
+def read_snapshot_amr(path: str, state) -> tuple["object", int]:
+    """Re-inflate a two-level snapshot onto an existing AMRState (restart),
+    with the reference's species clamps on each level; fine positions
+    outside the refined region are filled by prolongation.  A snapshot
+    whose refinement map differs from the state's raises ValueError."""
+    from ..core import amr as amr_mod
+    n = state.n
+    dtype, device = state.base.HI.dtype, state.base.HI.device
+    with np.load(path) as f:
+        itime = int(f["itime"])
+        refined_np = f["refined"]
+        if not np.array_equal(refined_np.astype(bool),
+                              state.refined.detach().cpu().numpy()):
+            raise ValueError("snapshot refinement map differs from the state "
+                             "(the reference rebuilds structure from the "
+                             "input grid and asserts the cell count, "
+                             "equiSources.f90:1124-1127)")
+        enum = sfc.enumerate_leaves(n, n, n, [refined_np])
+        shapes = [state.base.shape, state.fine.shape]
+        keys = ["HI", "HeI", "HeII", "temperature"]
+        with_vel = "velx" in f and state.base.vel is not None
+        if with_vel:
+            keys += ["velx", "vely", "velz"]
+        levels = {k: sfc.scatter_leaves(enum, f[k].astype(np.float64), shapes)
+                  for k in keys}
+
+    def level(st, lv):
+        def t(key):
+            return torch.as_tensor(levels[key][lv], dtype=dtype,
+                                   device=device)
+        HI, HeI, HeII = _clamp_species(st, t("HI"), t("HeI"), t("HeII"))
+        vel = (torch.stack([t(k) for k in ("velx", "vely", "velz")])
+               if with_vel else st.vel)
+        return dataclasses.replace(st, HI=HI, HeI=HeI, HeII=HeII,
+                                   tgas=t("temperature"), vel=vel)
+
+    base, fine = level(state.base, 0), level(state.fine, 1)
+    # fine positions without leaves got zeros from the scatter: fill by
+    # prolongation so the dense fine fields stay everywhere defined
+    rf = amr_mod.prolong_mask(state.refined)
+    fine = dataclasses.replace(fine, **{
+        k: torch.where(rf, getattr(fine, k), amr_mod.prolong(getattr(base, k)))
+        for k in ("HI", "HeI", "HeII", "tgas")})
+    state = dataclasses.replace(state, base=base, fine=fine)
+    return amr_mod.sync_restriction(state), itime
+
+
+# the storage forms of the JAX package's io/snapshot.py:202-555
 write_snapshot_ml = _not_ported("write_snapshot_ml", "L-level dense AMR")
 read_snapshot_ml = _not_ported("read_snapshot_ml", "L-level dense AMR")
 write_snapshot_sparse = _not_ported("write_snapshot_sparse",

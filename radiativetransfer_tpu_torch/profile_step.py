@@ -1,7 +1,7 @@
 """Profile steps of the port on one CUDA device, layer by layer.
 
     python3 -m radiativetransfer_tpu_torch.profile_step [n] [level] [mode] \
-        [ranks] [noneq]
+        [ranks] [noneq] [amr]
 
 Mode 9 (the default) builds the synthetic galaxy of chip_smoke.py (n^3,
 default 128, angular level default 3) and runs initialize_equilibrium.
@@ -12,7 +12,15 @@ the card, the sweep through the ring kernel (sweep_strategy "rdma").
 noneq 1 runs the non-equilibrium step (RTModel.make_noneq_step, 1 Myr, 200
 substeps, the temperature held; the tracer in its quadrature_noneq mode)
 in place of the equilibrium one.
-Either then runs one warm-up step, times each layer of a step with CUDA
+amr 1 (modes 9 and 6, no ranks, no noneq) runs the two-level AMR step
+(core/step_amr.py::AMRModel) on the galaxy with its central half of each
+axis refined (the fine level the base's copy at the start, then each level
+in its own equilibrium), times its plan setup, and reports its layers
+(opacity on each level, the two-level sweep, chemistry on each level,
+sync_restriction) with device ms, host ms and, up to 32^3, the launches
+from two profiler windows; one zone's sweep traced at full width (its
+launches and device-busy share); up to 32^3 also a profiled step.
+Otherwise it runs one warm-up step, times each layer of a step with CUDA
 events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
 per march step; noneq: tracer, opacity, sweep, _assemble_photo_rates and
 evolve_noneq, each also with its host milliseconds to enqueue and its
@@ -36,9 +44,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import GridGeometry, RTModel, RunConfig, make_state, uniform_state
-from .config import MODE_BOTH_STELLAR_UVB_TRANSFER, MODE_UVB_TRANSFER_ONLY
+from .config import (
+    MODE_BOTH_STELLAR_UVB_TRANSFER,
+    MODE_NO_STARS_THIN_UVB,
+    MODE_UVB_TRANSFER_ONLY,
+)
 from .constants import KPC, MH, MYR, PSI
-from .core import chemistry, chemistry_noneq, opacity, rays
+from .core import amr, chemistry, chemistry_noneq, opacity, rays, sweep_amr
+from .core.step_amr import AMRModel
+from .geometry import octants
 from .parallel.mesh import make_grid_mesh
 from .roofline_sweep import nvidia_smi
 
@@ -71,6 +85,8 @@ def _event_ms(fn):
 # the spin kernels that open and close each profiler window (_traced):
 # 20 of ~1 ms each (2e6 clock cycles)
 _MARKERS, _MARKER_CYCLES = 20, 2_000_000
+# profiler windows that lost their markers on a side and were taken again
+RETAKES = 0
 
 
 def _trace_kernels(prof) -> list[tuple[str, float, float]]:
@@ -89,8 +105,8 @@ def _trace_kernels(prof) -> list[tuple[str, float, float]]:
                   key=lambda x: x[1])
 
 
-def _markers() -> None:
-    for _ in range(_MARKERS):
+def _markers(count: int = _MARKERS) -> None:
+    for _ in range(count):
         torch.cuda._sleep(_MARKER_CYCLES)
     torch.cuda.synchronize()
 
@@ -103,23 +119,34 @@ def _traced(fn):
     window in another run, and thousands in the second window of one
     profiler (80,209 and 58,249 launches of one network step).  So fn runs
     between _MARKERS spin kernels of ~1 ms each on either side, and its
-    events are those between the markers.  Raises unless a marker was
-    recorded on each side."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _markers()
-        out = fn()
-        torch.cuda.synchronize()
-        _markers()
-    events = _trace_kernels(prof)
-    inner = [i for i, e in enumerate(events) if "spin_kernel" not in e[0]]
-    if (not inner or inner[0] == 0 or inner[-1] == len(events) - 1
-            or inner[-1] - inner[0] + 1 != len(inner)):
-        raise RuntimeError(
-            f"a profiler window recorded {len(events) - len(inner)} of its "
-            f"2 x {_MARKERS} marker kernels, not one on each side of the "
-            f"traced call")
-    return out, events[inner[0]:inner[-1] + 1]
+    events are those between the markers.  A window that recorded no
+    marker on a side (one zone's two-level sweep, 60,333 launches, lost
+    all 20 on one side in two runs of chip_smoke.py of three, never when
+    phase 18 ran alone) is taken again, once, running fn again between
+    ten times the markers, and counted in RETAKES; raises unless a marker
+    was recorded on each side."""
+    global RETAKES
+    for count in (_MARKERS, 10 * _MARKERS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _markers(count)
+            out = fn()
+            torch.cuda.synchronize()
+            _markers(count)
+        events = _trace_kernels(prof)
+        inner = [i for i, e in enumerate(events)
+                 if "spin_kernel" not in e[0]]
+        if (inner and inner[0] > 0 and inner[-1] < len(events) - 1
+                and inner[-1] - inner[0] + 1 == len(inner)):
+            return out, events[inner[0]:inner[-1] + 1]
+        first = inner[0] if inner else len(events)
+        last = len(events) - 1 - inner[-1] if inner else 0
+        print(f"profile_step: a profiler window recorded {first} of its "
+              f"{count} opening markers and {last} of its {count} closing "
+              f"ones around {len(inner)} device events")
+        RETAKES += count == _MARKERS
+    raise RuntimeError("two profiler windows in a row lost the markers on "
+                       "a side of the traced call")
 
 
 def _layer(fn):
@@ -143,6 +170,97 @@ def _layer(fn):
     if counts[0] != counts[1] or counts[0] == 0:
         raise RuntimeError(f"two traces of one layer count {counts} kernels")
     return out, start.elapsed_time(end), host_ms, counts[0]
+
+
+def _timed(fn):
+    """(fn(), device ms between CUDA events around it, host ms to enqueue
+    it, None): _layer without the profiler windows, for calls whose
+    launches are too many to trace."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), host_ms, None
+
+
+AMR_LAYERS = ("opacity_base", "opacity_fine", "sweep", "chemistry_base",
+              "chemistry_fine", "sync_restriction")
+
+
+def amr_layers(amodel, state, count=AMR_LAYERS):
+    """One two-level step from `state`, layer by layer, as
+    AMRModel._sweep_and_chemistry runs it: (the state after the step,
+    {layer: (device ms, host ms, launches)}) for opacity on each level, the
+    two-level sweep, chemistry on each level and sync_restriction.  The
+    layers named in `count` run three times and count their launches
+    (_layer); the others run once, launches None (a 32^3 sweep's 3.6e5
+    launches take minutes to trace twice, a 128^3 one's 1.4e6 longer)."""
+    rt = amodel.rt
+    rows = {}
+
+    def layer(name, fn):
+        out, *rows[name] = (_layer if name in count else _timed)(fn)
+        return out
+
+    s0 = dataclasses.replace(state, base=state.base.zero_rates(),
+                             fine=state.fine.zero_rates())
+    kc = layer("opacity_base", lambda: opacity.compute_opacities(
+        s0.base.HI, s0.base.HeI, s0.base.HeII, rt.opacity_coef))
+    kf = layer("opacity_fine", lambda: opacity.compute_opacities(
+        s0.fine.HI, s0.fine.HeI, s0.fine.HeII, rt.opacity_coef))
+    jc, jf = layer("sweep", lambda: sweep_amr.diffuse_sweep_amr(
+        kc, kf, s0.refined, amodel.plan, rt.uvb, rt.geom.cell_size))
+    base = dataclasses.replace(s0.base, Jmean=jc)
+    fine = dataclasses.replace(s0.fine, Jmean=jf)
+    base = layer("chemistry_base", lambda: amodel.chemistry(base, rt.geom))
+    fine = layer("chemistry_fine",
+                 lambda: amodel.chemistry(fine, amodel.fine_geom))
+    s1 = dataclasses.replace(s0, base=base, fine=fine)
+    s2 = layer("sync_restriction", lambda: amr.sync_restriction(s1))
+    return s2, {k: tuple(v) for k, v in rows.items()}
+
+
+def amr_zone_window(amodel, state, slabs: int | None = None):
+    """The two-level sweep of plan zone 0 (sweep_zone_amr) on the state's
+    opacities, over its first `slabs` base slabs (all when None) at the
+    grid's full plane width, in a profiler window of its own: (host wall
+    s, device-busy s, kernel launches)."""
+    rt = amodel.rt
+    zone = amodel.plan.zones[0]
+    n = slabs or state.n
+    kc, kf = (torch.movedim(octants.rotate_to_sweep(torch.movedim(
+        opacity.compute_opacities(s.HI, s.HeI, s.HeII, rt.opacity_coef),
+        0, -1), zone.izone), -1, 1) for s in (state.base, state.fine))
+    r_rot = octants.rotate_to_sweep(state.refined, zone.izone)[:n]
+    params = ({k: v[:, :n] for k, v in zone.coarse.items()},
+              {k: v[:, :2 * n] for k, v in zone.fine.items()})
+
+    def body():
+        t0 = time.perf_counter()
+        sweep_amr.sweep_zone_amr(kc[:n], kf[:2 * n], r_rot, params, rt.uvb,
+                                 rt.geom.cell_size, amodel.plan.weight)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, events = _traced(body)
+    launches = sum(1 for name, _, _ in events
+                   if not name.startswith(("Memcpy", "Memset")))
+    return wall, _busy_us(events) / 1e6, launches
+
+
+def amr_zone_launches(amodel, state, slabs: int | None = None) -> int:
+    """Plan zone 0's two-level sweep launches from two profiler windows
+    (amr_zone_window); raises unless they agree and are above 0."""
+    counts = [amr_zone_window(amodel, state, slabs)[2]
+              for _ in range(2)]
+    if counts[0] != counts[1] or counts[0] == 0:
+        raise RuntimeError(f"two traces of one zone count {counts} kernels")
+    return counts[0]
 
 
 def noneq_layers(model, state, species, ctx=None, mesh=None,
@@ -174,10 +292,10 @@ def noneq_layers(model, state, species, ctx=None, mesh=None,
 
 def profiled(run, box: list, steps: int = 2):
     """`steps` calls of box[0] = run(box[0]) in one window of _traced
-    (the box lets each step drop its input, as a run's loop does): (wall
-    s, device-busy s: the union of the device events' intervals, device
-    events per step, the 12 kernels of most device time as (name, total
-    ms, count))."""
+    (the box lets each step drop its input, as a run's loop does; a
+    window taken again runs `steps` more): (wall s, device-busy s: the
+    union of the device events' intervals, device events per step, the 12
+    kernels of most device time as (name, total ms, count))."""
     def body():
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -186,16 +304,23 @@ def profiled(run, box: list, steps: int = 2):
         return time.perf_counter() - t0
 
     wall, spans = _traced(body)
-    device_us, reach = 0.0, float("-inf")
     totals = {}
     for name, start, end in spans:
-        device_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
         ms, count = totals.get(name, (0.0, 0))
         totals[name] = (ms + (end - start) / 1e3, count + 1)
     top = sorted(((k, ms, c) for k, (ms, c) in totals.items()),
                  key=lambda x: -x[1])[:12]
-    return wall, device_us / 1e6, len(spans) / steps, top
+    return wall, _busy_us(spans) / 1e6, len(spans) / steps, top
+
+
+def _busy_us(spans) -> float:
+    """Device-busy microseconds: the union of the (name, start, end)
+    intervals, sorted by start."""
+    device_us, reach = 0.0, float("-inf")
+    for _, start, end in spans:
+        device_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return device_us
 
 
 def _setup(n: int, level: int, mode: int, ranks: int, noneq: bool = False):
@@ -229,11 +354,72 @@ def _setup(n: int, level: int, mode: int, ranks: int, noneq: bool = False):
     return model, state, ctx
 
 
+def amr_galaxy(model, box_kpc: float = 300.0, device="cuda"):
+    """The two-level galaxy of the AMR profile: galaxy_state on the base,
+    the central half of each axis refined, the fine level the base's copy,
+    each level in its own equilibrium."""
+    n = model.geom.nx
+    refined = torch.zeros((n, n, n), dtype=torch.bool, device=device)
+    refined[n // 4:n - n // 4, n // 4:n - n // 4, n // 4:n - n // 4] = True
+    state = amr.make_amr_state(galaxy_state(n, box_kpc, device), refined)
+    return amr.sync_restriction(dataclasses.replace(
+        state, base=model.initialize_equilibrium(state.base),
+        fine=model.initialize_equilibrium(state.fine)))
+
+
+def main_amr(n: int, level: int, mode: int, smi: str) -> None:
+    cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
+                    reionization_model=10, self_shielding_threshold_kpc=0.1)
+    model = RTModel.setup(cfg, GridGeometry(n, n, n, 300.0 * KPC),
+                          torch.float32, "cuda")
+    t0 = time.perf_counter()
+    amodel = AMRModel.setup(model)
+    plan_s = time.perf_counter() - t0
+    state = amr_galaxy(model)
+    nf0 = amodel.neutral_fraction(state)
+    state = amodel.make_step()(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, rows = amr_layers(amodel, state,
+                             count=AMR_LAYERS if n <= 32 else ())
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    print(f"two-level mode {mode} at {n}^3 (+ {int(state.refined.sum())} "
+          f"refined parents) x {cfg.n_directions} dirs f32: plan setup "
+          f"{plan_s:.3f} s (host); one step {step_s:.3f} s, layers "
+          "(device ms / host ms / launches): " + ", ".join(
+              f"{k} {ms:.3f} / {host:.3f} / {k_n}"
+              for k, (ms, host, k_n) in rows.items())
+          + f"; neutral fraction {nf0:.7f} -> "
+          f"{amodel.neutral_fraction(state):.7f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; card {smi}")
+    if amodel.plan is not None:
+        wall, busy, launches = amr_zone_window(amodel, state)
+        print(f"one zone's sweep ({amodel.plan.zones[0].ndir} directions, "
+              f"{n} base slabs): wall {wall * 1e3:.3f} ms, device busy "
+              f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), {launches} "
+              f"launches; card {smi}")
+    if n <= 32:
+        wall, busy, kernels, _ = profiled(amodel.make_step(), [state],
+                                          steps=1)
+        print(f"one profiled two-level step: wall {wall * 1e3:.3f} ms, "
+              f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), "
+              f"{kernels:.0f} device events; card {smi}")
+
+
 def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
-         noneq: int = 0) -> None:
+         noneq: int = 0, two_level: int = 0) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
+    if two_level:
+        if ranks or noneq or mode not in (MODE_UVB_TRANSFER_ONLY,
+                                          MODE_NO_STARS_THIN_UVB):
+            raise SystemExit("the two-level profile runs modes 9 and 6 on "
+                             "one rank with equilibrium chemistry")
+        main_amr(n, level, mode, smi)
+        return
     model, state, ctx = _setup(n, level, mode, ranks, bool(noneq))
     cfg = model.config
     mesh = make_grid_mesh(ranks) if ranks else None

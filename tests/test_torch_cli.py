@@ -290,7 +290,7 @@ def _h4_grid(directory):
     (("--num-processes", "2"), 9, None, "Distribution"),
     (("--mesh-shape", "2,2"), 9, None, "Distribution"),
     (("--mesh-shape", "4"), 8, None, "Distribution"),
-    ((), 9, _two_level_grid, "Two-level AMR"),
+    ((), 8, _two_level_grid, r"ROADMAP, Two-level AMR PR b \(core/rays_amr"),
     ((), 9, _h4_grid, "Remaining I/O"),
 ])
 def test_not_ported_raise_before_any_step(tmp_path, flags, mode, edit,

@@ -129,6 +129,7 @@ _PORT_MODULES = (
     "radiativetransfer_tpu_torch.exp_sweep_variants",
     "radiativetransfer_tpu_torch.roofline_sweep",
     "radiativetransfer_tpu_torch.profile_step",
+    "radiativetransfer_tpu_torch.core.amr",
     "radiativetransfer_tpu_torch.core.chemistry_noneq",
     "radiativetransfer_tpu_torch.core.cuda_build",
     "radiativetransfer_tpu_torch.core.expansion",
@@ -136,10 +137,13 @@ _PORT_MODULES = (
     "radiativetransfer_tpu_torch.core.rays",
     "radiativetransfer_tpu_torch.core.scatter_cuda",
     "radiativetransfer_tpu_torch.core.step",
+    "radiativetransfer_tpu_torch.core.step_amr",
+    "radiativetransfer_tpu_torch.core.sweep_amr",
     "radiativetransfer_tpu_torch.core.sweep_cuda",
     "radiativetransfer_tpu_torch.core.variants_cuda",
     "radiativetransfer_tpu_torch.io.diagnostics",
     "radiativetransfer_tpu_torch.io.grid_io",
+    "radiativetransfer_tpu_torch.io.sfc",
     "radiativetransfer_tpu_torch.io.snapshot",
     "radiativetransfer_tpu_torch.io.sources_io",
     "radiativetransfer_tpu_torch.parallel.mesh",
