@@ -124,32 +124,42 @@ failure raises and the script exits non-zero:
     of this process's), noneq mode 8 with the 12 sources, 2 iterations,
     and noneq mode 9 on 4 ranks through rdma and zones, 1 iteration each
     (neutral fraction and HI within 1e-4 of one device's);
-18. two-level AMR (core/step_amr.py::AMRModel, plain PyTorch: no
-    hand-written kernel runs on it, and every kernel's count is held
-    across the phase but for check (c)): (a) 3 f64 mode-9 steps at 24^3
+18. two-level AMR (core/step_amr.py::AMRModel and its tracer
+    core/rays_amr.py, plain PyTorch: no hand-written kernel runs on them,
+    and every kernel's count is held across the phase but for check (c)):
+    (a) 3 f64 mode-9 steps and one f64 mode-8 step with 3 sources at 24^3
     with its refined centre, level 2, on the card against the CPU's (every
-    species within 1e-9 of its peak on both levels); (b) the full-width
-    cell, make_test_data.py's galaxy at 128^3 with its central half
-    refined (262,144 parents, a dense 256^3 fine level) x 192 f32: the
-    inputs written and ingested (amr_from_levels), the plan's setup, one
-    step layer by layer (profile_step.amr_layers: opacity and chemistry
-    on each level, the sweep, sync_restriction; CUDA events and host ms),
-    peak memory, the neutral fraction below its start, one zone's first
-    32 and 16 base slabs traced at the full width (launches, the
-    device-busy share), the sweep's bytes floor, write_snapshot_amr
-    timed; (c) 64^3 with nothing refined: the two-level step against the
-    uniform step through the cluster kernel in the exact logmean form
-    (base Jmean and the neutral fraction within 1e-4); (d) the CLI on
-    the two-level 32^3 grid with its central half refined (cut from
-    128^3: (b) times the full width, (d) covers the CLI's branch), mode
-    9, 2 iterations, a restart of one through python -m from the itime-1
-    snapshot (within 1e-4), mode 8 on the 128^3 grid refused before the
-    grid is ingested; (e) the launches of each layer at 32^3, level 3,
-    from two profiler windows that must agree, the sweep's by zone (one
-    zone at 32^3 from two windows, equal to (b)'s first 32 slabs at
-    128^3 width; (b)'s 16 and 32 slabs: the launches a base slab and a
-    zone, whence a whole zone's count at 128^3, derived); the profiler
-    windows the phase took again (profile_step.RETAKES).
+    species within 1e-9 of its peak on both levels, the ray diagnostics
+    within 1e-9 of theirs); (b) the full-width cell, make_test_data.py's
+    galaxy at 128^3 with its central half refined (262,144 parents, a
+    dense 256^3 fine level) and its 12 sources, prepared as the CLI does,
+    x 192 f32: the inputs written and ingested (amr_from_levels), the
+    plan's setup, one mode-8 step layer by layer (profile_step.amr_layers:
+    the tracer with its march steps, opacity and chemistry on each level,
+    the sweep, sync_restriction; CUDA events and host ms), peak memory,
+    the neutral fraction below its start, one zone's first 32 and 16 base
+    slabs traced at the full width (launches, the device-busy share), the
+    sweep's bytes floor, write_snapshot_amr timed, one mode-1 step (the
+    tracer and both chemistries, no sweep), the f32 trace against the f64
+    trace of the same state with float32's kills (both levels' six
+    channels within 5e-5 of each peak, the escape fractions within 1e-5)
+    and the fine deposits below float32's smallest normal value counted; (c) 64^3 with nothing
+    refined: the two-level step against the uniform step through the
+    cluster kernel in the exact logmean form (base Jmean and the neutral
+    fraction within 1e-4); (d) the CLI on the two-level 32^3 grid with its
+    central half refined (cut from 128^3: (b) times the full width, (d)
+    covers the CLI's branch): mode 9, 2 iterations, a restart of one
+    through python -m from the itime-1 snapshot (within 1e-4), mode 8
+    with the 12 sources, 1 iteration (the `weight` file,
+    cosmicSpectrum.npz, fesc in [0, 1], the neutral fraction below its
+    start), --chemistry noneq refused before the grid is ingested; (e)
+    the launches of each layer at 32^3, level 3, mode 8 (the tracer with
+    its march steps), from two profiler windows that must agree, the
+    sweep's by zone (one zone at 32^3 from two windows, equal to (b)'s
+    first 32 slabs at 128^3 width; (b)'s 16 and 32 slabs: the launches a
+    base slab and a zone, whence a whole zone's count at 128^3, derived);
+    every profiler window's markers and clocks (profile_step.WINDOWS; a
+    window that loses its markers raises).
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -2219,12 +2229,45 @@ def _kernel_counts() -> dict:
                 variants_cuda.CLUSTER_LAUNCHES.values())}
 
 
+def _cli_stellar(config: str, levels, state, geom, dtype, device):
+    """The StellarContext cli.main builds for the point sources of
+    `config` (write_cli_inputs' 12) on the two-level `state` ingested from
+    `levels`: read_star_file, load_population (blackbodies: the inputs
+    carry no Starburst99 SEDs), the metallicity buckets, prepare_sources
+    on the refined map (a star in a refined parent at its fine leaf's
+    centre) and StellarContext.build at 10 Myr, maxPixelLevel 6."""
+    from radiativetransfer_tpu_torch.config import load_config
+    from radiativetransfer_tpu_torch.constants import MYR
+    from radiativetransfer_tpu_torch.core.step import StellarContext
+    from radiativetransfer_tpu_torch.io import grid_io, sources_io
+    from radiativetransfer_tpu_torch.tables import stellar
+    cfg = load_config(config)
+    lo, hi, _ = grid_io.grid_bounds(levels)
+    stars = sources_io.read_star_file(os.path.join(cfg.sph_dir, cfg.sources),
+                                      lo, hi)
+    pop, _ = stellar.load_population(
+        cfg.synthesis_dir, len(stars.age),
+        int(np.sum(stars.age <= cfg.upper_age_limit)),
+        cfg.mass_stellar_particle)
+    edges, coefs = (stellar.metal_bucket_plan(pop) if cfg.read_metals
+                    else (None, None))
+    batch, _, n_young = sources_io.prepare_sources(
+        stars, geom.nx, cfg.upper_age_limit,
+        abun2=state.base.abun2.cpu().numpy(), metal_bucket_edges=edges,
+        refined=state.refined.cpu().numpy())
+    return StellarContext.build(
+        pop, batch, geom, 10.0 * MYR, metal_coefs=coefs or [(0, 0.0)],
+        n_stars_specific_age=n_young,
+        dust_approximation=cfg.dust_approximation, dtype=dtype,
+        device=device)
+
+
 def phase_amr(smi: str) -> dict:
     """18: two-level AMR (core/step_amr.py::AMRModel, the CLI on a
-    two-level grid) on the card.  Its sweep is plain PyTorch: the path
-    launches none of the hand-written kernels (every count is held), but
-    check (c), which holds it against the uniform step through the
-    cluster kernel."""
+    two-level grid) on the card, in modes 9, 8 and 1.  Its sweep and its
+    tracer are plain PyTorch: the path launches none of the hand-written
+    kernels (every count is held), but check (c), which holds it against
+    the uniform step through the cluster kernel."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         return _phase_amr(tmp, smi)
@@ -2234,22 +2277,31 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     """phase_amr's checks, with `tmp` a directory of their own."""
     import radiativetransfer_tpu_torch as rt
     from radiativetransfer_tpu_torch import profile_step
-    from radiativetransfer_tpu_torch.config import MODE_UVB_TRANSFER_ONLY
-    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.config import (
+        MODE_BOTH_STELLAR_UVB_TRANSFER,
+        MODE_STELLAR_TRANSFER_THIN_UVB,
+        MODE_UVB_TRANSFER_ONLY,
+    )
+    from radiativetransfer_tpu_torch.constants import KPC, MYR
     from radiativetransfer_tpu_torch.core import (
         amr,
         probes_cuda,
+        rays,
+        rays_amr,
         step_amr,
         sweep_cluster,
     )
+    from radiativetransfer_tpu_torch.core.step import StellarContext
     from radiativetransfer_tpu_torch.io import grid_io, snapshot
     from radiativetransfer_tpu_torch.profile_step import galaxy_state
+    from radiativetransfer_tpu_torch.tables import stellar
     t_phase = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
+    mode8, mode1 = MODE_BOTH_STELLAR_UVB_TRANSFER, MODE_STELLAR_TRANSFER_THIN_UVB
     out = {}
 
-    def model(n, level, dtype, device, **kw):
-        cfg = rt.RunConfig(mode=MODE_UVB_TRANSFER_ONLY, current_redshift=6.55,
+    def model(n, level, dtype, device, mode=MODE_UVB_TRANSFER_ONLY, **kw):
+        cfg = rt.RunConfig(mode=mode, current_redshift=6.55,
                            n_angular_level=level, reionization_model=10,
                            self_shielding_threshold_kpc=0.1, **kw)
         return rt.RTModel.setup(cfg, rt.GridGeometry(n, n, n, 300.0 * KPC),
@@ -2267,24 +2319,46 @@ def _phase_amr(tmp: str, smi: str) -> dict:
             fine=m.initialize_equilibrium(state.fine)))
 
     def ingest(inputs, dtype, device):
+        """((the two-level state, the levels read), seconds)."""
         path = os.path.join(inputs, "testgrid_velmet.npz")
-        return timed(lambda: amr.amr_from_levels(
-            grid_io.read_level_npz(path), True, dtype, device=device)[0])
+
+        def read():
+            levels = grid_io.read_level_npz(path)
+            return amr.amr_from_levels(levels, True, dtype,
+                                       device=device)[0], levels
+        return timed(read)
+
+    def worst(a, b, names):
+        """The largest |a - b| over each field's peak in b, field by field
+        of two FieldStates or RateFields, b's on its own device."""
+        return max(float((getattr(a, k).to(getattr(b, k)) - getattr(b, k))
+                         .abs().max() / getattr(b, k).abs().max())
+                   for k in names)
 
     counts0 = _kernel_counts()
-    retakes0 = profile_step.RETAKES
     inputs24, inputs32, inputs = (os.path.join(tmp, f"inputs{k}")
                                   for k in (24, 32, 128))
+    species = ("HI", "HeI", "HeII")
+    channels = [f.name for f in dataclasses.fields(rays.RateFields)]
+    diag_names = [f.name for f in dataclasses.fields(rays.RayDiagnostics)]
 
-    # (a) 24^3 with its refined centre, level 2, f64: 3 steps on the card
-    # against the same steps on the CPU, from the CPU's equilibrium
+    # (a) 24^3 with its refined centre, level 2, f64: 3 mode-9 steps and
+    # one mode-8 step with 3 sources (maxPixelLevel 4: at 6 the CPU's
+    # trace takes ~100 s) on the card against the same steps on the CPU,
+    # from the CPU's equilibrium
     cpu = model(24, 2, f64, "cpu")
     write_cli_inputs(inputs24, 24, refine_center=True)
-    arrays = equilibrium(cpu, ingest(inputs24, f64, "cpu")[0]).to_numpy()
-    runs = {}
+    arrays = equilibrium(cpu, ingest(inputs24, f64, "cpu")[0][0]).to_numpy()
+    # inside the refined centre, in the coarse cell beside it, far out
+    src24 = rays.SourceBatch(
+        position=np.array([[12.25, 11.75, 12.5], [5.5, 12.5, 12.5],
+                           [3.5, 20.5, 4.5]]) / 24,
+        weight=np.ones(3), table_idx=np.zeros(3, np.int32))
+    runs, runs8 = {}, {}
     threads = torch.get_num_threads()
-    for device, m in (("cpu", cpu), (DEVICE, model(24, 2, f64, DEVICE))):
-        am = step_amr.AMRModel.setup(m)
+    for device in ("cpu", DEVICE):
+        am = step_amr.AMRModel.setup(
+            cpu if device == "cpu" else model(24, 2, f64, DEVICE))
         st = amr.AMRState.from_numpy(arrays, dtype=f64, device=device)
         step = am.make_step()
 
@@ -2294,33 +2368,51 @@ def _phase_amr(tmp: str, smi: str) -> dict:
             return st
         # the eager CPU steps' small ops run fastest on one thread
         torch.set_num_threads(1 if device == "cpu" else threads)
-        st, dt = timed(three)
-        runs[device] = (st, dt, am.neutral_fraction(st))
+        st3, dt = timed(three)
+        runs[device] = (st3, dt, am.neutral_fraction(st3))
+        am8 = step_amr.AMRModel.setup(model(24, 2, f64, device, mode=mode8))
+        ctx = StellarContext.build(
+            stellar.blackbody_population(q_ionizing=1.0e51), src24,
+            am8.rt.geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
+            max_pixel_level=4, dtype=f64, device=device)
+        (st8, diag8), dt8 = timed(lambda: am8.make_step(ctx)(st))
+        runs8[device] = (st8, diag8, dt8, am8.neutral_fraction(st8))
     torch.set_num_threads(threads)
-    worst = 0.0
-    for level in ("base", "fine"):
-        for name in ("HI", "HeI", "HeII"):
-            a = getattr(getattr(runs[DEVICE][0], level), name).cpu()
-            b = getattr(getattr(runs["cpu"][0], level), name)
-            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
-    print(f"[18 amr] 24^3 + {int(runs['cpu'][0].refined.sum())} refined "
+    card, host = runs[DEVICE][0], runs["cpu"][0]
+    err9 = max(worst(getattr(card, lv), getattr(host, lv), species)
+               for lv in ("base", "fine"))
+    (c8, cd8, dt8_card, nf8_card), (h8, hd8, dt8_cpu, nf8_cpu) = (
+        runs8[DEVICE], runs8["cpu"])
+    err8 = max(worst(getattr(c8, lv), getattr(h8, lv), species)
+               for lv in ("base", "fine"))
+    err8_diag = worst(cd8, hd8, diag_names)
+    print(f"[18 amr] 24^3 + {int(host.refined.sum())} refined "
           f"parents, level 2, f64 mode 9, 3 steps: card {runs[DEVICE][1]:.3f}"
           f" s, CPU {runs['cpu'][1]:.3f} s; neutral fraction "
           f"{runs[DEVICE][2]:.10f} (CPU {runs['cpu'][2]:.10f}); species max "
-          f"diff {worst:.2e} of each peak (tol 1e-9)")
-    assert worst <= 1e-9, worst
+          f"diff {err9:.2e} of each peak (tol 1e-9); mode 8, 3 sources, "
+          f"maxPixelLevel 4, one step: card {dt8_card:.3f} s, CPU {dt8_cpu:.3f} s, neutral "
+          f"fraction {nf8_card:.10f} (CPU {nf8_cpu:.10f}), species max diff "
+          f"{err8:.2e}, ray diagnostics {err8_diag:.2e} of each peak (tol "
+          f"1e-9)")
+    assert err9 <= 1e-9 and err8 <= 1e-9 and err8_diag <= 1e-9, (
+        err9, err8, err8_diag)
+    assert float(h8.fine.krate24.abs().max()) > 0.0
     assert _kernel_counts() == counts0, "the two-level step launched a kernel"
-    del runs, arrays, cpu
+    del runs, runs8, arrays, cpu, card, host, c8, h8, cd8, hd8
 
     # (b) the full-width cell, f32: make_test_data's galaxy at 128^3 with
-    # its refined centre, 192 directions; one step layer by layer
+    # its refined centre and its 12 sources, 192 directions; one mode-8
+    # step layer by layer, one mode-1 step, the trace against float64's
     n, level = MAIN_N, MAIN_LEVEL
     config, write_s = timed(lambda: write_cli_inputs(inputs, n,
                                                      refine_center=True))
-    state, ingest_s = ingest(inputs, f32, DEVICE)
-    m = model(n, level, f32, DEVICE)
+    (state, levels), ingest_s = ingest(inputs, f32, DEVICE)
+    m = model(n, level, f32, DEVICE, mode=mode8)
     am, plan_s = timed(lambda: step_amr.AMRModel.setup(m))
     state, eq_s = timed(lambda: equilibrium(m, state))
+    ctx, src_s = timed(lambda: _cli_stellar(config, levels, state, m.geom,
+                                            f32, DEVICE))
     n_ref = int(state.refined.sum())
     nf0 = am.neutral_fraction(state)
     print(f"[18 amr] {n}^3 + {n_ref} refined parents ({8 * n_ref} fine "
@@ -2328,25 +2420,38 @@ def _phase_amr(tmp: str, smi: str) -> dict:
           f"{write_s:.3f} s, ingested (read_level_npz + amr_from_levels onto "
           f"the card) in {ingest_s:.3f} s, plan setup "
           f"(build_amr_sweep_plan) {plan_s:.3f} s, equilibrium of both "
-          f"levels {eq_s:.3f} s (host); neutral fraction {nf0:.7f}")
+          f"levels {eq_s:.3f} s, the {ctx.sources.n_sources} sources "
+          f"prepared as the CLI does (StellarContext.build) {src_s:.3f} s "
+          f"(host); neutral fraction {nf0:.7f}")
     torch.cuda.reset_peak_memory_stats()
-    (state1, rows), step_s = timed(lambda: profile_step.amr_layers(
-        am, state, count=()))
+    (state1, rows, march), step_s = timed(lambda: profile_step.amr_layers(
+        am, state, count=(), stellar=ctx))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     nf1 = am.neutral_fraction(state1)
-    print(f"[18 amr] {n}^3 x 192 f32 two-level step: {step_s:.3f} s, layers "
+    print(f"[18 amr] {n}^3 x 192 f32 two-level mode-8 step, "
+          f"{ctx.sources.n_sources} sources: {step_s:.3f} s, layers "
           "(device ms by CUDA events / host ms to enqueue): " + ", ".join(
               f"{k} {ms:.3f} / {host:.3f}" for k, (ms, host, _) in
               rows.items())
-          + f"; neutral fraction {nf0:.7f} -> {nf1:.7f}; peak device memory "
-          f"{peak:.3f} GiB; {smi}")
+          + f"; the tracer {march} march steps "
+          f"({rows['tracer'][0] / march:.3f} ms a step); neutral fraction "
+          f"{nf0:.7f} -> {nf1:.7f}; peak device memory {peak:.3f} GiB; "
+          f"{smi}")
     assert np.isfinite(nf1) and 0.0 < nf1 < nf0, (nf0, nf1)
     assert all(bool(torch.isfinite(getattr(s, k)).all())
                for s in (state1.base, state1.fine)
-               for k in ("HI", "HeI", "HeII", "Jmean"))
+               for k in ("HI", "HeI", "HeII", "Jmean", "krate24"))
+    # the tracer alone in a profiler window: its launches and the card's
+    # busy share of its wall time
+    tr_wall, tr_busy, tr_events, _ = profile_step.profiled(
+        lambda s: am.trace(s, ctx)[0], [state], steps=1)
+    print(f"[18 amr] the {n}^3 tracer in a profiler window: wall "
+          f"{tr_wall * 1e3:.3f} ms, device busy {tr_busy * 1e3:.3f} ms "
+          f"({100 * tr_busy / tr_wall:.1f}%), {tr_events:.0f} device "
+          f"events ({tr_events / march:.1f} a march step)")
     # one zone's first 32 and 16 base slabs at the full plane width, each
     # in profiler windows of their own (a window of the whole zone, 60,333
-    # launches, lost its markers after phases 1-17 in two runs)
+    # launches, takes seconds to read)
     zone_wall, zone_busy, zone_32 = profile_step.amr_zone_window(
         am, state1, slabs=32)
     zone_16 = profile_step.amr_zone_launches(am, state1, slabs=16)
@@ -2371,11 +2476,67 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     print(f"[18 amr] write_snapshot_amr at {n}^3 + {n_ref} parents "
           f"({state1.n_leaves()} leaves): {snap_s:.3f} s (host; "
           f"{snap_mb:.1f} MB compressed)")
+    del state1
+    # mode 1 at the full width: the tracer and both chemistries, no sweep
+    am1 = step_amr.AMRModel.setup(model(n, level, f32, DEVICE, mode=mode1))
+    assert am1.plan is None
+    (s1, diag1), step1_s = timed(lambda: am1.make_step(ctx)(state))
+    nf_m1 = am1.neutral_fraction(s1)
+    fesc1 = rays.escape_fractions(diag1, ctx.sources.weight)
+    print(f"[18 amr] {n}^3 f32 two-level mode-1 step (the tracer, both "
+          f"levels' chemistry, no sweep): {step1_s:.3f} s; neutral fraction "
+          f"{nf0:.7f} -> {nf_m1:.7f}; escape fractions at the outer radius "
+          f"{_fmt(fesc1[:, -1])}")
+    assert 0.0 < nf_m1 < nf0 and bool(np.isfinite(fesc1).all())
+    del s1, am1
+    # the float32 trace against float64's of the same state with the same
+    # (float32's) kills, within 5e-5 of each channel's peak: float32's
+    # positions in box units leave a fine segment's length ~1.5e-5 off
+    # (an ulp of 0.5 over 1/256), and the base cell at the peak of krate24,
+    # beside the refined block, is 1.8e-5 apart (kills, tables in float64,
+    # a float64 sum and float64's relocalization tolerance in float32 all
+    # leave that, PERF.md section 6); the fine deposits below float32's
+    # smallest normal value, which the rays_amr scale keeps from the card's
+    # flush
+    kills = (rays.default_tau_kill(f32), rays.default_rel_kill(f32))
+    ctx64 = _cli_stellar(config, levels, state, m.geom, f64, DEVICE)
+    (t32, t64), trace_s = zip(*(timed(lambda c=c, d=d: (
+        rays_amr.trace_point_sources_amr(
+            state, m.geom, c.sources, c.tables,
+            dust_approximation=c.dust_approximation,
+            max_pixel_level=c.max_pixel_level, dtype=d, tau_kill=kills[0],
+            rel_kill=kills[1]))) for c, d in ((ctx, f32), (ctx64, f64))))
+    err_levels = [worst(a, b, channels)
+                  for a, b in ((t32[0], t64[0]), (t32[1], t64[1]))]
+    fesc32, fesc64 = (rays.escape_fractions(t[2], ctx.sources.weight)
+                      for t in (t32, t64))
+    fesc_err = float(np.abs(fesc32 - fesc64).max())
+    tiny = torch.finfo(f32).tiny
+    fine64 = torch.stack([getattr(t64[1], k) for k in channels])
+    fine32 = torch.stack([getattr(t32[1], k) for k in channels])
+    sub64 = int(((fine64 != 0) & (fine64.abs() < tiny)).sum())
+    sub32 = int(((fine32 != 0) & (fine32.abs() < tiny)).sum())
+    lost = int(((fine64 != 0) & (fine32 == 0)).sum())
+    print(f"[18 amr] the {n}^3 f32 trace ({trace_s[0]:.3f} s) against the "
+          f"f64 trace ({trace_s[1]:.3f} s), both with tau_kill {kills[0]} "
+          f"and rel_kill {kills[1]}: base channels max diff "
+          f"{err_levels[0]:.2e}, fine {err_levels[1]:.2e} of each "
+          f"channel's peak (tol 5e-5), escape fractions {fesc_err:.2e} "
+          f"(tol 1e-5); "
+          f"fine deposits below float32's smallest normal {tiny:.3e}: "
+          f"{sub64} in the f64 trace, {sub32} subnormal in the f32 trace, "
+          f"{lost} of the f64 trace's nonzero ones 0 in f32, of "
+          f"{int((fine64 != 0).sum())} nonzero")
+    assert max(err_levels) <= 5e-5 and fesc_err <= 1e-5, (err_levels,
+                                                            fesc_err)
     assert _kernel_counts() == counts0, "the two-level step launched a kernel"
-    out.update(step_s=step_s, layers=rows, peak_gib=peak, plan_s=plan_s,
-               ingest_s=ingest_s, write_snapshot_s=snap_s,
-               zone_busy_share=zone_busy / zone_wall, nf=(nf0, nf1))
-    del state, state1, am, m
+    out.update(step_s=step_s, layers=rows, march=march, peak_gib=peak,
+               tracer_busy_share=tr_busy / tr_wall,
+               plan_s=plan_s, ingest_s=ingest_s, write_snapshot_s=snap_s,
+               zone_busy_share=zone_busy / zone_wall, nf=(nf0, nf1),
+               mode1_s=step1_s, trace_err=(*err_levels, fesc_err),
+               subnormal=(sub64, sub32, lost))
+    del state, am, m, ctx, ctx64, t32, t64, fine32, fine64, levels
 
     # (c) 64^3, nothing refined: the plain two-level step against the
     # uniform step through the cluster kernel (#1) in the exact logmean
@@ -2404,13 +2565,14 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     del uni, two, base, am, m
     counts0 = _kernel_counts()
 
-    # (d) the CLI on a two-level grid, mode 9: 2 iterations, a restart of
-    # one through python -m from the itime-1 snapshot; mode 8 on the
-    # full-width grid raises before the grid is ingested.  The grid is
-    # 32^3 with its central half refined: the branch, the snapshot and
-    # the restart are the same at any width, (b) times the full width,
-    # and the iterations are launch-bound (~25 s at 128^3, ~14 s at
-    # 64^3), so a wider grid puts the phase over its budget
+    # (d) the CLI on a two-level grid: mode 9, 2 iterations, a restart of
+    # one through python -m from the itime-1 snapshot; mode 8 with the 12
+    # sources, 1 iteration (with 2 phase 18 took 251.2 s, over its 220 s
+    # budget); --chemistry noneq raises before the grid is ingested.  The
+    # grid is 32^3 with its central half refined: the branch, the snapshot
+    # and the restart are the same at any width, (b) times the full width,
+    # and the iterations are launch-bound (~25 s at 128^3, ~14 s at 64^3),
+    # so a wider grid puts the phase over its budget
     n_cli = out["cli_n"] = 32
     config32 = write_cli_inputs(inputs32, n_cli, refine_center=True)
     d9 = os.path.join(tmp, "amr9")
@@ -2449,41 +2611,67 @@ def _phase_amr(tmp: str, smi: str) -> dict:
           f"2 neutral fraction {nf_sub:.8f} against {log9[2]:.8f} in "
           f"this process (rel {rel:.2e}, tol 1e-4)")
     assert rel <= 1e-4, (nf_sub, log9[2])
-    mode8 = _config_variant(config, os.path.join(tmp, "mode8.cfg"),
-                            mode=8)
     d8 = os.path.join(tmp, "amr8")
+    config8 = _config_variant(config32, os.path.join(tmp, "mode8.cfg"),
+                              mode=8)
+    out8, call8 = _cli(config8, d8, "--iters", "1", tag="18 amr")
+    log8 = _time_log(d8)
+    dts8 = _iteration_dts(out8, n_cli ** 3 * 192)
+    fesc8 = [float(x) for line in re.findall(r"fesc=(\S+)", out8)
+             for x in line.split("/")]
+    nf8_0 = float(re.search(r"ionization equilibrium: (\S+)",
+                            out8).group(1))
+    with open(os.path.join(d8, "weight")) as fh:
+        n_weight = len(fh.read().splitlines())
+    with np.load(os.path.join(d8, "cosmicSpectrum.npz")) as fh:
+        spec = fh["spectrum"]
+    print(f"[18 amr] CLI mode 8 on the two-level {n_cli}^3 grid, "
+          f"{n_weight} sources: call {call8:.3f} s, iterations' dt "
+          f"{_fmt(dts8)} s, neutral fraction {nf8_0:.8f} -> "
+          f"{list(log8.values())}, fesc {_fmt(fesc8)}, cosmicSpectrum.npz "
+          f"peak {float(spec.max()):.4e}")
+    assert list(log8) == [1] and all(v < nf8_0 for v in log8.values())
+    assert n_weight == 12 and len(fesc8) == 7
+    assert all(0.0 <= f <= 1.0 for f in fesc8), fesc8
+    assert np.isfinite(spec).all() and float(spec.max()) > 0.0
+    d_noneq = os.path.join(tmp, "amr_noneq")
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
             from radiativetransfer_tpu_torch import cli
-            cli.main([mode8, "--snapshot-dir", d8, "--iters", "1"])
+            cli.main([config32, "--snapshot-dir", d_noneq, "--iters", "1",
+                      "--chemistry", "noneq"])
     except NotImplementedError as e:
         refusal = str(e)
     else:
-        raise AssertionError("mode 8 ran on the two-level grid")
+        raise AssertionError("--chemistry noneq ran on the two-level grid")
     refused_s = time.perf_counter() - t0
-    print(f"[18 amr] CLI mode 8 on the two-level {n}^3 grid: refused in "
-          f"{refused_s:.3f} s: {refusal}")
-    assert "ROADMAP, Two-level AMR PR b" in refusal
+    print(f"[18 amr] CLI --chemistry noneq on the two-level {n_cli}^3 grid: "
+          f"refused in {refused_s:.3f} s: {refusal}")
+    assert "ROADMAP, L-level dense AMR" in refusal
     assert "grid:" not in buf.getvalue(), "refused after ingestion"
-    assert not os.path.exists(os.path.join(d8, "time"))
+    assert not os.path.exists(os.path.join(d_noneq, "time"))
     assert _kernel_counts() == counts0, "the two-level CLI launched a kernel"
-    out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s)
+    out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s,
+               cli_dts8=dts8, cli_call8_s=call8)
 
-    # (e) launches per layer at 32^3, level 3, each from two profiler
-    # windows that must agree (profile_step.amr_layers), the sweep's zone
-    # by zone: a zone's launches do not depend on the plane's width (the
-    # 32^3 zone's two windows against (b)'s first 32 slabs at 128^3), and
-    # (b)'s 16 and 32 slabs give its launches per base slab and per zone,
-    # so the zones' count at 128^3 but for the wrapper's rotations and
-    # sums (the whole 32^3 sweep traced twice takes minutes: profile_step
-    # 32 3 9 0 0 1 does it)
-    m = model(32, level, f32, DEVICE)
+    # (e) launches per layer at 32^3, level 3, mode 8 with amr_sources' 8
+    # sources, each from two profiler windows that must agree
+    # (profile_step.amr_layers), the sweep's zone by zone: a zone's
+    # launches do not depend on the plane's width (the 32^3 zone's two
+    # windows against (b)'s first 32 slabs at 128^3), and (b)'s 16 and 32
+    # slabs give its launches per base slab and per zone, so the zones'
+    # count at 128^3 but for the wrapper's rotations and sums (the whole
+    # 32^3 sweep traced twice takes minutes: profile_step 32 3 8 0 0 1
+    # does it)
+    m = model(32, level, f32, DEVICE, mode=mode8)
     am = step_amr.AMRModel.setup(m)
     st = profile_step.amr_galaxy(m, device=DEVICE)
     counted = tuple(k for k in profile_step.AMR_LAYERS if k != "sweep")
-    st, rows32 = profile_step.amr_layers(am, st, count=counted)
+    st, rows32, march32 = profile_step.amr_layers(
+        am, st, count=counted,
+        stellar=profile_step.amr_sources(m.geom, device=DEVICE))
     zone32 = profile_step.amr_zone_launches(am, st)
     per_slab, rest = divmod(zone_32 - zone_16, 16)
     setup = zone_16 - 16 * per_slab
@@ -2491,24 +2679,36 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     # 256 fine planes of a 128^3 zone one more than 128 or fewer
     stacks = sum(-(-k // 128) for k in (n, 2 * n)) - 2
     zone128 = setup + n * per_slab + stacks
-    print(f"[18 amr] 32^3 level {level} launches per layer (two agreeing "
-          f"traces): " + ", ".join(f"{k} {v[2]}" for k, v in rows32.items()
-                                   if k != "sweep")
-          + f"; one zone's sweep {zone32} (two agreeing traces), its first "
-          f"32 slabs at {n}^3 width {zone_32}: {per_slab} per base slab "
-          f"(remainder {rest}) and {setup} per zone; derived from these, "
-          f"not traced: a whole zone at {n}^3 {zone128} ({stacks} for its "
-          f"stacks), the sweep {zones} zones x {zone128} = "
-          f"{zones * zone128} launches and its wrapper's")
+    tracer32 = rows32["tracer"][2]
+    print(f"[18 amr] 32^3 level {level} mode 8 launches per layer (two "
+          f"agreeing traces): " + ", ".join(
+              f"{k} {v[2]}" for k, v in rows32.items() if k != "sweep")
+          + f"; the tracer's {march32} march steps, "
+          f"{tracer32 / march32:.1f} launches a step; one zone's sweep "
+          f"{zone32} (two agreeing traces), its first 32 slabs at {n}^3 "
+          f"width {zone_32}: {per_slab} per base slab (remainder {rest}) "
+          f"and {setup} per zone; derived from these, not traced: a whole "
+          f"zone at {n}^3 {zone128} ({stacks} for its stacks), the sweep "
+          f"{zones} zones x {zone128} = {zones * zone128} launches and its "
+          f"wrapper's")
     assert zone32 == zone_32, (zone32, zone_32)
     assert rest == 0 and per_slab > 0, (zone_16, zone_32)
+    assert march32 > 0 and tracer32 > march32
     assert _kernel_counts() == counts0, "the two-level step launched a kernel"
     phase_s = time.perf_counter() - t_phase
-    retakes = profile_step.RETAKES - retakes0
-    print(f"[18 amr] phase 18: {phase_s:.1f} s, {retakes} profiler windows "
-          f"taken again for lost markers (profile_step.RETAKES); {smi}")
-    out.update(launches32=rows32, per_slab=per_slab, zone128=zone128,
-               phase_s=phase_s, retakes=retakes)
+    windows = profile_step.WINDOWS
+    lags = [w[3] for w in windows]
+    print(f"[18 amr] phase 18: {phase_s:.1f} s; {smi}")
+    print(f"[18 amr] the run's {len(windows)} profiler windows (phases 17 "
+          f"and 18), each after a warm-up step of "
+          f"{profile_step._WARMUP_MARKERS} spin kernels: at least "
+          f"{min(w[1] for w in windows)} of {profile_step._MARKERS} opening "
+          f"and {min(w[2] for w in windows)} of {profile_step._MARKERS} "
+          f"closing markers recorded in each; the least launch-to-kernel "
+          f"delay of a window {min(lags):.1f} to {max(lags):.1f} us (a "
+          f"negative one: the card's clock read early against the host's)")
+    out.update(launches32=rows32, march32=march32, per_slab=per_slab,
+               zone128=zone128, phase_s=phase_s, windows=len(windows))
     return out
 
 

@@ -31,13 +31,14 @@ its mesh over every device it sees.
 
 A grid of two data levels (or more, under `--amr-depth 2`, the deeper
 levels averaged onto the second) runs as two-level AMR
-(core/step_amr.py::AMRModel) in modes 9 and 6, and its diagnostic modes 2,
+(core/step_amr.py::AMRModel) in modes 9, 8, 6 and 1, the point sources
+traced through both levels (core/rays_amr.py), and its diagnostic modes 2,
 3, 4 and 7 read the base level, as the JAX CLI's do; its snapshots are
 cellArray leaf streams (io/snapshot.py::write_snapshot_amr).
 
 Not ported yet, and refused before any work with NotImplementedError
 naming their ROADMAP entries: grids of more than two data levels under
-`--amr-depth` > 2 (the L-level and block-sparse forms), modes 1 and 8,
+`--amr-depth` > 2 (the L-level and block-sparse forms),
 `--chemistry noneq` and a mesh on a two-level grid, `.h4` grids,
 `--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`, point
 sources on a mesh and the multi-process flags.
@@ -200,7 +201,7 @@ def _read_levels(cfg):
     sys.exit(f"grid not found: {grid_path}(.npz|.h4|.dat)")
 
 
-def _use_amr(levels, args, cfg, mesh, noneq: bool) -> bool:
+def _use_amr(levels, args, mesh, noneq: bool) -> bool:
     """Whether the grid runs as two-level AMR, as the JAX CLI decides it
     (two data levels, or more under --amr-depth 2); NotImplementedError
     naming the ROADMAP item, before any work, for a nested grid the port
@@ -215,9 +216,6 @@ def _use_amr(levels, args, cfg, mesh, noneq: bool) -> bool:
             f"is not ported yet: ROADMAP, L-level dense AMR and "
             f"Block-sparse AMR")
     refused = [
-        (cfg.run_stellar_transfer,
-         f"mode {cfg.mode} (point sources) on a two-level AMR grid",
-         "Two-level AMR PR b (core/rays_amr.py)"),
         (noneq, "--chemistry noneq on a two-level AMR grid (the JAX CLI "
          "runs it through MultiLevelModel(2))", "L-level dense AMR"),
         (mesh is not None, "a mesh on a two-level AMR grid "
@@ -294,7 +292,7 @@ def main(argv=None):
         for i, lv in enumerate(levels):
             print(f"level = {i + 1}  cells = {lv.ncell}")
         return
-    use_amr = _use_amr(levels, args, cfg, mesh, noneq)
+    use_amr = _use_amr(levels, args, mesh, noneq)
     amr_state = None
     if use_amr:
         amr_state, geom = amr.amr_from_levels(levels, cfg.read_metals,
@@ -376,7 +374,7 @@ def main(argv=None):
     # any step
     if use_amr:
         amodel = step_amr.AMRModel.setup(model)
-        step = amodel.make_step()
+        step = amodel.make_step(stellar_ctx)
     elif noneq:
         step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                      evolve_energy=args.evolve_energy,
@@ -440,7 +438,9 @@ def main(argv=None):
             itime += 1
             t0 = time.time()
             if use_amr:
-                amr_state, diag = step(amr_state), None
+                out = step(amr_state)
+                amr_state, diag = out if isinstance(out, tuple) else (out,
+                                                                      None)
             elif noneq:
                 state, species, *traced = step(state, species)
                 diag = traced[0] if traced else None

@@ -197,6 +197,133 @@ def _pack_fields(*cols):
 _ACTIVE_FIELDS = {1: (0, 3), 2: (0, 3, 2, 5), 3: (0, 1, 2, 3, 4, 5)}
 
 
+def _rate_ctx(tables, rates_mode: str, dtype, device):
+    """The march's rate context from the SED tables, as `dtype` tensors on
+    `device`: ("table", table_flat), ("quadrature", (quad_A, quad_W)) or
+    ("quadrature_noneq", (quad_A, quad_W, quad_W27))."""
+    def t(name):
+        return torch.as_tensor(tables[name], dtype=dtype, device=device)
+    if rates_mode == "quadrature_noneq":
+        return rates_mode, (t("quad_A"), t("quad_W"), t("quad_W27"))
+    if rates_mode == "quadrature":
+        return rates_mode, (t("quad_A"), t("quad_W"))
+    return "table", _pack_tables(t("reaction_log"), t("energy_log"))
+
+
+def _segment_tau(fv, plen, active, dust_approximation: int):
+    """The segments' optical depths (R, 4) [HI, HeI, HeII, dust]
+    (equiSources.f90:3180-3196) from the rows of their cells fv (R, 5)
+    [HI, HeI, HeII, nH, abun2] and their lengths plen [cm]; 0 for dead
+    rays, whose frozen state can give huge or NEGATIVE raw values (t_min <
+    0), and a negative tau overflows exp() to inf in the deposit math,
+    which w = 0 then turns into scattered NaNs."""
+    hi = fv[:, 0]
+    if dust_approximation == NO_DUST:
+        taud = torch.zeros_like(hi)
+    elif dust_approximation == COMPLETE_SUBLIMATION:
+        taud = plen * hi * SIGMA_DUST_AT_NU1 * fv[:, 4] / 0.2
+    else:  # NO_SUBLIMATION
+        taud = plen * fv[:, 3] * SIGMA_DUST_AT_NU1 * fv[:, 4] / 0.2
+    tau = torch.stack([plen * hi * SIGMA24_AT_NU1,
+                       plen * fv[:, 1] * SIGMA26_AT_NU2,
+                       plen * fv[:, 2] * SIGMA25_AT_NU3, taud], dim=1)
+    return torch.where(active[:, None], torch.clamp(tau, min=0.0), 0.0)
+
+
+def _escape_update(state: _RayState, radius_new, tau, active, out_radii,
+                   cell_size: float, rem_acc):
+    """Escape-fraction bookkeeping of one segment from state.radius to
+    radius_new (base-cell units; equiSources.f90:3198-3226): the photons
+    left at each output radius the segment spans, and the outermost
+    radius's crossing record for the emergent spectrum.  Returns
+    (rem_acc, crossed, cross_depth, the segment's end radius [cm])."""
+    r1 = state.radius * cell_size
+    r2 = radius_new * cell_size
+    in_seg = ((out_radii[None, :] >= r1[:, None])
+              & (out_radii[None, :] <= r2[:, None])) & active[:, None]
+    ratio = torch.where(
+        in_seg, (out_radii[None, :] - r1[:, None])
+        / torch.clamp((r2 - r1)[:, None], min=1e-30), 0.0)
+    esc = state.ndot[:, None] * torch.exp(
+        -(ratio * (tau[:, 0] + tau[:, 3])[:, None]
+          + (state.depth[:, 0] + state.depth[:, 3])[:, None]))
+    rem_acc = rem_acc + torch.where(in_seg, esc, 0.0)
+    crossing = in_seg[:, -1] & ~state.crossed
+    cross_depth = torch.where(crossing[:, None],
+                              state.depth + ratio[:, -1:] * tau,
+                              state.cross_depth)
+    return rem_acc, state.crossed | crossing, cross_depth, r2
+
+
+def _rate_deposits(state: _RayState, tau, w, rate_ctx,
+                   dust_approximation: int, n_bands: int = 3, wsum=None):
+    """The six photoionization/heating deposits of one segment
+    (equiSources.f90:3243-3260) in RateFields order, each the ray weight w
+    times an entry-minus-exit rate difference, where "exit" advances only
+    that channel's tau; and rem (the quadrature's remaining weight, with
+    wsum; else None)."""
+    d0 = state.depth
+    if rate_ctx[0] == "table":
+        # entry + 3 advanced states interpolate in one batched call
+        adv = [d0.clone() for _ in range(3)]
+        for j in range(3):
+            adv[j][:, j] += tau[:, j]
+        v = _interp_flat(rate_ctx[1], torch.cat([state.table_idx] * 4),
+                         torch.cat([d0, *adv], dim=0),
+                         dust_approximation != NO_DUST)
+        v_in, v_a1, v_a2, v_a3 = torch.chunk(v, 4, dim=0)
+        return (
+            w * (v_in[:, 0] - v_a1[:, 0]),   # krate24
+            w * (v_in[:, 2] - v_a3[:, 2]),   # krate25
+            w * (v_in[:, 1] - v_a2[:, 1]),   # krate26
+            w * (v_in[:, 3] - v_a1[:, 3]),   # crate24
+            w * (v_in[:, 5] - v_a3[:, 5]),   # crate25
+            w * (v_in[:, 4] - v_a2[:, 4]),   # crate26
+        ), None
+    quad_A, quad_W = rate_ctx[1][:2]
+    dq = _deposit_quadrature(d0, tau[:, :3], quad_A, quad_W, state.table_idx,
+                             w, n_bands, wsum=wsum)
+    return dq if wsum is not None else (dq, None)
+
+
+def _end_phase(state: _RayState, diag: RayDiagnostics, src_of_ray,
+               sig_ratio, out_radii, level: int, last: bool, n: int,
+               cell_size: float, cell_grid: int | None = None):
+    """A phase's end: its outer-radius crossings into the emergent
+    spectrum (equiSources.f90:3206-3223), then, but after the last phase,
+    every surviving ray's 4 children (_split_rays; cell_grid the
+    resolution of state.cell), the children spawned outside the box
+    counted as boundary losses.  Returns (state, diag)."""
+    spec_tau = state.cross_depth @ sig_ratio      # (R, nenergy)
+    contrib = torch.where(state.crossed[:, None],
+                          state.ndot[:, None] * torch.exp(-spec_tau), 0.0)
+    diag.ndot_spectrum.index_add_(0, src_of_ray, contrib)
+    # only count each crossing once
+    state = dataclasses.replace(state, crossed=torch.zeros_like(state.crossed))
+    if last:
+        return state, diag
+    state, in_box, was_split = _split_rays(state, level, n, state.pos.dtype,
+                                           cell_grid)
+    lost = was_split & ~in_box
+    beyond = out_radii[None, :] > (state.radius * cell_size)[:, None]
+    diag.ndot_boundary.index_add_(
+        0, torch.repeat_interleave(src_of_ray, 4),
+        torch.where(beyond & lost[:, None], state.ndot[:, None], 0.0))
+    return state, diag
+
+
+def _sig_ratio(tables, dtype, device):
+    """(4, nenergy): each output frequency's cross sections over the
+    threshold ones, [HI, HeI, HeII, dust]; the emergent spectrum's optical
+    depth is cross_depth @ this."""
+    def t(name):
+        return torch.as_tensor(tables[name], dtype=dtype, device=device)
+    return torch.stack([t("output_sigma24") / SIGMA24_AT_NU1,
+                        t("output_sigma26") / SIGMA26_AT_NU2,
+                        t("output_sigma25") / SIGMA25_AT_NU3,
+                        t("output_sigma_dust") / SIGMA_DUST_AT_NU1])
+
+
 def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
                  diag: RayDiagnostics, rf: RateFields, r_stop: float,
                  last_phase: bool, dust_approximation: int, max_steps: int,
@@ -285,86 +412,20 @@ def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
             t_min = seg_cells / n
 
         active = state.alive
-        plen = seg_cells * cell_size      # physical segment length [cm]
-
         # dead rays carry frozen (possibly out-of-box) cells: clip so every
         # gather is in bounds (their values are masked by `active` below)
         idx = torch.clamp(flat_idx(state.cell), 0, n * n * n - 1).long()
-        fv = fields_pk[idx]               # (R, 5): HI, HeI, HeII, nH, abun2
-        hi, hei, heii = fv[:, 0], fv[:, 1], fv[:, 2]
-        # threshold optical depths (equiSources.f90:3180-3196)
-        tau1 = plen * hi * SIGMA24_AT_NU1
-        tau2 = plen * hei * SIGMA26_AT_NU2
-        tau3 = plen * heii * SIGMA25_AT_NU3
-        if dust_approximation == NO_DUST:
-            taud = torch.zeros_like(tau1)
-        elif dust_approximation == COMPLETE_SUBLIMATION:
-            taud = plen * hi * SIGMA_DUST_AT_NU1 * fv[:, 4] / 0.2
-        else:  # NO_SUBLIMATION
-            taud = plen * fv[:, 3] * SIGMA_DUST_AT_NU1 * fv[:, 4] / 0.2
-        tau = torch.stack([tau1, tau2, tau3, taud], dim=1)
-        tau = torch.where(active[:, None], torch.clamp(tau, min=0.0), 0.0)
-        # re-read the masked components: dead rays carry frozen state whose
-        # raw segment values can be huge or NEGATIVE (t_min < 0), and a
-        # negative tau overflows exp() to inf in the deposit math, which
-        # w=0 then turns into scattered NaNs
-        tau1, tau2, tau3, taud = tau[:, 0], tau[:, 1], tau[:, 2], tau[:, 3]
-        plen = torch.where(active, plen, 0.0)
-
-        # ---- escape-fraction bookkeeping (equiSources.f90:3198-3226) ----
-        r1 = state.radius * cell_size
-        r2 = radius_new * cell_size
-        in_seg = ((out_radii[None, :] >= r1[:, None])
-                  & (out_radii[None, :] <= r2[:, None]))
-        in_seg = in_seg & active[:, None]
-        ratio = torch.where(
-            in_seg, (out_radii[None, :] - r1[:, None])
-            / torch.clamp((r2 - r1)[:, None], min=1e-30), 0.0)
-        esc = state.ndot[:, None] * torch.exp(
-            -(ratio * (tau1 + taud)[:, None]
-              + (state.depth[:, 0] + state.depth[:, 3])[:, None]))
-        rem_acc = rem_acc + torch.where(in_seg, esc, 0.0)
-        # outermost-radius crossing record for the emergent spectrum
-        crossing = in_seg[:, -1] & ~state.crossed
-        cross_depth = torch.where(crossing[:, None],
-                                  state.depth + ratio[:, -1:] * tau,
-                                  state.cross_depth)
-        crossed = state.crossed | crossing
-
-        # ---- rate deposits (equiSources.f90:3243-3260) ----
-        # the krate/crate increments are entry-minus-exit rate differences
-        # per channel, where "exit" advances only that channel's tau
+        tau = _segment_tau(fields_pk[idx], seg_cells * cell_size, active,
+                           dust_approximation)
+        rem_acc, crossed, cross_depth, r2 = _escape_update(
+            state, radius_new, tau, active, out_radii, cell_size, rem_acc)
         w = torch.where(active, state.ndot, 0.0)
-        d0 = state.depth
-        rem = None
-        if rates_mode == "table":
-            # entry + 3 advanced states interpolate in one batched call
-            adv = [d0.clone() for _ in range(3)]
-            for j, t in enumerate((tau1, tau2, tau3)):
-                adv[j][:, j] += t
-            depths4 = torch.cat([d0, *adv], dim=0)
-            tidx4 = torch.cat([state.table_idx] * 4)
-            v = _interp_flat(rate_ctx[1], tidx4, depths4,
-                             dust_approximation != NO_DUST)
-            v_in, v_a1, v_a2, v_a3 = torch.chunk(v, 4, dim=0)
-            deposit = (
-                w * (v_in[:, 0] - v_a1[:, 0]),   # krate24
-                w * (v_in[:, 2] - v_a3[:, 2]),   # krate25
-                w * (v_in[:, 1] - v_a2[:, 1]),   # krate26
-                w * (v_in[:, 3] - v_a1[:, 3]),   # crate24
-                w * (v_in[:, 5] - v_a3[:, 5]),   # crate25
-                w * (v_in[:, 4] - v_a2[:, 4]),   # crate26
-            )
-        else:
-            quad_A, quad_W = rate_ctx[1][:2]
-            dtau = torch.stack([tau1, tau2, tau3], dim=1)
-            dq = _deposit_quadrature(d0, dtau, quad_A, quad_W,
-                                     state.table_idx, w, n_bands, wsum=wsum)
-            deposit, rem = dq if use_rem_kill else (dq, None)
-            if rates_mode == "quadrature_noneq":
-                deposit = deposit + _deposit_noneq(
-                    d0, quad_A, rate_ctx[1][2], state.table_idx, w,
-                    torch.where(active, seg_cells, 0.0))
+        deposit, rem = _rate_deposits(state, tau, w, rate_ctx,
+                                      dust_approximation, n_bands, wsum)
+        if rates_mode == "quadrature_noneq":
+            deposit = deposit + _deposit_noneq(
+                state.depth, rate_ctx[1][0], rate_ctx[1][2], state.table_idx,
+                w, torch.where(active, seg_cells, 0.0))
 
         # ---- advance ----
         depth_new = state.depth + tau
@@ -647,30 +708,14 @@ def _trace_all_phases(fields, init_state: _RayState, tables, geom,
     fields_pk = _pack_fields(fields["HI"], fields["HeI"], fields["HeII"],
                              fields["nH"], fields["abun2"])
 
-    def t(name):
-        return torch.as_tensor(tables[name], dtype=dtype, device=device)
-
     def zeros(k):
         return [torch.zeros(n * n * n, dtype=dtype, device=device)
                 for _ in range(k)]
-    rf = RateFields(*zeros(6))
-    if rates_mode == "quadrature_noneq":
-        rf = NoneqRateFields(*zeros(11))
-        rate_ctx = ("quadrature_noneq",
-                    (t("quad_A"), t("quad_W"), t("quad_W27")))
-    elif rates_mode == "quadrature":
-        rate_ctx = ("quadrature", (t("quad_A"), t("quad_W")))
-    else:
-        rate_ctx = ("table", _pack_tables(t("reaction_log"),
-                                          t("energy_log")))
+    rf = (NoneqRateFields(*zeros(11)) if rates_mode == "quadrature_noneq"
+          else RateFields(*zeros(6)))
+    rate_ctx = _rate_ctx(tables, rates_mode, dtype, device)
     state = init_state
-
-    sig_ratio = torch.stack([
-        t("output_sigma24") / SIGMA24_AT_NU1,
-        t("output_sigma26") / SIGMA26_AT_NU2,
-        t("output_sigma25") / SIGMA25_AT_NU3,
-        t("output_sigma_dust") / SIGMA_DUST_AT_NU1,
-    ])  # (4, nenergy)
+    sig_ratio = _sig_ratio(tables, dtype, device)
     out_radii = torch.tensor(np.array(OUTPUT_RADII_KPC) * KPC, dtype=dtype,
                              device=device)
 
@@ -686,27 +731,8 @@ def _trace_all_phases(fields, init_state: _RayState, tables, geom,
             dust_approximation, max_steps, src_of_ray, n_bands,
             tau_kill=tau_kill, unroll=max(1, min(unroll, max_steps)),
             rel_kill=rel_kill)
-
-        # emergent spectrum from this phase's outer-radius crossings
-        # (equiSources.f90:3206-3223)
-        spec_tau = state.cross_depth @ sig_ratio      # (R, nenergy)
-        contrib = torch.where(state.crossed[:, None],
-                              state.ndot[:, None] * torch.exp(-spec_tau), 0.0)
-        diag.ndot_spectrum.index_add_(0, src_of_ray, contrib)
-        # only count each crossing once
-        state = dataclasses.replace(state,
-                                    crossed=torch.zeros_like(state.crossed))
-
-        if not last:
-            state, in_box, was_split = _split_rays(state, level, n, dtype)
-            # children spawned outside the box are boundary losses
-            lost = was_split & ~in_box
-            r2 = state.radius * geom.cell_size
-            beyond = out_radii[None, :] > r2[:, None]
-            src4 = torch.repeat_interleave(src_of_ray, 4)
-            diag.ndot_boundary.index_add_(
-                0, src4, torch.where(beyond & lost[:, None],
-                                     state.ndot[:, None], 0.0))
+        state, diag = _end_phase(state, diag, src_of_ray, sig_ratio,
+                                 out_radii, level, last, n, geom.cell_size)
     return rf, diag
 
 

@@ -52,12 +52,12 @@ class FieldState:
     @property
     def nh(self) -> torch.Tensor:
         """Total hydrogen number density [cm^-3] (psi*rho/mh)."""
-        return PSI * self.rho / MH
+        return PSI * self.rho / _scalar(MH, self.rho)
 
     @property
     def nhe(self) -> torch.Tensor:
         """Total helium number density [cm^-3]."""
-        return (1.0 - PSI) * self.rho / MHE
+        return (1.0 - PSI) * self.rho / _scalar(MHE, self.rho)
 
     def zero_rates(self) -> "FieldState":
         """Reset per-iteration accumulators (setZeroRates,
@@ -85,6 +85,17 @@ class FieldState:
         return {f.name: (None if getattr(self, f.name) is None
                          else getattr(self, f.name).detach().cpu().numpy())
                 for f in dataclasses.fields(self)}
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """`value` as a 0-d tensor on `like`'s device and dtype.  Dividing by
+    it is a true division on every device, where CUDA divides a tensor by a
+    Python number as a product with its reciprocal, an ulp off in ~1 value
+    of 10; the equilibrium chemistry's helium clamp (nhe - HeI - HeII near
+    0) and the per-particle rates (a deposit over the clamped HeII) turn
+    that ulp of nhe into 3e-9 of HeII's peak after a mode-8 step (ROADMAP,
+    faults found in the port)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def make_state(rho, tgas, HI, HeI=None, HeII=None, abun2=None, vel=None, *,

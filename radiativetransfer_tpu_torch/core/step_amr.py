@@ -1,14 +1,15 @@
 """Full transport + chemistry iteration on a two-level AMR grid.
 
 Counterpart of AMRModel in the JAX package's core/step_amr.py, the AMR
-analog of core/step.py: zero rates -> opacities + two-level sweep
-(sweep_amr) -> per-level equilibrium chemistry -> restriction sync (the
-reference's recursive per-leaf updates walk the octree; here each level is
-one dense elementwise pass).  Modes 9 (UVB only) and 6 (the thin UVB, no
-stars) run; the point-source phase of modes 1 and 8 (core/rays_amr.py),
-the device mesh (shard_amr_state) and the L-level and block-sparse models
-are not ported yet and raise NotImplementedError naming their ROADMAP
-items.
+analog of core/step.py: zero rates -> point-source trace (rays_amr) ->
+opacities + two-level sweep (sweep_amr) -> per-level equilibrium chemistry
+-> restriction sync (the reference's recursive per-leaf updates walk the
+octree; here each level is one dense elementwise pass).  Modes 9 (UVB
+only), 8 (point sources and the UVB), 1 (point sources and the thin UVB)
+and 6 (the thin UVB, no stars) run on one device; the device mesh
+(shard_amr_state, with the distributed two-level tracers) and the L-level
+and block-sparse models are not ported yet and raise NotImplementedError
+naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import dataclasses
 
 import torch
 
-from . import amr, chemistry, opacity, sweep_amr
+from . import amr, chemistry, opacity, rays_amr, sweep_amr
 from .state import GridGeometry
 
 
@@ -43,23 +44,48 @@ class AMRModel:
         return GridGeometry(2 * g.nx, 2 * g.ny, 2 * g.nz, g.physical_box_size)
 
     @staticmethod
-    def _check_supported(stellar, mesh) -> None:
+    def _check_supported(mesh) -> None:
         if mesh is not None:
             raise NotImplementedError(
                 "a two-level AMR state on a mesh (shard_amr_state) is not "
                 "ported yet: ROADMAP, Distribution")
-        if stellar is not None:
-            raise NotImplementedError(
-                "point sources on a two-level AMR grid are not ported yet: "
-                "ROADMAP, Two-level AMR PR b (core/rays_amr.py)")
+
+    @staticmethod
+    def _zero_rates(state: amr.AMRState) -> amr.AMRState:
+        return dataclasses.replace(state, base=state.base.zero_rates(),
+                                   fine=state.fine.zero_rates())
 
     def step(self, state: amr.AMRState, stellar=None, mesh=None):
-        """One iteration; returns (state, None), as the JAX package's step
-        returns (state, diag) with no point sources."""
-        self._check_supported(stellar, mesh)
-        state = dataclasses.replace(state, base=state.base.zero_rates(),
-                                    fine=state.fine.zero_rates())
-        return self._sweep_and_chemistry(state), None
+        """One iteration; returns (state, RayDiagnostics), the diagnostics
+        None unless the mode traces point sources (a StellarContext
+        given in mode 1 or 8)."""
+        self._check_supported(mesh)
+        state = self._zero_rates(state)
+        diag = None
+        if self.rt.config.run_stellar_transfer and stellar is not None:
+            state, diag = self.trace(state, stellar)
+        return self._sweep_and_chemistry(state), diag
+
+    def trace(self, state: amr.AMRState, stellar):
+        """The point-source phase (the JAX package's AMRModel._traced):
+        trace every source through both levels and put the six deposit
+        fields into the (zero-rate) state, the base level's as they are
+        and the fine level's times 8: the tables are over the BASE cell's
+        volume (StellarContext.build), a fine cell's is an eighth of it.
+        Returns (state, RayDiagnostics)."""
+        rfb, rff, diag = rays_amr.trace_point_sources_amr(
+            state, self.rt.geom, stellar.sources, stellar.tables,
+            dust_approximation=stellar.dust_approximation,
+            max_pixel_level=stellar.max_pixel_level,
+            dtype=state.base.rho.dtype)
+        bs, fs = state.base.shape, state.fine.shape
+        names = [f.name for f in dataclasses.fields(rfb)]
+        return dataclasses.replace(
+            state,
+            base=dataclasses.replace(state.base, **{
+                k: getattr(rfb, k).reshape(bs) for k in names}),
+            fine=dataclasses.replace(state.fine, **{
+                k: getattr(rff, k).reshape(fs) * 8.0 for k in names})), diag
 
     def _sweep(self, state: amr.AMRState) -> amr.AMRState:
         """Both levels' opacities and the two-level sweep, into Jmean."""
@@ -96,9 +122,18 @@ class AMRModel:
         return amr.sync_restriction(state)
 
     def make_step(self, stellar=None, mesh=None):
-        """The iteration step, a plain eager function: state -> state."""
-        self._check_supported(stellar, mesh)
-        return lambda state: self.step(state)[0]
+        """The iteration step, a plain eager function: state -> state, or
+        with a StellarContext state -> (state, RayDiagnostics), tracing
+        whatever the mode (as RTModel.make_step)."""
+        self._check_supported(mesh)
+        if stellar is None:
+            return lambda state: self.step(state)[0]
+
+        def step(state: amr.AMRState):
+            state, diag = self.trace(self._zero_rates(state), stellar)
+            return self._sweep_and_chemistry(state), diag
+
+        return step
 
     def neutral_fraction(self, state: amr.AMRState) -> float:
         """Leaf-volume-weighted neutral hydrogen fraction, summed in float64

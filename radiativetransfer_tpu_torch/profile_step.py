@@ -12,14 +12,16 @@ the card, the sweep through the ring kernel (sweep_strategy "rdma").
 noneq 1 runs the non-equilibrium step (RTModel.make_noneq_step, 1 Myr, 200
 substeps, the temperature held; the tracer in its quadrature_noneq mode)
 in place of the equilibrium one.
-amr 1 (modes 9 and 6, no ranks, no noneq) runs the two-level AMR step
-(core/step_amr.py::AMRModel) on the galaxy with its central half of each
-axis refined (the fine level the base's copy at the start, then each level
-in its own equilibrium), times its plan setup, and reports its layers
-(opacity on each level, the two-level sweep, chemistry on each level,
-sync_restriction) with device ms, host ms and, up to 32^3, the launches
-from two profiler windows; one zone's sweep traced at full width (its
-launches and device-busy share); up to 32^3 also a profiled step.
+amr 1 (modes 9, 6, 8 and 1, no ranks, no noneq) runs the two-level AMR
+step (core/step_amr.py::AMRModel) on the galaxy with its central half of
+each axis refined (the fine level the base's copy at the start, then each
+level in its own equilibrium), in modes 8 and 1 with the 8 sources of
+amr_sources, times its plan setup, and reports its layers (the tracer with
+its march steps, opacity on each level and the two-level sweep where the
+mode sweeps, chemistry on each level, sync_restriction) with device ms,
+host ms and, up to 32^3, the launches from two profiler windows; one
+zone's sweep traced at full width (its launches and device-busy share);
+up to 32^3 also a profiled step.
 Otherwise it runs one warm-up step, times each layer of a step with CUDA
 events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
 per march step; noneq: tracer, opacity, sweep, _assemble_photo_rates and
@@ -41,16 +43,25 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from . import GridGeometry, RTModel, RunConfig, make_state, uniform_state
 from .config import (
     MODE_BOTH_STELLAR_UVB_TRANSFER,
     MODE_NO_STARS_THIN_UVB,
+    MODE_STELLAR_TRANSFER_THIN_UVB,
     MODE_UVB_TRANSFER_ONLY,
 )
 from .constants import KPC, MH, MYR, PSI
-from .core import amr, chemistry, chemistry_noneq, opacity, rays, sweep_amr
+from .core import (
+    amr,
+    chemistry,
+    chemistry_noneq,
+    opacity,
+    rays,
+    rays_amr,
+    sweep_amr,
+)
 from .core.step_amr import AMRModel
 from .geometry import octants
 from .parallel.mesh import make_grid_mesh
@@ -83,26 +94,42 @@ def _event_ms(fn):
 
 
 # the spin kernels that open and close each profiler window (_traced):
-# 20 of ~1 ms each (2e6 clock cycles)
-_MARKERS, _MARKER_CYCLES = 20, 2_000_000
-# profiler windows that lost their markers on a side and were taken again
-RETAKES = 0
+# 20 of ~1 ms each (2e6 clock cycles); 200 in the profiler's warm-up step
+_MARKERS, _MARKER_CYCLES, _WARMUP_MARKERS = 20, 2_000_000, 200
+# one row per profiler window of _traced: (seconds since this module was
+# imported, opening and closing markers recorded, the least and the
+# largest delay in us from a launch on the host to its kernel's start on
+# the card, kernel launches on the host, kernels recorded)
+WINDOWS: list[tuple] = []
+_T_IMPORT = time.perf_counter()
 
 
-def _trace_kernels(prof) -> list[tuple[str, float, float]]:
+def _trace_kernels(path: str) -> tuple[list[tuple[str, float, float]],
+                                        tuple]:
     """(name, start us, end us) of every kernel, copy and set on the device
-    in a torch.profiler run, by start, read from its chrome trace
+    in the chrome trace at `path` that a torch.profiler wrote, by start
     (prof.events() builds a Python object per event, minutes at the noneq
-    step's ~1e5 launches; the trace's export takes about a second)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
+    step's ~1e5 launches; the trace's export takes about a second); and
+    the clocks' agreement: (the least and the largest delay in us from a
+    kernel launch on the host to its kernel's start on the card, matched
+    by correlation id, the kernel launches on the host, the kernels)."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    events = [e for e in events if e.get("ph") == "X"]
+    launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "aunch" in e["name"]
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    lags = [float(e["ts"]) - launches[e["args"]["correlation"]]
+            for e in kernels
+            if e.get("args", {}).get("correlation") in launches]
+    clocks = (min(lags, default=float("nan")),
+              max(lags, default=float("nan")), len(launches), len(kernels))
     return sorted(((e["name"], float(e["ts"]), float(e["ts"] + e["dur"]))
-                   for e in events if e.get("ph") == "X" and e.get("cat") in
+                   for e in events if e.get("cat") in
                    ("kernel", "gpu_memcpy", "gpu_memset")),
-                  key=lambda x: x[1])
+                  key=lambda x: x[1]), clocks
 
 
 def _markers(count: int = _MARKERS) -> None:
@@ -113,40 +140,48 @@ def _markers(count: int = _MARKERS) -> None:
 
 def _traced(fn):
     """(fn(), its device events), fn traced by a torch.profiler of its
-    own.  A profiler loses device events at the start of its window: up to
-    a dozen kernels of a layer (the same ten-kernel layer read 10, 0 and 1
-    launches in three runs), all 32 one-cycle spin kernels opening a
-    window in another run, and thousands in the second window of one
-    profiler (80,209 and 58,249 launches of one network step).  So fn runs
-    between _MARKERS spin kernels of ~1 ms each on either side, and its
-    events are those between the markers.  A window that recorded no
-    marker on a side (one zone's two-level sweep, 60,333 launches, lost
-    all 20 on one side in two runs of chip_smoke.py of three, never when
-    phase 18 ran alone) is taken again, once, running fn again between
-    ten times the markers, and counted in RETAKES; raises unless a marker
-    was recorded on each side."""
-    global RETAKES
-    for count in (_MARKERS, 10 * _MARKERS):
+    own.  A profiler records no kernel for a while after it starts
+    recording: up to a dozen kernels of a layer, thousands in the second
+    window of one profiler, and once a process has run for minutes
+    (phases 1-17 of chip_smoke.py) the first ~20-40 ms of the card's
+    work, all 20 ~1 ms spin kernels opening 12-15 windows a run, whether
+    the window opened on an idle card or idled 0.2 s on the host first.
+    A warm-up step of ~200 ms of spin kernels ahead of the recorded step
+    (schedule warmup=1: recording on, its events dropped) kept every
+    kernel (ROADMAP, faults found in the port).  In the recorded step fn
+    runs between _MARKERS spin kernels of ~1 ms each on either side, and
+    its events are those between the markers; raises unless a marker was
+    recorded on each side.  Every window's markers and clocks go into
+    WINDOWS."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _markers(count)
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(
+                         path)) as prof:
+            _markers(_WARMUP_MARKERS)
+            prof.step()
+            _markers()
             out = fn()
             torch.cuda.synchronize()
-            _markers(count)
-        events = _trace_kernels(prof)
-        inner = [i for i, e in enumerate(events)
-                 if "spin_kernel" not in e[0]]
-        if (inner and inner[0] > 0 and inner[-1] < len(events) - 1
-                and inner[-1] - inner[0] + 1 == len(inner)):
-            return out, events[inner[0]:inner[-1] + 1]
-        first = inner[0] if inner else len(events)
-        last = len(events) - 1 - inner[-1] if inner else 0
-        print(f"profile_step: a profiler window recorded {first} of its "
-              f"{count} opening markers and {last} of its {count} closing "
-              f"ones around {len(inner)} device events")
-        RETAKES += count == _MARKERS
-    raise RuntimeError("two profiler windows in a row lost the markers on "
-                       "a side of the traced call")
+            _markers()
+            prof.step()
+        events, clocks = _trace_kernels(path)
+    inner = [i for i, e in enumerate(events) if "spin_kernel" not in e[0]]
+    first = inner[0] if inner else len(events)
+    last = len(events) - 1 - inner[-1] if inner else 0
+    WINDOWS.append((time.perf_counter() - _T_IMPORT, first, last, *clocks))
+    if not (inner and first > 0 and last > 0
+            and inner[-1] - inner[0] + 1 == len(inner)):
+        raise RuntimeError(
+            f"a profiler window recorded {first} of its {_MARKERS} opening "
+            f"markers and {last} of its {_MARKERS} closing ones around "
+            f"{len(inner)} device events; launch-to-kernel delays "
+            f"{clocks[0]:.1f} to {clocks[1]:.1f} us, {clocks[2]} launches, "
+            f"{clocks[3]} kernels")
+    return out, events[inner[0]:inner[-1] + 1]
 
 
 def _layer(fn):
@@ -188,18 +223,21 @@ def _timed(fn):
     return out, start.elapsed_time(end), host_ms, None
 
 
-AMR_LAYERS = ("opacity_base", "opacity_fine", "sweep", "chemistry_base",
-              "chemistry_fine", "sync_restriction")
+AMR_LAYERS = ("tracer", "opacity_base", "opacity_fine", "sweep",
+              "chemistry_base", "chemistry_fine", "sync_restriction")
 
 
-def amr_layers(amodel, state, count=AMR_LAYERS):
-    """One two-level step from `state`, layer by layer, as
-    AMRModel._sweep_and_chemistry runs it: (the state after the step,
-    {layer: (device ms, host ms, launches)}) for opacity on each level, the
-    two-level sweep, chemistry on each level and sync_restriction.  The
-    layers named in `count` run three times and count their launches
-    (_layer); the others run once, launches None (a 32^3 sweep's 3.6e5
-    launches take minutes to trace twice, a 128^3 one's 1.4e6 longer)."""
+def amr_layers(amodel, state, count=AMR_LAYERS, stellar=None):
+    """One two-level step from `state`, layer by layer, as AMRModel's step
+    runs it: (the state after the step, {layer: (device ms, host ms,
+    launches)}, the tracer's march steps) for the tracer (AMRModel.trace,
+    with a StellarContext), opacity on each level and the two-level sweep
+    (where the mode sweeps), chemistry on each level and
+    sync_restriction.  The layers named in `count` run three times and
+    count their launches (_layer); the others run once, launches None (a
+    32^3 sweep's 3.6e5 launches take minutes to trace twice, a 128^3
+    one's 1.4e6 longer).  March steps: those of one trace, 0 without
+    one."""
     rt = amodel.rt
     rows = {}
 
@@ -209,20 +247,28 @@ def amr_layers(amodel, state, count=AMR_LAYERS):
 
     s0 = dataclasses.replace(state, base=state.base.zero_rates(),
                              fine=state.fine.zero_rates())
-    kc = layer("opacity_base", lambda: opacity.compute_opacities(
-        s0.base.HI, s0.base.HeI, s0.base.HeII, rt.opacity_coef))
-    kf = layer("opacity_fine", lambda: opacity.compute_opacities(
-        s0.fine.HI, s0.fine.HeI, s0.fine.HeII, rt.opacity_coef))
-    jc, jf = layer("sweep", lambda: sweep_amr.diffuse_sweep_amr(
-        kc, kf, s0.refined, amodel.plan, rt.uvb, rt.geom.cell_size))
-    base = dataclasses.replace(s0.base, Jmean=jc)
-    fine = dataclasses.replace(s0.fine, Jmean=jf)
+    march = 0
+    if stellar is not None:
+        steps0 = rays_amr.MARCH_STEPS
+        s0, _ = layer("tracer", lambda s=s0: amodel.trace(s, stellar))
+        march = ((rays_amr.MARCH_STEPS - steps0)
+                 // (3 if "tracer" in count else 1))
+    base, fine = s0.base, s0.fine
+    if amodel.plan is not None:
+        kc = layer("opacity_base", lambda: opacity.compute_opacities(
+            s0.base.HI, s0.base.HeI, s0.base.HeII, rt.opacity_coef))
+        kf = layer("opacity_fine", lambda: opacity.compute_opacities(
+            s0.fine.HI, s0.fine.HeI, s0.fine.HeII, rt.opacity_coef))
+        jc, jf = layer("sweep", lambda: sweep_amr.diffuse_sweep_amr(
+            kc, kf, s0.refined, amodel.plan, rt.uvb, rt.geom.cell_size))
+        base = dataclasses.replace(base, Jmean=jc)
+        fine = dataclasses.replace(fine, Jmean=jf)
     base = layer("chemistry_base", lambda: amodel.chemistry(base, rt.geom))
     fine = layer("chemistry_fine",
                  lambda: amodel.chemistry(fine, amodel.fine_geom))
     s1 = dataclasses.replace(s0, base=base, fine=fine)
     s2 = layer("sync_restriction", lambda: amr.sync_restriction(s1))
-    return s2, {k: tuple(v) for k, v in rows.items()}
+    return s2, {k: tuple(v) for k, v in rows.items()}, march
 
 
 def amr_zone_window(amodel, state, slabs: int | None = None):
@@ -367,6 +413,19 @@ def amr_galaxy(model, box_kpc: float = 300.0, device="cuda"):
         fine=model.initialize_equilibrium(state.fine)))
 
 
+def amr_sources(geom, device="cuda"):
+    """The point sources of the two-level profile, in float32: 8 from
+    bench_sources (seed 0, the central [0.3, 0.7]^3), blackbodies of
+    q = 1e51 at 10 Myr, as the uniform mode-8 profile's."""
+    from .bench import bench_sources
+    from .core.step import StellarContext
+    from .tables import stellar
+    return StellarContext.build(
+        stellar.blackbody_population(q_ionizing=1.0e51),
+        bench_sources(geom.nx, 8), geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
+        dtype=torch.float32, device=device)
+
+
 def main_amr(n: int, level: int, mode: int, smi: str) -> None:
     cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
                     reionization_model=10, self_shielding_threshold_kpc=0.1)
@@ -376,19 +435,28 @@ def main_amr(n: int, level: int, mode: int, smi: str) -> None:
     amodel = AMRModel.setup(model)
     plan_s = time.perf_counter() - t0
     state = amr_galaxy(model)
+    ctx = amr_sources(model.geom) if cfg.run_stellar_transfer else None
+    step = amodel.make_step(ctx)
+
+    def run(s):
+        return step(s)[0] if ctx is not None else step(s)
+
     nf0 = amodel.neutral_fraction(state)
-    state = amodel.make_step()(state)
+    state = run(state)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, rows = amr_layers(amodel, state,
-                             count=AMR_LAYERS if n <= 32 else ())
+    state, rows, march = amr_layers(amodel, state,
+                                    count=AMR_LAYERS if n <= 32 else (),
+                                    stellar=ctx)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     print(f"two-level mode {mode} at {n}^3 (+ {int(state.refined.sum())} "
-          f"refined parents) x {cfg.n_directions} dirs f32: plan setup "
-          f"{plan_s:.3f} s (host); one step {step_s:.3f} s, layers "
-          "(device ms / host ms / launches): " + ", ".join(
+          f"refined parents) x {cfg.n_directions} dirs f32"
+          + (f", {ctx.sources.n_sources} sources (the tracer {march} march "
+             f"steps)" if ctx is not None else "")
+          + f": plan setup {plan_s:.3f} s (host); one step {step_s:.3f} s, "
+          "layers (device ms / host ms / launches): " + ", ".join(
               f"{k} {ms:.3f} / {host:.3f} / {k_n}"
               for k, (ms, host, k_n) in rows.items())
           + f"; neutral fraction {nf0:.7f} -> "
@@ -401,8 +469,7 @@ def main_amr(n: int, level: int, mode: int, smi: str) -> None:
               f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), {launches} "
               f"launches; card {smi}")
     if n <= 32:
-        wall, busy, kernels, _ = profiled(amodel.make_step(), [state],
-                                          steps=1)
+        wall, busy, kernels, _ = profiled(run, [state], steps=1)
         print(f"one profiled two-level step: wall {wall * 1e3:.3f} ms, "
               f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), "
               f"{kernels:.0f} device events; card {smi}")
@@ -414,10 +481,12 @@ def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
     if two_level:
-        if ranks or noneq or mode not in (MODE_UVB_TRANSFER_ONLY,
-                                          MODE_NO_STARS_THIN_UVB):
-            raise SystemExit("the two-level profile runs modes 9 and 6 on "
-                             "one rank with equilibrium chemistry")
+        if ranks or noneq or mode not in (
+                MODE_UVB_TRANSFER_ONLY, MODE_NO_STARS_THIN_UVB,
+                MODE_BOTH_STELLAR_UVB_TRANSFER,
+                MODE_STELLAR_TRANSFER_THIN_UVB):
+            raise SystemExit("the two-level profile runs modes 9, 6, 8 and "
+                             "1 on one rank with equilibrium chemistry")
         main_amr(n, level, mode, smi)
         return
     model, state, ctx = _setup(n, level, mode, ranks, bool(noneq))

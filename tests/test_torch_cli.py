@@ -290,7 +290,8 @@ def _h4_grid(directory):
     (("--num-processes", "2"), 9, None, "Distribution"),
     (("--mesh-shape", "2,2"), 9, None, "Distribution"),
     (("--mesh-shape", "4"), 8, None, "Distribution"),
-    ((), 8, _two_level_grid, r"ROADMAP, Two-level AMR PR b \(core/rays_amr"),
+    (("--chemistry", "noneq"), 8, _two_level_grid,
+     "ROADMAP, L-level dense AMR"),
     ((), 9, _h4_grid, "Remaining I/O"),
 ])
 def test_not_ported_raise_before_any_step(tmp_path, flags, mode, edit,

@@ -6,10 +6,14 @@ level 1, each package in its own directory, the port with --platform cpu.
 In --x64 mode 9 the `time` logs agree within 1e-10 relative and the two
 iterations' snapshots (cellArray leaf streams, float32) within 1e-10 of
 each array's peak; a snapshot of either package restarts the other within
-1e-10; mode 6 stops converged on both sides; the diagnostic modes 2, 4
-and 7 print the same lines; a 3-level grid under --amr-depth 2 runs
-two-level, as in JAX.  Every refusal on a nested grid raises before any
-work, naming its ROADMAP item."""
+1e-10; modes 8 and 1 (the 12 sources traced through both levels, at 16^3,
+where the fine grid keeps the JAX tracer's float32 cell faces exact, and
+maxPixelLevel 3) the same, with the `fesc=` lines equal, the `weight`
+files identical and `cosmicSpectrum.npz` within 1e-9, and a mode-8
+snapshot restarts the other package; mode 6 stops converged on both
+sides; the diagnostic modes 2, 4 and 7 print the same lines; a 3-level
+grid under --amr-depth 2 runs two-level, as in JAX.  Every refusal on a
+nested grid raises before any work, naming its ROADMAP item."""
 
 import contextlib
 import io
@@ -85,6 +89,23 @@ def mode9(tmp_path_factory):
     return out
 
 
+def _assert_snapshots_close(path_t, path_j, n=N):
+    """Two cellArray leaf streams: the same keys and dtypes, the float
+    arrays within 1e-10 of each array's peak, the rest equal."""
+    parents = (n // 2) ** 3
+    with np.load(path_t) as ft, np.load(path_j) as fj:
+        assert list(ft.keys()) == list(fj.keys())
+        assert len(ft["level"]) == n ** 3 - parents + 8 * parents
+        for k in fj:
+            a, b = ft[k], fj[k]
+            assert a.dtype == b.dtype, k
+            if a.dtype.kind == "f" and a.ndim:
+                peak = float(np.abs(b).max())
+                assert np.abs(a - b).max() <= 1e-10 * peak, k
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=k)
+
+
 def test_mode9_x64_matches_jax(mode9):
     (out_t, dt), (out_j, dj) = mode9["torch"], mode9["jax"]
     _assert_logs_close(_time_log(dt), _time_log(dj))
@@ -96,17 +117,7 @@ def test_mode9_x64_matches_jax(mode9):
           for o in (out_t, out_j)]
     assert abs(eq[0] - eq[1]) <= 1e-10 * eq[1]
     for name in ("cellArray0001.npz", "cellArray0002.npz"):
-        with np.load(dt / name) as ft, np.load(dj / name) as fj:
-            assert list(ft.keys()) == list(fj.keys())
-            assert len(ft["level"]) == N ** 3 - 216 + 8 * 216
-            for k in fj:
-                a, b = ft[k], fj[k]
-                assert a.dtype == b.dtype, k
-                if a.dtype.kind == "f" and a.ndim:
-                    peak = float(np.abs(b).max())
-                    assert np.abs(a - b).max() <= 1e-10 * peak, k
-                else:
-                    np.testing.assert_array_equal(a, b, err_msg=k)
+        _assert_snapshots_close(dt / name, dj / name)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
@@ -120,6 +131,66 @@ def test_restart_across_packages(mode9, tmp_path, writer):
     shutil.copy(src / "cellArray0001.npz", d)
     out = _run(reader, config, d, "--iters", "1", "--x64")
     assert f"restarted from {d}/cellArray0001.npz at itime=1" in out
+    log = _time_log(d)
+    assert list(log) == [2]
+    _assert_logs_close(log, {2: _time_log(src)[2]})
+
+
+N_STARS = 16
+_STARS = ("--x64", "--max-pixel-level", "3")
+
+
+@pytest.fixture(scope="module")
+def point_runs(tmp_path_factory):
+    """Each package's mode-8 and mode-1 runs at 16^3, 2 iterations:
+    {(pkg, mode): (stdout, dir)}."""
+    root = tmp_path_factory.mktemp("amr_cli_stars")
+    out = {}
+    for mode in (8, 1):
+        for pkg in ("torch", "jax"):
+            d = root / f"{pkg}{mode}"
+            out[pkg, mode] = (_run(pkg, _inputs(d, n=N_STARS, mode=mode), d,
+                                   "--iters", "2", *_STARS), d)
+    return out
+
+
+def _fesc(stdout) -> list[str]:
+    return re.findall(r"fesc=(\S+)", stdout)
+
+
+@pytest.mark.parametrize("mode", [8, 1])
+def test_point_source_modes_x64_match_jax(point_runs, mode):
+    (out_t, dt), (out_j, dj) = point_runs["torch", mode], point_runs["jax",
+                                                                     mode]
+    _assert_logs_close(_time_log(dt), _time_log(dj))
+    assert list(_time_log(dt)) == [1, 2]
+    assert "grid: 16^3 + refined level (512 parents)" in out_t
+    assert (dt / "weight").read_bytes() == (dj / "weight").read_bytes()
+    assert "nStars/specificAge/non-degenerate = 12 12 12" in out_t
+    assert _fesc(out_t) == _fesc(out_j) and len(_fesc(out_t)) == 2
+    with np.load(dt / "cosmicSpectrum.npz") as ft, \
+            np.load(dj / "cosmicSpectrum.npz") as fj:
+        np.testing.assert_array_equal(ft["freq"], fj["freq"])
+        assert float(np.abs(fj["spectrum"]).max()) > 0.0
+        np.testing.assert_allclose(
+            ft["spectrum"], fj["spectrum"], rtol=0,
+            atol=1e-9 * float(np.abs(fj["spectrum"]).max()))
+    _assert_snapshots_close(dt / "cellArray0002.npz",
+                            dj / "cellArray0002.npz", n=N_STARS)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_mode8_restart_across_packages(point_runs, tmp_path, writer):
+    """The other package restarts mode 8 from the writer's itime-1
+    snapshot; its itime 2 is the writer's within 1e-10."""
+    reader = "torch" if writer == "jax" else "jax"
+    _, src = point_runs[writer, 8]
+    d = tmp_path / reader
+    config = _inputs(d, n=N_STARS, mode=8, restart=1)
+    shutil.copy(src / "cellArray0001.npz", d)
+    out = _run(reader, config, d, "--iters", "1", *_STARS)
+    assert f"restarted from {d}/cellArray0001.npz at itime=1" in out
+    assert len(_fesc(out)) == 1
     log = _time_log(d)
     assert list(log) == [2]
     _assert_logs_close(log, {2: _time_log(src)[2]})
@@ -178,10 +249,6 @@ def test_three_levels_under_amr_depth_2_run_two_level(tmp_path):
 
 
 @pytest.mark.parametrize("flags,mode,core,match", [
-    ((), 8, False, r"mode 8 \(point sources\) on a two-level AMR grid is "
-     r"not ported yet: ROADMAP, Two-level AMR PR b \(core/rays_amr\.py\)"),
-    ((), 1, False, r"mode 1 \(point sources\) on a two-level AMR grid is "
-     r"not ported yet: ROADMAP, Two-level AMR PR b \(core/rays_amr\.py\)"),
     (("--chemistry", "noneq"), 9, False,
      r"--chemistry noneq on a two-level AMR grid .*MultiLevelModel\(2\).* "
      r"is not ported yet: ROADMAP, L-level dense AMR$"),

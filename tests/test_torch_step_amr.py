@@ -1,8 +1,11 @@
 """PyTorch port, the two-level AMR iteration (core/step_amr.py::AMRModel)
 and its snapshots against the JAX package's, on the CPU.
 
-AMRModel in modes 9 and 6 at n = 6, angular level 1, float64: 3 steps from
-the same state within 1e-9 of each field's peak; an unrefined two-level
+AMRModel in modes 9 and 6 at n = 6, and in modes 8 and 1 (point sources
+through core/rays_amr.py) at n = 8, angular level 1, float64: 3 steps from
+the same state within 1e-9 of each field's peak, the ray diagnostics
+within 1e-9 of theirs (n = 8 keeps the JAX tracer's float32 cell faces
+exact on the 16^3 fine grid); an unrefined two-level
 step equals the port's uniform step (1e-10, as tests/test_step_amr.py
 holds the JAX package's); the neutral fraction; the two-level snapshot
 written by either package restarts the other, and a snapshot of another
@@ -19,20 +22,26 @@ import torch
 
 import radiativetransfer_tpu_torch as rt
 from radiativetransfer_tpu.core import amr as jamr
+from radiativetransfer_tpu.core import rays as jrays
 from radiativetransfer_tpu.core import state as jstate
 from radiativetransfer_tpu.core import step as jstep
 from radiativetransfer_tpu.core import step_amr as jstep_amr
 from radiativetransfer_tpu.io import snapshot as jsnap
+from radiativetransfer_tpu.tables import stellar as jstellar
 from radiativetransfer_tpu_torch.config import (
+    MODE_BOTH_STELLAR_UVB_TRANSFER,
     MODE_NO_STARS_THIN_UVB,
+    MODE_STELLAR_TRANSFER_THIN_UVB,
     MODE_UVB_TRANSFER_ONLY,
     RunConfig,
 )
-from radiativetransfer_tpu_torch.constants import KPC, MH, PSI
+from radiativetransfer_tpu_torch.constants import KPC, MH, MYR, PSI
 from radiativetransfer_tpu_torch.core import amr as tamr
+from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.core import step_amr as tstep_amr
 from radiativetransfer_tpu_torch.io import snapshot as tsnap
 from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
+from radiativetransfer_tpu_torch.tables import stellar as tstellar
 
 N = 6
 F64 = torch.float64
@@ -54,8 +63,8 @@ def _cfg(mode):
                      reionization_model=10, self_shielding_threshold_kpc=0.1)
 
 
-def _models(mode, box_kpc=300.0):
-    geom = rt.GridGeometry(N, N, N, box_kpc * KPC)
+def _models(mode, box_kpc=300.0, n=N):
+    geom = rt.GridGeometry(n, n, n, box_kpc * KPC)
     jm = jstep.RTModel.setup(_cfg(mode), geom, dtype=jnp.float64)
     tm = rt.RTModel.setup(_cfg(mode), geom, F64, "cpu")
     return (jstep_amr.AMRModel.setup(jm), tstep_amr.AMRModel.setup(tm))
@@ -67,18 +76,18 @@ def _np_fields(fs) -> dict:
             for f in dataclasses.fields(fs)}
 
 
-def _states(seed=7):
+def _states(seed=7, n=N):
     """The same two-level state in both packages: a lognormal base
     (partly ionized), a refined block, fine fields off the prolongation."""
     rng = np.random.default_rng(seed)
-    nh = 2e-3 * rng.lognormal(0.0, 1.0, (N, N, N))
+    nh = 2e-3 * rng.lognormal(0.0, 1.0, (n, n, n))
     base = jstate.make_state(nh * MH / PSI, np.full(nh.shape, 1.2e4),
-                             0.6 * nh, vel=rng.normal(0.0, 30.0, (3, N, N, N)),
+                             0.6 * nh, vel=rng.normal(0.0, 30.0, (3, n, n, n)),
                              dtype=jnp.float64)
-    refined = np.zeros((N, N, N), bool)
+    refined = np.zeros((n, n, n), bool)
     refined[1:4, 2:5, 0:3] = True
     js = jamr.make_amr_state(base, jnp.asarray(refined))
-    nh_f = np.asarray(js.fine.nh) * rng.lognormal(0.0, 0.3, (2 * N,) * 3)
+    nh_f = np.asarray(js.fine.nh) * rng.lognormal(0.0, 0.3, (2 * n,) * 3)
     js = dataclasses.replace(js, fine=dataclasses.replace(
         js.fine, rho=jnp.asarray(nh_f * MH / PSI),
         HI=jnp.asarray(0.6 * nh_f),
@@ -106,17 +115,51 @@ def _worst(t_fs, j_fs, names=_FIELDS) -> float:
     return worst
 
 
+def _contexts(geom):
+    """Both packages' StellarContext on the same blackbody population and
+    3 sources: inside the refined block, in the coarse cell beside it, and
+    on the coarse side far from it."""
+    pos = np.array([[2.3, 3.6, 1.2], [0.5, 3.5, 1.5], [6.5, 5.5, 6.5]])
+    pos /= geom.nx
+    ctx = []
+    for mod, stellar, kw in ((jrays, jstellar, {}),
+                             (trays, tstellar, dict(dtype=F64,
+                                                    device="cpu"))):
+        batch = mod.SourceBatch(position=pos, weight=np.array([1.0, 2.0, 1.0]),
+                                table_idx=np.zeros(3, np.int32))
+        build = (jstep if mod is jrays else rt).StellarContext.build
+        ctx.append(build(stellar.blackbody_population(q_ionizing=1e51), batch,
+                         geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
+                         max_pixel_level=3, **kw))
+    return ctx
+
+
 @pytest.mark.parametrize("mode", [MODE_UVB_TRANSFER_ONLY,
-                                  MODE_NO_STARS_THIN_UVB])
+                                  MODE_NO_STARS_THIN_UVB,
+                                  MODE_BOTH_STELLAR_UVB_TRANSFER,
+                                  MODE_STELLAR_TRANSFER_THIN_UVB])
 def test_amr_steps_match_jax_f64(mode):
-    jam, tam = _models(mode)
+    # the point-source modes at n = 8, where JAX's float32 faces are exact
+    n = 8 if mode in (MODE_BOTH_STELLAR_UVB_TRANSFER,
+                      MODE_STELLAR_TRANSFER_THIN_UVB) else N
+    jam, tam = _models(mode, n=n)
     assert (tam.plan is None) == (jam.plan is None)
-    assert tam.fine_geom == rt.GridGeometry(2 * N, 2 * N, 2 * N,
+    assert tam.fine_geom == rt.GridGeometry(2 * n, 2 * n, 2 * n,
                                             300.0 * KPC)
-    js, ts = _states()
-    jstep_fn, tstep_fn = jam.make_step(), tam.make_step()
+    js, ts = _states(n=n)
+    stars = tam.rt.config.run_stellar_transfer
+    jctx, tctx = _contexts(tam.rt.geom) if stars else (None, None)
+    jstep_fn, tstep_fn = jam.make_step(jctx), tam.make_step(tctx)
     for _ in range(3):
         js, ts = jstep_fn(js), tstep_fn(ts)
+        if stars:
+            (js, jdiag), (ts, tdiag) = js, ts
+            for f in dataclasses.fields(jdiag):
+                a = getattr(tdiag, f.name).numpy()
+                b = np.asarray(getattr(jdiag, f.name))
+                assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max(), f.name
+            assert float(ts.fine.krate24.sum()) > 0.0
+            assert float(ts.base.krate24.sum()) > 0.0
         assert _worst(ts.base, js.base) <= 1e-9
         assert _worst(ts.fine, js.fine) <= 1e-9
         assert tam.neutral_fraction(ts) == pytest.approx(
@@ -226,21 +269,20 @@ def test_amr_snapshot_of_another_map_raises(tmp_path, stepped, reader):
             jsnap.read_snapshot_amr(path, fresh_j)
 
 
-def test_sources_and_mesh_raise_naming_roadmap():
+def test_mesh_raises_naming_roadmap():
     _, tam = _models(MODE_UVB_TRANSFER_ONLY)
     _, ts = _states()
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP, Two-level AMR PR b \(core/rays_amr"):
-        tam.step(ts, stellar=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP, Two-level AMR"):
-        tam.make_step(stellar=object())
-    with pytest.raises(NotImplementedError,
-                       match=r"shard_amr_state.*ROADMAP, Distribution"):
-        tam.make_step(mesh=make_grid_mesh(2, device="cpu"))
+    mesh = make_grid_mesh(2, device="cpu")
+    for call in (lambda: tam.make_step(mesh=mesh),
+                 lambda: tam.step(ts, mesh=mesh)):
+        with pytest.raises(NotImplementedError,
+                           match=r"shard_amr_state.*ROADMAP, Distribution"):
+            call()
 
 
 @pytest.mark.parametrize("module", [
     "radiativetransfer_tpu_torch.core.amr",
+    "radiativetransfer_tpu_torch.core.rays_amr",
     "radiativetransfer_tpu_torch.core.sweep_amr",
     "radiativetransfer_tpu_torch.core.step_amr",
     "radiativetransfer_tpu_torch.io.sfc",
