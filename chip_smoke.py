@@ -6,8 +6,8 @@
 Drives radiativetransfer_tpu_torch's paths through their public entry
 points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
 8 (point sources + UVB), the roofline script, the bench, mode 9 on a 1-D
-grid mesh, the CLI from files, the non-equilibrium chemistry and two-level
-AMR -- and holds each hand-written kernel
+grid mesh, the CLI from files, the non-equilibrium chemistry, two-level
+AMR and L-level AMR -- and holds each hand-written kernel
 against its plain PyTorch version.  Phases, one line or more each; any
 failure raises and the script exits non-zero:
 
@@ -42,7 +42,12 @@ failure raises and the script exits non-zero:
    exactly one sweep launch;
 9. the mode-8 path at 128^3 x 192 directions with 8 sources: 3 steps, each
    timed, the tracer timed apart, peak device memory, the sweep's launch
-   count; step 1 against the plain slab scan;
+   count; step 1 against the plain slab scan; the tracer's float32
+   deposits against its float64 trace with the same kills, in this cell
+   and in the CLI galaxy's with its 12 sources (uniform_tracer_flush: the
+   deposits below float32's normal range counted, those the f32 trace
+   loses, of them those float32 can hold at most 1e-5 of the nonzero,
+   every channel within 1e-5 of its peak);
 10. the port's bench (python -m radiativetransfer_tpu_torch.bench): its
     three JSON lines, sweep, rays and step;
 11. the per-zone sweep (kernel #2, one zone a launch of the cluster
@@ -159,7 +164,32 @@ failure raises and the script exits non-zero:
     first 32 slabs at 128^3 width; (b)'s 16 and 32 slabs: the launches a
     base slab and a zone, whence a whole zone's count at 128^3, derived);
     every profiler window's markers and clocks (profile_step.WINDOWS; a
-    window that loses its markers raises).
+    window that loses its markers raises);
+19. L-level dense AMR (core/step_amr.py::MultiLevelModel and its sweep
+    core/sweep_multilevel.py, plain PyTorch: no hand-written kernel runs
+    on them, and every kernel's count is held across the phase but for
+    check (c)): (a) one f64 mode-9 step at 24^3 with its refined centre
+    and core (3 levels), level 1, on the card against the CPU's (species
+    and Jmean within 1e-10 of each level's peak); (b) the full-width cell,
+    make_test_data.py's galaxy at ML_N^3 = 64^3 with its refined centre
+    and core (dense 128^3 and 256^3 levels, the largest 3-level grid the
+    JAX CLI keeps dense by default) x 192 f32: ingestion, plan setup, the
+    coupling depth validated on the ingested grid (timed), a warm-up step
+    and one mode-9 step layer by layer (profile_step.ml_layers: opacity,
+    the sweep, chemistry on each level, sync_restriction_multi; CUDA
+    events and host ms), peak memory, the neutral fraction below its
+    start, the first zone batch's first 8 base slabs traced (launches,
+    the card's busy share), write_snapshot_ml timed, the same for mode 6;
+    the sweep's launches from two agreeing profiler windows at 4^3 and
+    8^3 bases, whence the full width's (derived); (c) one level (nothing
+    refined) at 64^3: the L-level sweep against the uniform step's
+    through the cluster kernel in the exact logmean form, and the 64^3
+    grid cut to two levels against the two-level sweep (leaf Jmean within
+    1e-5 of each band's peak); (d) the CLI on the L-level ML_CLI_N^3 =
+    32^3 grid: mode 9, 2 iterations (the grid: and coupling depth: lines),
+    a restart of one from the itime-1 snapshot (within 1e-4), mode 6, and
+    mode 8, --chemistry noneq and --amr-storage sparse refused before
+    ingestion, naming their ROADMAP items.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -168,6 +198,7 @@ without a CUDA device.  Needs no JAX and no network.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -198,6 +229,10 @@ TIMING_NS = (128, 256)
 PROBE_N, ROOF_N = 64, 256
 # the mode-8 path: bench.py::bench_step's configuration
 MODE8_SOURCES = 8
+# phase 19's full-width L-level cell: write_cli_inputs' galaxy at ML_N^3
+# with its refined centre and core (dense (2 ML_N)^3 and (4 ML_N)^3
+# levels), and its CLI grid
+ML_N, ML_CLI_N = 64, 32
 
 
 def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -806,6 +841,11 @@ def phase_mode8() -> int:
           f"neutral fraction {nf_scan:.7f} wall {dt:.3f} s; kernel step "
           f"rel {rel:.2e} (tol 1e-4)")
     assert rel <= 1e-4, (nfs[0], nf_scan)
+    # the tracer's float32 deposits against float64's: those below
+    # float32's normal range survive the card's flushing index_add_
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        uniform_tracer_flush(tmp)
     return launches
 
 
@@ -2229,13 +2269,109 @@ def _kernel_counts() -> dict:
                 variants_cuda.CLUSTER_LAUNCHES.values())}
 
 
-def _cli_stellar(config: str, levels, state, geom, dtype, device):
+def uniform_tracer_flush(tmp: str, n: int = MAIN_N) -> dict:
+    """The uniform tracer's (core/rays.py) float32 deposits on the card
+    against its float64 trace of the same state with the same (float32's)
+    kills, in two cells at n^3: bench.py::bench_step's (8 sources from
+    seed 0, 2000 kpc, nH 2e-4, T 1.5e4, maxPixelLevel 6) and the CLI's
+    galaxy (write_cli_inputs, its 12 sources prepared as the CLI does, at
+    its equilibrium, maxPixelLevel 6).  Per cell, over the six deposit
+    channels: the f64 trace's nonzero deposits below float32's smallest
+    normal value (1.18e-38), those the f32 trace keeps as subnormals and
+    those it loses to 0 (and of those the ones float32 can hold: at least
+    its smallest subnormal, 2^-149), and the channels' largest difference
+    over each channel's peak.  {cell: (below, subnormal, lost, holdable
+    lost, nonzero, worst)}."""
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch.bench import bench_sources
+    from radiativetransfer_tpu_torch.config import (
+        MODE_BOTH_STELLAR_UVB_TRANSFER,
+    )
+    from radiativetransfer_tpu_torch.constants import KPC, MYR
+    from radiativetransfer_tpu_torch.core import rays
+    from radiativetransfer_tpu_torch.core.step import StellarContext
+    from radiativetransfer_tpu_torch.io import grid_io
+    from radiativetransfer_tpu_torch.tables import stellar
+    f32, f64 = torch.float32, torch.float64
+    kills = (rays.default_tau_kill(f32), rays.default_rel_kill(f32))
+    channels = [f.name for f in dataclasses.fields(rays.RateFields)]
+    tiny = torch.finfo(f32).tiny
+    out = {}
+
+    def bench_cell(dtype):
+        geom = rt.GridGeometry(n, n, n, 2000.0 * KPC)
+        ctx = StellarContext.build(
+            stellar.blackbody_population(q_ionizing=1.0e51),
+            bench_sources(n, MODE8_SOURCES), geom, 10.0 * MYR,
+            metal_coefs=[(0, 0.0)], dtype=dtype, device=DEVICE)
+        return geom, ctx
+
+    state_b = rt.uniform_state(n, nh=2e-4, tgas=1.5e4, dtype=f32,
+                               device=DEVICE)
+    config = write_cli_inputs(os.path.join(tmp, "flush"), n)
+    levels = grid_io.read_level_npz(os.path.join(tmp, "flush",
+                                                 "testgrid_velmet.npz"))
+    state_g, geom_g = grid_io.build_uniform_state(levels, True, dtype=f32,
+                                                  device=DEVICE)
+    cfg = rt.RunConfig(mode=MODE_BOTH_STELLAR_UVB_TRANSFER,
+                       current_redshift=6.55, n_angular_level=MAIN_LEVEL,
+                       reionization_model=10,
+                       self_shielding_threshold_kpc=0.1)
+    state_g = rt.RTModel.setup(cfg, geom_g, f32,
+                               DEVICE).initialize_equilibrium(state_g)
+    cells = {
+        "bench_step": (state_b, lambda d: bench_cell(d)),
+        "cli_galaxy": (state_g, lambda d: (geom_g, _cli_stellar(
+            config, levels, state_g.abun2, None, geom_g, d, DEVICE))),
+    }
+    for name, (state, build) in cells.items():
+        traces = {}
+        for dtype in (f32, f64):
+            geom, ctx = build(dtype)
+            t0 = time.perf_counter()
+            rf, _ = rays.trace_point_sources(
+                state, geom, ctx.sources, ctx.tables,
+                dust_approximation=ctx.dust_approximation,
+                max_pixel_level=ctx.max_pixel_level, dtype=dtype,
+                tau_kill=kills[0], rel_kill=kills[1])
+            torch.cuda.synchronize()
+            traces[dtype] = (torch.stack([getattr(rf, k) for k in channels]),
+                             time.perf_counter() - t0)
+        (a, s32), (b, s64) = traces[f32], traces[f64]
+        below = int(((b != 0) & (b.abs() < tiny)).sum())
+        sub = int(((a != 0) & (a.abs() < tiny)).sum())
+        lost = (b != 0) & (a == 0)
+        held = int((lost & (b.abs() >= 2.0 ** -149)).sum())
+        lost = int(lost.sum())
+        nonzero = int((b != 0).sum())
+        worst = max(float((a[i].double() - b[i]).abs().max()
+                          / b[i].abs().max())
+                    for i in range(len(channels)) if bool(b[i].any()))
+        out[name] = (below, sub, lost, held, nonzero, worst)
+        print(f"[9 mode8] the uniform tracer's f32 deposits at {n}^3, "
+              f"{name} ({ctx.sources.n_sources} sources, maxPixelLevel "
+              f"{ctx.max_pixel_level}; f32 trace {s32:.3f} s, f64 "
+              f"{s64:.3f} s, kills tau {kills[0]} rel {kills[1]}): {below} "
+              f"of the f64 trace's {nonzero} nonzero deposits below "
+              f"float32's smallest normal {tiny:.3e}, {sub} subnormal in "
+              f"the f32 trace, {lost} nonzero in f64 and 0 in f32 ({held} of "
+              f"them at least float32's smallest subnormal); channels' max "
+              f"diff {worst:.2e} of each peak (tol 1e-5; of the lost, those "
+              f"float32 can hold at most 1e-5 of the nonzero)")
+        # before the deposits were scaled (rays._deposit_scale) the card
+        # lost 2,936,556 and 3,262,259 of them here, nearly all holdable
+        assert worst <= 1e-5 and held <= 1e-5 * nonzero, (name, worst, held)
+    return out
+
+
+def _cli_stellar(config: str, levels, abun2, refined, geom, dtype, device):
     """The StellarContext cli.main builds for the point sources of
-    `config` (write_cli_inputs' 12) on the two-level `state` ingested from
-    `levels`: read_star_file, load_population (blackbodies: the inputs
-    carry no Starburst99 SEDs), the metallicity buckets, prepare_sources
-    on the refined map (a star in a refined parent at its fine leaf's
-    centre) and StellarContext.build at 10 Myr, maxPixelLevel 6."""
+    `config` (write_cli_inputs' 12) on the base level's abun2 (a tensor)
+    of the grid ingested from `levels`: read_star_file, load_population
+    (blackbodies: the inputs carry no Starburst99 SEDs), the metallicity
+    buckets, prepare_sources on the refined map (None for a uniform grid;
+    a star in a refined parent at its fine leaf's centre) and
+    StellarContext.build at 10 Myr, maxPixelLevel 6."""
     from radiativetransfer_tpu_torch.config import load_config
     from radiativetransfer_tpu_torch.constants import MYR
     from radiativetransfer_tpu_torch.core.step import StellarContext
@@ -2253,8 +2389,8 @@ def _cli_stellar(config: str, levels, state, geom, dtype, device):
                     else (None, None))
     batch, _, n_young = sources_io.prepare_sources(
         stars, geom.nx, cfg.upper_age_limit,
-        abun2=state.base.abun2.cpu().numpy(), metal_bucket_edges=edges,
-        refined=state.refined.cpu().numpy())
+        abun2=abun2.cpu().numpy(), metal_bucket_edges=edges,
+        refined=None if refined is None else refined.cpu().numpy())
     return StellarContext.build(
         pop, batch, geom, 10.0 * MYR, metal_coefs=coefs or [(0, 0.0)],
         n_stars_specific_age=n_young,
@@ -2411,8 +2547,9 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     m = model(n, level, f32, DEVICE, mode=mode8)
     am, plan_s = timed(lambda: step_amr.AMRModel.setup(m))
     state, eq_s = timed(lambda: equilibrium(m, state))
-    ctx, src_s = timed(lambda: _cli_stellar(config, levels, state, m.geom,
-                                            f32, DEVICE))
+    ctx, src_s = timed(lambda: _cli_stellar(
+        config, levels, state.base.abun2, state.refined, m.geom, f32,
+        DEVICE))
     n_ref = int(state.refined.sum())
     nf0 = am.neutral_fraction(state)
     print(f"[18 amr] {n}^3 + {n_ref} refined parents ({8 * n_ref} fine "
@@ -2499,7 +2636,8 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     # smallest normal value, which the rays_amr scale keeps from the card's
     # flush
     kills = (rays.default_tau_kill(f32), rays.default_rel_kill(f32))
-    ctx64 = _cli_stellar(config, levels, state, m.geom, f64, DEVICE)
+    ctx64 = _cli_stellar(config, levels, state.base.abun2, state.refined,
+                         m.geom, f64, DEVICE)
     (t32, t64), trace_s = zip(*(timed(lambda c=c, d=d: (
         rays_amr.trace_point_sources_amr(
             state, m.geom, c.sources, c.tables,
@@ -2573,7 +2711,7 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     # and the restart are the same at any width, (b) times the full width,
     # and the iterations are launch-bound (~25 s at 128^3, ~14 s at 64^3),
     # so a wider grid puts the phase over its budget
-    n_cli = out["cli_n"] = 32
+    n_cli = out["cli_n"] = ML_CLI_N
     config32 = write_cli_inputs(inputs32, n_cli, refine_center=True)
     d9 = os.path.join(tmp, "amr9")
     out9, call9 = _cli(config32, d9, "--iters", "2", tag="18 amr")
@@ -2712,25 +2850,383 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     return out
 
 
+def phase_ml(smi: str) -> dict:
+    """19: L-level dense AMR (core/step_amr.py::MultiLevelModel, the CLI's
+    multilevel branch) on the card, in modes 9 and 6.  Its sweep
+    (core/sweep_multilevel.py) is plain PyTorch: the path launches none of
+    the hand-written kernels (every count is held), but check (c), which
+    holds the one-level sweep against the uniform step through the
+    cluster kernel."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_ml(tmp, smi)
+
+
+def _phase_ml(tmp: str, smi: str) -> dict:
+    """phase_ml's checks, with `tmp` a directory of their own."""
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch import cli, profile_step
+    from radiativetransfer_tpu_torch.config import (
+        MODE_NO_STARS_THIN_UVB,
+        MODE_UVB_TRANSFER_ONLY,
+    )
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import (
+        amr,
+        opacity,
+        step_amr,
+        sweep_amr,
+        sweep_cluster,
+        sweep_multilevel,
+    )
+    from radiativetransfer_tpu_torch.io import grid_io, snapshot
+    from radiativetransfer_tpu_torch.profile_step import galaxy_state
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+
+    def model(n, level, dtype, device, mode=MODE_UVB_TRANSFER_ONLY, **kw):
+        cfg = rt.RunConfig(mode=mode, current_redshift=6.55,
+                           n_angular_level=level, reionization_model=10,
+                           self_shielding_threshold_kpc=0.1, **kw)
+        return rt.RTModel.setup(cfg, rt.GridGeometry(n, n, n, 300.0 * KPC),
+                                dtype, device)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    def equilibrium(m, state):
+        return amr.sync_restriction_multi(amr.MultiLevelState(
+            levels=tuple(m.initialize_equilibrium(lv)
+                         for lv in state.levels), refined=state.refined))
+
+    def ingest(n, dtype, device, max_depth=4):
+        """((the L-level state of write_cli_inputs' galaxy at n^3 with its
+        refined centre and core, the levels read), seconds)."""
+        directory = os.path.join(tmp, f"inputs{n}")
+        if not os.path.exists(directory):
+            write_cli_inputs(directory, n, refine_center=True,
+                             refine_core=True)
+        path = os.path.join(directory, "testgrid_velmet.npz")
+
+        def read():
+            levels = grid_io.read_level_npz(path)
+            return amr.multilevel_from_levels(
+                levels, True, dtype, device=device,
+                max_depth=max_depth)[0], levels
+        return timed(read)
+
+    def worst(a, b, names):
+        """The largest |a - b| over each field's peak in b, field by field
+        and level by level of two MultiLevelStates, b's on its device."""
+        return max(float((getattr(x, k).to(getattr(y, k)) - getattr(y, k))
+                         .abs().max() / getattr(y, k).abs().max())
+                   for x, y in zip(a.levels, b.levels) for k in names)
+
+    counts0 = _kernel_counts()
+    species = ("HI", "HeI", "HeII")
+
+    # (a) 24^3 with its refined centre and core (3 levels), angular level
+    # 1, f64: one mode-9 step on the card against the same step on the
+    # CPU, from the CPU's equilibrium, each level within 1e-10 of its peak
+    cpu = model(24, 1, f64, "cpu")
+    arrays = equilibrium(cpu, ingest(24, f64, "cpu")[0][0]).to_numpy()
+    runs = {}
+    for device in ("cpu", DEVICE):
+        ml = step_amr.MultiLevelModel.setup(
+            cpu if device == "cpu" else model(24, 1, f64, DEVICE), 3)
+        st = amr.MultiLevelState.from_numpy(arrays, dtype=f64, device=device)
+        st1, dt = timed(lambda: ml.make_step()(st))
+        runs[device] = (st1, dt, ml.neutral_fraction(st1))
+    card, host = runs[DEVICE][0], runs["cpu"][0]
+    err_a = worst(card, host, species + ("Jmean",))
+    parents = [int(r.sum()) for r in host.refined]
+    print(f"[19 ml] 24^3 + refined parents per level {parents}, 3 levels, "
+          f"level 1, f64 mode 9, one step at the default coupling depth "
+          f"{step_amr.MultiLevelModel.n_coupling_iters}: card "
+          f"{runs[DEVICE][1]:.3f} s, CPU {runs['cpu'][1]:.3f} s; neutral "
+          f"fraction {runs[DEVICE][2]:.10f} (CPU {runs['cpu'][2]:.10f}); "
+          f"species and Jmean max diff {err_a:.2e} of each level's peak "
+          f"(tol 1e-10)")
+    assert err_a <= 1e-10, err_a
+    assert _kernel_counts() == counts0, "the L-level step launched a kernel"
+    out["card_vs_cpu"] = err_a
+    del runs, arrays, cpu, card, host
+
+    # (b) the full-width cell, f32: make_test_data's galaxy at 64^3 with its
+    # refined centre and core (a dense 128^3 and a dense 256^3 level), 192
+    # directions: ingestion, plan setup, the coupling depth validated on
+    # the ingested grid, a warm-up step, then one mode-9 step layer by
+    # layer, the first zone batch's first 8 base slabs traced (launches,
+    # the card's busy share), write_snapshot_ml; modes 6 the same
+    n, level = ML_N, MAIN_LEVEL
+    (state, levels), ingest_s = ingest(n, f32, DEVICE)
+    footprint = cli._dense_bytes(levels, 3, False)
+    m = model(n, level, f32, DEVICE)
+    ml, plan_s = timed(lambda: step_amr.MultiLevelModel.setup(m, 3))
+    depth, depth_s = timed(lambda: ml.validate_coupling_depth(state))
+    state, eq_s = timed(lambda: equilibrium(m, state))
+    parents = [int(r.sum()) for r in state.refined]
+    nf0 = ml.neutral_fraction(state)
+    print(f"[19 ml] {n}^3 + refined parents per level {parents} (dense "
+          f"{2 * n}^3 and {4 * n}^3 levels, {state.n_leaves()} leaves; the "
+          f"CLI's dense footprint {footprint / 1e9:.3f} GB, under its 4e9 "
+          f"bytes: --amr-storage auto keeps it dense): ingested "
+          f"(read_level_npz + multilevel_from_levels onto the card) in "
+          f"{ingest_s:.3f} s, plan setup (build_ml_sweep_plan) {plan_s:.3f} "
+          f"s, validate_coupling_depth {depth_s:.3f} s: depth {depth}, "
+          f"equilibrium of the 3 levels {eq_s:.3f} s; neutral fraction "
+          f"{nf0:.7f}")
+    assert footprint <= 4.0e9
+    step9 = ml.make_step()
+    (state, warm_s) = timed(lambda: step9(state))
+    torch.cuda.reset_peak_memory_stats()
+    (state1, rows), step_s = timed(lambda: profile_step.ml_layers(ml,
+                                                                  state))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nf1 = ml.neutral_fraction(state1)
+    print(f"[19 ml] {n}^3 + 2 levels x 192 f32 mode-9 step, coupling depth "
+          f"{depth}: warm-up step {warm_s:.3f} s, the step {step_s:.3f} s, "
+          "layers (device ms by CUDA events / host ms to enqueue): "
+          + ", ".join(f"{k} {ms:.3f} / {h:.3f}" for k, (ms, h, _) in
+                      rows.items())
+          + f"; neutral fraction {nf0:.7f} -> {nf1:.7f}; peak device memory "
+          f"{peak:.3f} GiB; {smi}")
+    assert np.isfinite(nf1) and 0.0 < nf1 < nf0, (nf0, nf1)
+    assert all(bool(torch.isfinite(getattr(lv, k)).all())
+               for lv in state1.levels for k in species + ("Jmean",))
+    wall, busy, win_launches, zones = profile_step.ml_batch_window(
+        ml, state1, 8)
+    # the zones each batch of the full width's sweep carries, and each
+    # direction-count group's size: (b)'s launch count below is derived on
+    # one batch a group
+    batches = [len(b) for b in sweep_multilevel.zone_batches(
+        ml.plan, (n, n, n), f32, DEVICE)]
+    groups = list(collections.Counter(z.ndir for z in ml.plan.zones)
+                  .values())
+    print(f"[19 ml] the first zone batch's sweep ({zones} zones of "
+          f"{ml.plan.zones[0].ndir} directions) over its first 8 base slabs "
+          f"at full width: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), {win_launches} "
+          f"launches; the sweep's batches at {n}^3 {batches} (zones each; "
+          f"the direction-count groups {groups})")
+    path = os.path.join(tmp, "cellArray0001.npz")
+    _, snap_s = timed(lambda: snapshot.write_snapshot_ml(
+        path, state1, 1, m.geom.physical_box_size))
+    print(f"[19 ml] write_snapshot_ml at {n}^3 + 2 levels "
+          f"({state1.n_leaves()} leaves): {snap_s:.3f} s (host; "
+          f"{os.path.getsize(path) / 1e6:.1f} MB compressed)")
+    ml6 = step_amr.MultiLevelModel.setup(
+        model(n, level, f32, DEVICE, mode=MODE_NO_STARS_THIN_UVB), 3)
+    assert ml6.plan is None
+    step6 = ml6.make_step()
+    s6, warm6_s = timed(lambda: step6(state))
+    (s6, rows6), step6_s = timed(lambda: profile_step.ml_layers(ml6, s6))
+    nf6 = ml6.neutral_fraction(s6)
+    print(f"[19 ml] {n}^3 + 2 levels f32 mode-6 step (the thin UVB, no "
+          f"sweep): warm-up {warm6_s:.3f} s, the step {step6_s:.3f} s, "
+          "layers (device ms / host ms): " + ", ".join(
+              f"{k} {ms:.3f} / {h:.3f}" for k, (ms, h, _) in rows6.items())
+          + f"; neutral fraction {nf6:.7f}")
+    assert np.isfinite(nf6) and 0.0 < nf6 < 1.0
+    assert _kernel_counts() == counts0, "the L-level step launched a kernel"
+    # the sweep's launches, each from two profiler windows that must agree
+    # (profile_step._layer), at 4^3 and 8^3 bases at the full width's
+    # depth: a sweep's launches grow by a fixed count a base slab, whence
+    # the full width's (derived, not traced: a 64^3 sweep's ~3e5 launches
+    # take minutes to trace twice)
+    counted = {}
+    for k in (4, 8):
+        (st, _), _ = ingest(k, f32, DEVICE)
+        mk = step_amr.MultiLevelModel.setup(model(k, level, f32, DEVICE), 3)
+        mk.n_coupling_iters = depth
+        _, rows_k = profile_step.ml_layers(mk, equilibrium(mk.rt, st),
+                                           count=("sweep",))
+        counted[k] = rows_k["sweep"][2]
+    per_slab, rest = divmod(counted[8] - counted[4], 4)
+    # the small bases' batches hold their whole groups; the derivation
+    # holds where the full width's do too (a group cut into b batches
+    # issues its per-slab launches b times)
+    assert batches == groups, (batches, groups)
+    launches64 = counted[8] + (n - 8) * per_slab
+    print(f"[19 ml] the L-level sweep's launches at depth {depth}, 192 "
+          f"directions: {counted[4]} at a 4^3 base, {counted[8]} at 8^3 "
+          f"(two agreeing traces each): {per_slab} a base slab (remainder "
+          f"{rest}); derived, not traced: {launches64} at {n}^3 (the "
+          f"two-level sweep's per-zone loop issues 471 a base slab per zone, "
+          f"x24 zones); the step's sweep {rows['sweep'][0]:.3f} ms of the "
+          f"card's time for {rows['sweep'][1]:.3f} ms of host enqueue")
+    assert rest == 0 and per_slab > 0, counted
+    assert _kernel_counts() == counts0, "the L-level step launched a kernel"
+    out.update(step_s=step_s, layers=rows, peak_gib=peak, depth=depth,
+               depth_s=depth_s, plan_s=plan_s, ingest_s=ingest_s,
+               batch_busy_share=busy / wall, launches=counted,
+               launches64=launches64, write_snapshot_s=snap_s,
+               mode6_s=step6_s, nf=(nf0, nf1))
+    del state, state1, s6, ml, ml6, m
+
+    # (c) nesting limits on the card, f32: nothing refined (one level)
+    # against the uniform step's sweep through the cluster kernel (#1) in
+    # the exact logmean form; the 64^3 grid cut to two levels against the
+    # two-level sweep, both within 1e-5 of each peak
+    m = model(n, level, f32, DEVICE, sweep_logmean="exact")
+    base = m.initialize_equilibrium(galaxy_state(n, 300.0, DEVICE))
+    kappa = opacity.compute_opacities(base.HI, base.HeI, base.HeII,
+                                      m.opacity_coef)
+    _zero_sweep_launches()
+    j_uni = m._run_sweep(kappa, None)
+    torch.cuda.synchronize()
+    uniform_launches = _sweep_launches()
+    plan1 = sweep_multilevel.build_ml_sweep_plan(level, n, 1)
+    (j_one,), one_s = timed(lambda: sweep_multilevel.diffuse_sweep_multilevel(
+        [kappa], [], plan1, m.uvb, m.geom.cell_size))
+    err_one = max(float((j_one[b] - j_uni[b]).abs().max()
+                        / j_uni[b].abs().max()) for b in range(3))
+    print(f"[19 ml] {n}^3 x 192 f32, one level: the L-level sweep "
+          f"({one_s:.3f} s) against the uniform step's through the cluster "
+          f"kernel ({uniform_launches[0]} launch): Jmean max diff "
+          f"{err_one:.2e} of each band's peak (tol 1e-5)")
+    assert err_one <= 1e-5, err_one
+    assert uniform_launches == (1, 0), uniform_launches
+    out["uniform_check_launches"] = sweep_cluster.LAUNCHES
+    two, _ = ingest(n, f32, DEVICE, max_depth=2)[0]
+    kc, kf = (opacity.compute_opacities(lv.HI, lv.HeI, lv.HeII,
+                                        m.opacity_coef) for lv in two.levels)
+    plan2 = sweep_multilevel.build_ml_sweep_plan(level, n, 2)
+    js2, two_s = timed(lambda: sweep_multilevel.diffuse_sweep_multilevel(
+        [kc, kf], list(two.refined), plan2, m.uvb, m.geom.cell_size))
+    (jc, jf), amr_s = timed(lambda: sweep_amr.diffuse_sweep_amr(
+        kc, kf, two.refined[0], sweep_amr.build_amr_sweep_plan(level, n),
+        m.uvb, m.geom.cell_size))
+    leaf = two.leaf_masks()
+    err_two = max(float((a[b][mk] - r[b][mk]).abs().max()
+                        / r[b][mk].abs().max())
+                  for a, r, mk in ((js2[0], jc, leaf[0]),
+                                   (js2[1], jf, leaf[1])) for b in range(3))
+    print(f"[19 ml] {n}^3 cut to two levels ({int(two.refined[0].sum())} "
+          f"parents) x 192 f32: the L-level sweep ({two_s:.3f} s, "
+          f"{sweep_multilevel.N_COUPLING_ITERS} passes) against the "
+          f"two-level sweep ({amr_s:.3f} s, {sweep_amr.N_COUPLING_ITERS} "
+          f"passes): leaf Jmean max diff {err_two:.2e} of each band's peak "
+          f"(tol 1e-5)")
+    assert err_two <= 1e-5, err_two
+    del base, kappa, j_uni, j_one, two, kc, kf, js2, jc, jf, m
+    counts0 = _kernel_counts()
+
+    # (d) the CLI on the L-level 32^3 grid (its refined centre and core):
+    # mode 9, 2 iterations, a restart of one from the itime-1 snapshot;
+    # mode 6, 1 iteration; modes 8, --chemistry noneq and
+    # --amr-storage sparse refused before ingestion
+    n_cli = out["cli_n"] = ML_CLI_N
+    config = write_cli_inputs(os.path.join(tmp, "cli32"), n_cli,
+                              refine_center=True, refine_core=True)
+    d9 = os.path.join(tmp, "ml9")
+    out9, call9 = _cli(config, d9, "--iters", "2", tag="19 ml")
+    log9 = _time_log(d9)
+    dts = _iteration_dts(out9, n_cli ** 3 * 192)
+    assert re.search(rf"^grid: {n_cli}\^3 \+ 2 refined levels \(refined "
+                     r"parents per level: \[\d+, \d+\]\)$", out9, re.M), out9
+    cd = re.search(r"^coupling depth: (\d) \(validated on the ingested "
+                   r"grid, residual < 1e-8\)$", out9, re.M)
+    assert cd, out9
+    assert list(log9) == [1, 2] and all(
+        0.0 < v < 1.0 for v in log9.values()), log9
+    assert all(os.path.exists(snapshot.snapshot_name(i, d9)) for i in (1, 2))
+    print(f"[19 ml] CLI mode 9 on the L-level {n_cli}^3 grid: call "
+          f"{call9:.3f} s, iterations' dt {_fmt(dts)} s, neutral fractions "
+          f"{list(log9.values())}")
+    dr = os.path.join(tmp, "restart")
+    os.makedirs(dr)
+    shutil.copy(snapshot.snapshot_name(1, d9), dr)
+    restart = _config_variant(config, os.path.join(tmp, "restart.cfg"),
+                              restart=1)
+    # in this process (phases 16-18 restart through python -m)
+    out_r, restart_s = _cli(restart, dr, "--iters", "1", "--coupling-depth",
+                            cd.group(1), tag="19 ml")
+    assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
+            in out_r), out_r
+    assert f"coupling depth: {cd.group(1)} (fixed)" in out_r
+    nf_sub = _time_log(dr)[2]
+    rel = abs(nf_sub - log9[2]) / log9[2]
+    print(f"[19 ml] restart: cli.main {restart_s:.3f} s, itime 2 "
+          f"neutral fraction {nf_sub:.8f} against {log9[2]:.8f} in this "
+          f"process (rel {rel:.2e}, tol 1e-4)")
+    assert rel <= 1e-4, (nf_sub, log9[2])
+    d6 = os.path.join(tmp, "ml6")
+    config6 = _config_variant(config, os.path.join(tmp, "mode6.cfg"), mode=6)
+    out6, call6 = _cli(config6, d6, "--iters", "1", tag="19 ml")
+    assert "coupling depth" not in out6 and list(_time_log(d6)) == [1]
+    print(f"[19 ml] CLI mode 6 on the L-level {n_cli}^3 grid: call "
+          f"{call6:.3f} s")
+    config8 = _config_variant(config, os.path.join(tmp, "mode8.cfg"), mode=8)
+    refusals = {}
+    for what, cfg_path, flags in (
+            ("mode 8", config8, ()),
+            ("--chemistry noneq", config, ("--chemistry", "noneq")),
+            ("--amr-storage sparse", config, ("--amr-storage", "sparse"))):
+        d = os.path.join(tmp, "refused")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main([cfg_path, "--snapshot-dir", d, "--iters", "1",
+                          *flags])
+        except NotImplementedError as e:
+            refusals[what] = (str(e), time.perf_counter() - t0)
+        else:
+            raise AssertionError(f"{what} ran on the L-level grid")
+        assert "grid:" not in buf.getvalue(), f"{what} refused after ingestion"
+        assert not os.path.exists(os.path.join(d, "time"))
+    for what, (msg, secs) in refusals.items():
+        print(f"[19 ml] CLI {what} on the L-level grid: refused in "
+              f"{secs:.3f} s: {msg}")
+    assert "ROADMAP, L-level dense AMR PR b" in refusals["mode 8"][0]
+    assert "ROADMAP, L-level dense AMR PR b" in refusals[
+        "--chemistry noneq"][0]
+    assert "ROADMAP, Block-sparse AMR" in refusals["--amr-storage sparse"][0]
+    assert _kernel_counts() == counts0, "the L-level CLI launched a kernel"
+    phase_s = time.perf_counter() - t_phase
+    print(f"[19 ml] phase 19: {phase_s:.1f} s; {smi}")
+    out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s,
+               cli_call6_s=call6, phase_s=phase_s)
+    return out
+
+
 def main() -> None:
-    smi = phase_probe()
-    phase_build()
-    errs = phase_kernel_vs_plain()
-    phase_anchor()
-    launches9 = phase_main_path()
-    times = phase_timings()
-    probes = phase_probes()
-    phase_anchor8()
-    launches8 = phase_mode8()
-    bench_out = phase_bench()
-    zones = phase_zones(smi)
-    pair = phase_pair()
-    variants = phase_variants()
-    scatter = phase_scatter()
-    mesh = phase_mesh(smi)
-    cli = phase_cli(smi)
-    noneq = phase_noneq(smi)
-    amr_out = phase_amr(smi)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed_phase(1, phase_probe)
+    timed_phase(2, phase_build)
+    errs = timed_phase(3, phase_kernel_vs_plain)
+    timed_phase(4, phase_anchor)
+    launches9 = timed_phase(5, phase_main_path)
+    times = timed_phase(6, phase_timings)
+    probes = timed_phase(7, phase_probes)
+    timed_phase(8, phase_anchor8)
+    launches8 = timed_phase(9, phase_mode8)
+    bench_out = timed_phase(10, phase_bench)
+    zones = timed_phase(11, phase_zones, smi)
+    pair = timed_phase(12, phase_pair)
+    variants = timed_phase(13, phase_variants)
+    scatter = timed_phase(14, phase_scatter)
+    mesh = timed_phase(15, phase_mesh, smi)
+    cli = timed_phase(16, phase_cli, smi)
+    noneq = timed_phase(17, phase_noneq, smi)
+    amr_out = timed_phase(18, phase_amr, smi)
+    ml_out = timed_phase(19, phase_ml, smi)
+    print("[main] seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; the script so far {time.perf_counter() - t_start:.1f} s")
     # the cluster sweep kernel's launches on each path that runs it, each
     # count set to 0 just before its path (the plane kernel's: phase 6);
     # the CLI's mesh runs take the ring's and the per-zone kernel's
@@ -2742,7 +3238,8 @@ def main() -> None:
                    "exp_sweep_pair": pair["sweep_launches"],
                    "exp_sweep_variants": variants["sweep_launches"],
                    **cli["launches"], **noneq["launches"],
-                   "amr_uniform_check": amr_out["uniform_check_launches"]}
+                   "amr_uniform_check": amr_out["uniform_check_launches"],
+                   "ml_uniform_check": ml_out["uniform_check_launches"]}
     assert all(v > 0 for v in sweep_paths.values()), sweep_paths
     assert times["launches"]["plane"] > 0
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)

@@ -32,16 +32,24 @@ its mesh over every device it sees.
 A grid of two data levels (or more, under `--amr-depth 2`, the deeper
 levels averaged onto the second) runs as two-level AMR
 (core/step_amr.py::AMRModel) in modes 9, 8, 6 and 1, the point sources
-traced through both levels (core/rays_amr.py), and its diagnostic modes 2,
-3, 4 and 7 read the base level, as the JAX CLI's do; its snapshots are
-cellArray leaf streams (io/snapshot.py::write_snapshot_amr).
+traced through both levels (core/rays_amr.py).  A grid of more data levels
+under `--amr-depth` > 2 runs as L-level dense AMR
+(core/step_amr.py::MultiLevelModel, up to --amr-depth levels, the deeper
+ones averaged onto the deepest kept) in modes 9 and 6, its sweep's
+coupling depth validated on the ingested grid unless `--coupling-depth`
+fixes it, where the JAX CLI would keep it dense: always under
+`--amr-storage dense`, under `auto` (the default) while the dense levels'
+17 fields take at most 4e9 bytes.  The diagnostic modes 2, 3, 4 and 7 of
+a nested grid read its base level, as the JAX CLI's do; its snapshots are
+cellArray leaf streams (io/snapshot.py::write_snapshot_amr,
+write_snapshot_ml).
 
 Not ported yet, and refused before any work with NotImplementedError
-naming their ROADMAP entries: grids of more than two data levels under
-`--amr-depth` > 2 (the L-level and block-sparse forms),
-`--chemistry noneq` and a mesh on a two-level grid, `.h4` grids,
-`--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`, point
-sources on a mesh and the multi-process flags.
+naming their ROADMAP entries: the block-sparse storage (`--amr-storage
+sparse`, or `auto` above 4e9 bytes), point sources (modes 8 and 1) on an
+L-level grid, `--chemistry noneq` and a mesh on any nested grid, `.h4`
+grids, `--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`,
+point sources on a mesh and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -151,16 +159,22 @@ def _parser() -> argparse.ArgumentParser:
                     help="snapshot format: cellArray .npz (default); orbax "
                          "is not ported yet and raises")
     ap.add_argument("--amr-depth", type=int, default=4,
-                    help="levels a nested grid runs with: 2 runs a grid of "
-                         "more than two data levels as two-level AMR (the "
-                         "deeper levels averaged onto the second); deeper "
-                         "(the L-level and block-sparse forms) raises")
-    # the L-level and block-sparse knobs: accepted for the JAX CLI's
-    # command lines; the grids they apply to raise before they matter
+                    help="max AMR levels kept from the input grid (deeper "
+                         "input levels average onto the deepest kept one); "
+                         "2 runs a deeper grid as two-level AMR")
     ap.add_argument("--amr-storage", choices=("auto", "dense", "sparse"),
-                    default="auto")
+                    default="auto",
+                    help="storage of a grid of more than two levels: dense "
+                         "per-level volumes, block-sparse (not ported yet, "
+                         "raises), or auto (block-sparse when the dense "
+                         "footprint would exceed 4e9 bytes)")
+    ap.add_argument("--coupling-depth", type=int, default=0,
+                    help="L-level sweep Gauss-Seidel coupling passes per "
+                         "slab (0 = validate on the ingested grid at "
+                         "startup and adopt the smallest converged depth)")
+    # the block-sparse knobs: accepted for the JAX CLI's command lines;
+    # the storage they apply to raises before they matter
     ap.add_argument("--block-edge", type=int, default=8)
-    ap.add_argument("--coupling-depth", type=int, default=0)
     ap.add_argument("--sweep-window", choices=("auto", "off"),
                     default="auto")
     ap.add_argument("--split-compile", action="store_true")
@@ -201,36 +215,59 @@ def _read_levels(cfg):
     sys.exit(f"grid not found: {grid_path}(.npz|.h4|.dat)")
 
 
-def _use_amr(levels, args, mesh, noneq: bool) -> bool:
-    """Whether the grid runs as two-level AMR, as the JAX CLI decides it
-    (two data levels, or more under --amr-depth 2); NotImplementedError
-    naming the ROADMAP item, before any work, for a nested grid the port
-    does not run yet."""
+def _dense_bytes(levels, depth: int, x64: bool) -> int:
+    """The JAX CLI's footprint of `depth` dense levels: (n*2^l)^3 cells of
+    17 fields each, 8 bytes a value under --x64, else 4; above 4e9 bytes
+    it stores the grid block-sparse."""
+    nbase = round(levels[0].ncell ** (1.0 / 3.0))
+    return sum((nbase * 2 ** ell) ** 3 * 17 * (8 if x64 else 4)
+               for ell in range(depth))
+
+
+def _nesting(levels, args, cfg, mesh, noneq: bool) -> str:
+    """How the grid runs, as the JAX CLI decides it: "uniform" (one data
+    level), "amr" (two-level AMR: two data levels, or more under
+    --amr-depth 2) or "ml" (L-level dense AMR: more than two data levels
+    under --amr-depth > 2 while the dense storage is chosen).
+    NotImplementedError naming the ROADMAP item, before any work, for a
+    nested grid the port does not run yet."""
     n_data_levels = sum(1 for lv in levels if lv.ncell > 0)
     if n_data_levels <= 1:
-        return False
+        return "uniform"
+    kind = "amr"
     if n_data_levels > 2 and args.amr_depth > 2:
-        raise NotImplementedError(
-            f"a grid of {n_data_levels} data levels under --amr-depth "
-            f"{args.amr_depth} (the L-level and block-sparse storage forms) "
-            f"is not ported yet: ROADMAP, L-level dense AMR and "
-            f"Block-sparse AMR")
+        dense_bytes = _dense_bytes(levels, min(n_data_levels,
+                                               args.amr_depth), args.x64)
+        if args.amr_storage == "sparse" or (args.amr_storage == "auto"
+                                            and dense_bytes > 4.0e9):
+            raise NotImplementedError(
+                f"the block-sparse storage of a grid of {n_data_levels} "
+                f"data levels (--amr-storage {args.amr_storage}, dense "
+                f"{dense_bytes / 1e9:.1f} GB) is not ported yet: ROADMAP, "
+                f"Block-sparse AMR")
+        kind = "ml"
+    grid, shard = (("an L-level", "shard_multilevel_state") if kind == "ml"
+                   else ("a two-level", "shard_amr_state"))
     refused = [
-        (noneq, "--chemistry noneq on a two-level AMR grid (the JAX CLI "
-         "runs it through MultiLevelModel(2))", "L-level dense AMR"),
-        (mesh is not None, "a mesh on a two-level AMR grid "
-         "(shard_amr_state)", "Distribution"),
+        (kind == "ml" and cfg.run_stellar_transfer,
+         f"point sources (mode {cfg.mode}) on an L-level AMR grid",
+         amr.RAYS_ML_ITEM),
+        (noneq, f"--chemistry noneq on {grid} AMR grid (the JAX CLI runs "
+         f"it through MultiLevelModel)", amr.RAYS_ML_ITEM),
+        (mesh is not None, f"a mesh on {grid} AMR grid ({shard})",
+         "Distribution"),
     ]
     for hit, what, item in refused:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet: ROADMAP, "
                                       f"{item}")
-    return True
+    return kind
 
 
 def _check_finite(states, itime: int) -> None:
     """--debug-nans: FloatingPointError naming the first non-finite
-    field of the FieldStates given (a two-level run's base, then fine)."""
+    field of the FieldStates given (a nested run's levels, the base
+    first)."""
     for state in states:
         for f in dataclasses.fields(state):
             x = getattr(state, f.name)
@@ -292,14 +329,23 @@ def main(argv=None):
         for i, lv in enumerate(levels):
             print(f"level = {i + 1}  cells = {lv.ncell}")
         return
-    use_amr = _use_amr(levels, args, mesh, noneq)
-    amr_state = None
-    if use_amr:
-        amr_state, geom = amr.amr_from_levels(levels, cfg.read_metals,
-                                              dtype=dtype, device=device)
-        state = amr_state.base
+    nesting = _nesting(levels, args, cfg, mesh, noneq)
+    # the nested state: an AMRState ("amr") or a MultiLevelState ("ml")
+    nested = None
+    if nesting == "amr":
+        nested, geom = amr.amr_from_levels(levels, cfg.read_metals,
+                                           dtype=dtype, device=device)
+        state = nested.base
         print(f"grid: {geom.nx}^3 + refined level "
-              f"({int(amr_state.refined.sum())} parents)")
+              f"({int(nested.refined.sum())} parents)")
+    elif nesting == "ml":
+        nested, geom = amr.multilevel_from_levels(
+            levels, cfg.read_metals, dtype=dtype, device=device,
+            max_depth=args.amr_depth)
+        state = nested.levels[0]
+        counts = [int(r.sum()) for r in nested.refined]
+        print(f"grid: {geom.nx}^3 + {nested.n_levels - 1} refined levels "
+              f"(refined parents per level: {counts})")
     else:
         state, geom = grid_io.build_uniform_state(levels, cfg.read_metals,
                                                   dtype=dtype, device=device)
@@ -341,8 +387,9 @@ def main(argv=None):
         batch, host, n_young = sources_io.prepare_sources(
             stars, geom.nx, cfg.upper_age_limit, abun2=ab2,
             metal_bucket_edges=metal_edges,
-            refined=(amr_state.refined.detach().cpu().numpy() if use_amr
-                     else None))
+            refined=(None if nested is None else
+                     (nested.refined if nesting == "amr"
+                      else nested.refined[0]).detach().cpu().numpy()))
         print(f"nStars/specificAge/non-degenerate = {len(stars.age)} "
               f"{n_young} {batch.n_sources}")
         # the reference's `weight` file (equiSources.f90:1214-1224)
@@ -372,9 +419,12 @@ def main(argv=None):
     model = step_mod.RTModel.setup(cfg, geom, dtype=dtype, device=device)
     # point sources on a mesh (the distributed tracers) raise here, before
     # any step
-    if use_amr:
+    if nesting == "amr":
         amodel = step_amr.AMRModel.setup(model)
         step = amodel.make_step(stellar_ctx)
+    elif nesting == "ml":
+        amodel = step_amr.MultiLevelModel.setup(model, nested.n_levels)
+        step = amodel.make_step()
     elif noneq:
         step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                      evolve_energy=args.evolve_energy,
@@ -386,11 +436,25 @@ def main(argv=None):
                    os.path.join(args.snapshot_dir, "rates.out"),
                    os.path.join(args.snapshot_dir, "cool_rates.out"))
         print("wrote rates.out, cool_rates.out")
-    if use_amr:
-        amr_state = amr.sync_restriction(dataclasses.replace(
-            amr_state, base=model.initialize_equilibrium(amr_state.base),
-            fine=model.initialize_equilibrium(amr_state.fine)))
-        nf0 = amodel.neutral_fraction(amr_state)
+    if nesting == "amr":
+        nested = amr.sync_restriction(dataclasses.replace(
+            nested, base=model.initialize_equilibrium(nested.base),
+            fine=model.initialize_equilibrium(nested.fine)))
+        nf0 = amodel.neutral_fraction(nested)
+    elif nesting == "ml":
+        if cfg.run_uvb_transfer:
+            if args.coupling_depth:
+                amodel.n_coupling_iters = args.coupling_depth
+                print(f"coupling depth: {args.coupling_depth} (fixed)")
+            else:
+                d = amodel.validate_coupling_depth(nested)
+                print(f"coupling depth: {d} (validated on the ingested "
+                      f"grid, residual < 1e-8)")
+        nested = amr.sync_restriction_multi(amr.MultiLevelState(
+            levels=tuple(model.initialize_equilibrium(lv)
+                         for lv in nested.levels),
+            refined=nested.refined))
+        nf0 = amodel.neutral_fraction(nested)
     else:
         state = model.initialize_equilibrium(state)
         nf0 = model.neutral_fraction(state)
@@ -401,8 +465,10 @@ def main(argv=None):
         snap = (os.path.join(args.snapshot_dir, cfg.restart_cell_array_name)
                 if cfg.restart_cell_array_name
                 else snapshot.latest_snapshot(args.snapshot_dir))
-        if snap and use_amr:
-            amr_state, itime = snapshot.read_snapshot_amr(snap, amr_state)
+        if snap and nesting == "amr":
+            nested, itime = snapshot.read_snapshot_amr(snap, nested)
+        elif snap and nesting == "ml":
+            nested, itime = snapshot.read_snapshot_ml(snap, nested)
         elif snap:
             state, itime = snapshot.read_snapshot(snap, state)
         if snap:
@@ -437,10 +503,9 @@ def main(argv=None):
         for _ in iter_range:
             itime += 1
             t0 = time.time()
-            if use_amr:
-                out = step(amr_state)
-                amr_state, diag = out if isinstance(out, tuple) else (out,
-                                                                      None)
+            if nested is not None:
+                out = step(nested)
+                nested, diag = out if isinstance(out, tuple) else (out, None)
             elif noneq:
                 state, species, *traced = step(state, species)
                 diag = traced[0] if traced else None
@@ -448,10 +513,12 @@ def main(argv=None):
                 out = step(state)
                 state, diag = out if isinstance(out, tuple) else (out, None)
             if args.debug_nans:
-                _check_finite((amr_state.base, amr_state.fine) if use_amr
-                              else (state,), itime)
-            nf = (amodel.neutral_fraction(amr_state) if use_amr
-                  else model.neutral_fraction(state))
+                _check_finite(
+                    (state,) if nested is None else
+                    (nested.base, nested.fine) if nesting == "amr"
+                    else nested.levels, itime)
+            nf = (model.neutral_fraction(state) if nested is None
+                  else amodel.neutral_fraction(nested))
             tlog.append(itime, nf)
             dt_it = time.time() - t0
             throughput = geom.nx ** 3 * cfg.n_directions / max(dt_it, 1e-9)
@@ -469,10 +536,14 @@ def main(argv=None):
                                       "cosmicSpectrum.npz"),
                          freq=freq.detach().cpu().numpy(), spectrum=spec)
             print(msg)
-            if use_amr:
+            if nesting == "amr":
                 snapshot.write_snapshot_amr(
                     snapshot.snapshot_name(itime, args.snapshot_dir),
-                    amr_state, itime, geom.physical_box_size)
+                    nested, itime, geom.physical_box_size)
+            elif nesting == "ml":
+                snapshot.write_snapshot_ml(
+                    snapshot.snapshot_name(itime, args.snapshot_dir),
+                    nested, itime, geom.physical_box_size)
             else:
                 snapshot.write_snapshot(
                     snapshot.snapshot_name(itime, args.snapshot_dir), state,

@@ -45,6 +45,7 @@ card is measured first (profile_step, mode 8).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -328,7 +329,7 @@ def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
                  diag: RayDiagnostics, rf: RateFields, r_stop: float,
                  last_phase: bool, dust_approximation: int, max_steps: int,
                  src_of_ray, n_bands: int = 3, tau_kill: float = _TAU_KILL,
-                 unroll: int = 1, rel_kill: float = 0.0):
+                 unroll: int = 1, rel_kill: float = 0.0, *, scale: float):
     """March all rays of one phase until they die or reach r_stop.
 
     fields_pk: packed (n^3, 5) tensor [HI, HeI, HeII, nH, abun2].
@@ -338,6 +339,9 @@ def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
 
     unroll: march steps per loop body; the U steps' deposits go into ONE
     index_add_ per channel (the sums are order-insensitive up to rounding).
+
+    scale: the six RateFields channels accumulate times this (a power of
+    two, _deposit_scale); the secondary noneq channels do not.
 
     rel_kill (quadrature modes only): kill a ray when its remaining
     depositable weight over the WHOLE surviving spectrum, rem = e0 @ wsum
@@ -420,7 +424,7 @@ def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
         rem_acc, crossed, cross_depth, r2 = _escape_update(
             state, radius_new, tau, active, out_radii, cell_size, rem_acc)
         w = torch.where(active, state.ndot, 0.0)
-        deposit, rem = _rate_deposits(state, tau, w, rate_ctx,
+        deposit, rem = _rate_deposits(state, tau, w * scale, rate_ctx,
                                       dust_approximation, n_bands, wsum)
         if rates_mode == "quadrature_noneq":
             deposit = deposit + _deposit_noneq(
@@ -690,6 +694,20 @@ def _split_rays(state: _RayState, level: int, n: int, dtype,
         cross_depth=rep(state.cross_depth)), in_box, was_split
 
 
+def _deposit_scale(rate_ctx) -> float:
+    """The power of two that brings the largest weight of the six
+    RateFields channels (a table entry, or a quadrature weight) to [1, 2).
+    A CUDA float32 index_add_ flushes to zero the adds below float32's
+    normal range (1.2e-38), which the weights over the cell's volume reach
+    at production widths: the tracers accumulate their deposits times this
+    and divide it out at the end, exactly in both dtypes (ROADMAP, faults
+    found in the port)."""
+    peak = (float(rate_ctx[1][1].abs().max())
+            if rate_ctx[0].startswith("quadrature")
+            else math.exp(float(rate_ctx[1].max())))
+    return 2.0 ** -math.floor(math.log2(peak))
+
+
 def _trace_all_phases(fields, init_state: _RayState, tables, geom,
                       n_sources: int, dust_approximation: int,
                       max_pixel_level: int, dtype, rates_mode: str = "table",
@@ -714,6 +732,7 @@ def _trace_all_phases(fields, init_state: _RayState, tables, geom,
     rf = (NoneqRateFields(*zeros(11)) if rates_mode == "quadrature_noneq"
           else RateFields(*zeros(6)))
     rate_ctx = _rate_ctx(tables, rates_mode, dtype, device)
+    scale = _deposit_scale(rate_ctx)
     state = init_state
     sig_ratio = _sig_ratio(tables, dtype, device)
     out_radii = torch.tensor(np.array(OUTPUT_RADII_KPC) * KPC, dtype=dtype,
@@ -730,9 +749,13 @@ def _trace_all_phases(fields, init_state: _RayState, tables, geom,
             state, fields_pk, geom, rate_ctx, diag, rf, r_stop, last,
             dust_approximation, max_steps, src_of_ray, n_bands,
             tau_kill=tau_kill, unroll=max(1, min(unroll, max_steps)),
-            rel_kill=rel_kill)
+            rel_kill=rel_kill, scale=scale)
         state, diag = _end_phase(state, diag, src_of_ray, sig_ratio,
                                  out_radii, level, last, n, geom.cell_size)
+    # 1 / scale is a power of two: exact
+    rf = dataclasses.replace(rf, **{
+        f.name: getattr(rf, f.name) * (1.0 / scale)
+        for f in dataclasses.fields(RateFields)})
     return rf, diag
 
 

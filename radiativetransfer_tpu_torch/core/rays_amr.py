@@ -34,7 +34,6 @@ jax.lax.while_loop with no Pallas kernel.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -52,6 +51,7 @@ from .rays import (
     RayDiagnostics,
     SourceBatch,
     _RayState,
+    _deposit_scale,
     _end_phase,
     _escape_update,
     _pack_fields,
@@ -254,14 +254,11 @@ def _trace_all_phases_amr(fields, init_state: _RayState, tables, geom,
         "refined": fields["refined"],
     }
     rate_ctx = _rate_ctx(tables, rates_mode, dtype, device)
-    # the deposits accumulate times the power of two that brings the
-    # largest weight (table entry) to [1, 2): a CUDA float32 index_add_
-    # flushes to zero the adds below float32's normal range (1.2e-38),
-    # which the weights over the base cell's volume reach at the 128^3
-    # galaxy (ROADMAP, faults found in the port).  Exact in both dtypes
-    peak = (float(rate_ctx[1][1].abs().max()) if rates_mode == "quadrature"
-            else math.exp(float(rate_ctx[1].max())))
-    scale = 2.0 ** -math.floor(math.log2(peak))
+    # the deposits accumulate times a power of two (rays._deposit_scale):
+    # a CUDA float32 index_add_ flushes the adds below float32's normal
+    # range, which the weights over the base cell's volume reach at the
+    # 128^3 galaxy
+    scale = _deposit_scale(rate_ctx)
     sig_ratio = _sig_ratio(tables, dtype, device)
     out_radii = torch.tensor(np.array(OUTPUT_RADII_KPC) * KPC, dtype=dtype,
                              device=device)

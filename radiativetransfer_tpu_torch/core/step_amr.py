@@ -1,15 +1,18 @@
-"""Full transport + chemistry iteration on a two-level AMR grid.
+"""Full transport + chemistry iteration on nested (AMR) grids.
 
-Counterpart of AMRModel in the JAX package's core/step_amr.py, the AMR
-analog of core/step.py: zero rates -> point-source trace (rays_amr) ->
-opacities + two-level sweep (sweep_amr) -> per-level equilibrium chemistry
--> restriction sync (the reference's recursive per-leaf updates walk the
-octree; here each level is one dense elementwise pass).  Modes 9 (UVB
-only), 8 (point sources and the UVB), 1 (point sources and the thin UVB)
-and 6 (the thin UVB, no stars) run on one device; the device mesh
-(shard_amr_state, with the distributed two-level tracers) and the L-level
-and block-sparse models are not ported yet and raise NotImplementedError
-naming their ROADMAP items.
+Counterpart of AMRModel and MultiLevelModel in the JAX package's
+core/step_amr.py, the AMR analogs of core/step.py: zero rates ->
+point-source trace (rays_amr) -> opacities + the nested sweep (sweep_amr,
+sweep_multilevel) -> per-level equilibrium chemistry -> restriction sync
+(the reference's recursive per-leaf updates walk the octree; here each
+level is one dense elementwise pass).  The two-level model runs modes 9
+(UVB only), 8 (point sources and the UVB), 1 (point sources and the thin
+UVB) and 6 (the thin UVB, no stars) on one device; the L-level model modes
+9 and 6.  Not ported yet, and raising NotImplementedError naming their
+ROADMAP items: point sources on an L-level grid (core/rays_multilevel.py),
+the device mesh (shard_amr_state, shard_multilevel_state, the distributed
+tracers), the non-equilibrium steps of nested grids and the block-sparse
+model.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import dataclasses
 
 import torch
 
-from . import amr, chemistry, opacity, rays_amr, sweep_amr
+from . import amr, chemistry, opacity, rays_amr, sweep_amr, sweep_multilevel
 from .state import GridGeometry
 
 
@@ -147,3 +150,128 @@ class AMRModel:
                     + torch.sum(torch.where(rf, x_fine.double(), 0.0)) / 8.0)
         return float(total(b.HI, f.HI) / total(b.nh, f.nh))
 
+
+@dataclasses.dataclass
+class MultiLevelModel:
+    """L-level model wrapper around an RTModel's tables/config: modes 9
+    and 6 on one device (the multilevel sweep core/sweep_multilevel.py,
+    chemistry on each level, sync_restriction_multi)."""
+    rt: "object"                      # core.step.RTModel
+    n_levels: int
+    plan: sweep_multilevel.MLSweepPlan | None
+    # Gauss-Seidel cross-level coupling passes per slab; 4 covers the
+    # chain depth of typical clustered refinement, validate_coupling_depth
+    # checks and selects it for the actual ingested grid
+    n_coupling_iters: int = sweep_multilevel.N_COUPLING_ITERS
+
+    @classmethod
+    def setup(cls, rt_model, n_levels: int) -> "MultiLevelModel":
+        """The L-level sweep plan (every level's templates, on the host)
+        when the run sweeps the UVB.  A mode that traces point sources
+        raises NotImplementedError, before any work."""
+        model = cls(rt=rt_model, n_levels=n_levels, plan=None)
+        model._check_supported()
+        if rt_model.config.run_uvb_transfer:
+            model.plan = sweep_multilevel.build_ml_sweep_plan(
+                rt_model.config.n_angular_level, rt_model.geom.nx, n_levels)
+        return model
+
+    def _check_supported(self, stellar=None, mesh=None) -> None:
+        if stellar is not None or self.rt.config.run_stellar_transfer:
+            raise NotImplementedError(
+                f"point sources (mode {self.rt.config.mode}) on an L-level "
+                f"grid are not ported yet: ROADMAP, {amr.RAYS_ML_ITEM}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "an L-level state on a mesh (shard_multilevel_state) is not "
+                "ported yet: ROADMAP, Distribution")
+
+    def _kappas(self, state: amr.MultiLevelState) -> list:
+        rt = self.rt
+        return [opacity.compute_opacities(lv.HI, lv.HeI, lv.HeII,
+                                          rt.opacity_coef)
+                for lv in state.levels]
+
+    def validate_coupling_depth(self, state: amr.MultiLevelState,
+                                tol: float = 1e-8, max_iters: int = 6) -> int:
+        """Select the smallest converged coupling depth for the INGESTED
+        grid and adopt it (sweep_multilevel.pick_coupling_iters; the
+        reference's recursive transport resolves coupling exactly by
+        construction, transportRoutinesModule.f90:560-963, so the
+        fixed-depth Gauss-Seidel is validated per refinement pattern).
+        Runs on a 12-direction level-1 plan: the in-slab coupling chain
+        depth is set by the refinement geometry, not the direction
+        count."""
+        plan1 = sweep_multilevel.build_ml_sweep_plan(1, self.rt.geom.nx,
+                                                     self.n_levels)
+        it = sweep_multilevel.pick_coupling_iters(
+            self._kappas(state), list(state.refined), plan1, self.rt.uvb,
+            self.rt.geom.cell_size, tol=tol, max_iters=max_iters)
+        self.n_coupling_iters = it
+        return it
+
+    def level_geom(self, ell: int) -> GridGeometry:
+        g = self.rt.geom
+        m = 2 ** ell
+        return GridGeometry(m * g.nx, m * g.ny, m * g.nz,
+                            g.physical_box_size)
+
+    @staticmethod
+    def _zero_rates(state: amr.MultiLevelState) -> amr.MultiLevelState:
+        return amr.MultiLevelState(
+            levels=tuple(lv.zero_rates() for lv in state.levels),
+            refined=state.refined)
+
+    def step(self, state: amr.MultiLevelState, stellar=None, mesh=None):
+        """One full iteration; returns (state, None): the modes that
+        trace point sources are not ported."""
+        self._check_supported(stellar, mesh)
+        return self._sweep_and_chemistry(self._zero_rates(state)), None
+
+    def _sweep(self, state: amr.MultiLevelState) -> amr.MultiLevelState:
+        """Every level's opacities and the L-level sweep, into Jmean."""
+        rt = self.rt
+        js = sweep_multilevel.diffuse_sweep_multilevel(
+            self._kappas(state), list(state.refined), self.plan, rt.uvb,
+            rt.geom.cell_size, n_coupling_iters=self.n_coupling_iters)
+        return amr.MultiLevelState(
+            levels=tuple(dataclasses.replace(lv, Jmean=j)
+                         for lv, j in zip(state.levels, js)),
+            refined=state.refined)
+
+    def chemistry(self, state, geom: GridGeometry):
+        """One level's equilibrium solve: 60 bisection steps in float32,
+        110 in float64, as in the JAX package."""
+        rt = self.rt
+        cfg = rt.config
+        return chemistry.solve_rate_equations(
+            state, geom, rt.dev_tables, ksi_matrix=rt.ksi_matrix,
+            gamma_thin=rt.gamma_thin,
+            self_shielding_threshold=cfg.self_shielding_threshold,
+            run_uvb_transfer=cfg.run_uvb_transfer,
+            n_iter=110 if state.rho.dtype == torch.float64 else 60)
+
+    def _sweep_and_chemistry(self, state: amr.MultiLevelState):
+        if self.rt.config.run_uvb_transfer:
+            state = self._sweep(state)
+        state = amr.MultiLevelState(
+            levels=tuple(self.chemistry(lv, self.level_geom(ell))
+                         for ell, lv in enumerate(state.levels)),
+            refined=state.refined)
+        return amr.sync_restriction_multi(state)
+
+    def make_step(self, stellar=None, mesh=None):
+        """The iteration step, a plain eager function: state -> state."""
+        self._check_supported(stellar, mesh)
+        return lambda state: self.step(state)[0]
+
+    def neutral_fraction(self, state: amr.MultiLevelState) -> float:
+        """Leaf-volume-weighted neutral hydrogen fraction, summed in float64
+        on the state's device."""
+        leafs = state.leaf_masks()
+
+        def total(name):
+            return sum(float(torch.sum(torch.where(
+                m, getattr(lv, name).double(), 0.0))) * 8.0 ** -ell
+                for ell, (lv, m) in enumerate(zip(state.levels, leafs)))
+        return total("HI") / total("nh")

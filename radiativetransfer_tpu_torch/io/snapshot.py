@@ -1,4 +1,4 @@
-"""Snapshot write / restart, uniform and two-level AMR grids.
+"""Snapshot write / restart, uniform and nested (AMR) grids.
 
 Counterpart of the JAX package's io/snapshot.py.  The reference writes
 per-iteration HDF4 files `cellArrayNNNN.h4` holding the depth-first
@@ -9,15 +9,17 @@ arrays level, HI, HeI, HeII, temperature, density [, vel, abun2]
 
 Both packages keep the same logical schema in NumPy `.npz` containers:
 dense single-level grids store the fields directly in C order -- which IS
-the depth-first leaf order for an unrefined grid -- and two-level AMR
-states flatten their leaves through the SFC codec (io/sfc.py) under the
-JAX package's keys, so a snapshot written by one package restarts the
+the depth-first leaf order for an unrefined grid -- and nested (two-level
+and L-level) AMR states flatten their leaves through the SFC codec
+(io/sfc.py) under the JAX package's keys, so a snapshot written by one package restarts the
 other.  Restart re-inflates onto a freshly
 built grid with the same species clamping as the reference, in torch on
 the state's device.  A non-equilibrium run adds its 9-species state
 (`species_extra`, `read_species`) under keys that `read_snapshot` does not
-read, so an equilibrium run restarts from it too.  The multilevel and
-block-sparse forms are not ported yet and raise.
+read, so an equilibrium run restarts from it too.  L-level states
+(write_snapshot_ml) flatten every level's leaves the same way.  The
+block-sparse form and the species of nested grids are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import re
 import numpy as np
 import torch
 
+from ..core.amr import RAYS_ML_ITEM
 from ..core.chemistry_noneq import SPECIES, SpeciesState
 from ..core.state import FieldState
 from . import sfc
@@ -205,16 +208,98 @@ def read_snapshot_amr(path: str, state) -> tuple["object", int]:
     return amr_mod.sync_restriction(state), itime
 
 
-# the storage forms of the JAX package's io/snapshot.py:202-555
-write_snapshot_ml = _not_ported("write_snapshot_ml", "L-level dense AMR")
-read_snapshot_ml = _not_ported("read_snapshot_ml", "L-level dense AMR")
+def write_snapshot_ml(path: str, state, itime: int,
+                      physical_box_size: float) -> None:
+    """Write an L-level MultiLevelState in depth-first cellArray leaf order
+    (the SFC codec enumerates any depth), with the JAX package's keys: the
+    depth `n_levels`, each leaf's `level`, the leaf streams in float32 and
+    the refinement maps `refined_{l}` as uint8."""
+    n = state.n
+    refined_np = [r.detach().cpu().numpy().astype(np.uint8)
+                  for r in state.refined]
+    enum = sfc.enumerate_leaves(n, n, n, refined_np)
+    leaves = sfc.gather(enum, [_stack_host(lv) for lv in state.levels])
+    data = {
+        "base_grid_size": np.array(state.levels[0].shape, np.int32),
+        "itime": np.int32(itime),
+        "physical_box_size": np.float64(physical_box_size),
+        "n_levels": np.int32(state.n_levels),
+        "level": enum["level"].astype(np.int32),
+    }
+    data.update({key: leaves[i] for i, (key, _) in enumerate(_FIELDS)})
+    if state.levels[0].vel is not None:
+        # kinematics for every leaf (writeIonization,
+        # equiSources.f90:4869-4890)
+        data["velx"], data["vely"], data["velz"] = leaves[len(_FIELDS):]
+    for ell, r in enumerate(refined_np):
+        data[f"refined_{ell}"] = r
+    np.savez_compressed(path, **data)
+
+
+def read_snapshot_ml(path: str, state) -> tuple["object", int]:
+    """Re-inflate an L-level snapshot onto an existing MultiLevelState
+    (restart), with the reference's species clamps on each level; the
+    positions of each refined level outside its parents' refined cells
+    are filled by prolongation from the level below.  A snapshot of
+    another depth, or whose refinement maps differ from the state's,
+    raises ValueError."""
+    from ..core import amr as amr_mod
+    n, L = state.n, state.n_levels
+    dtype, device = state.levels[0].HI.dtype, state.levels[0].HI.device
+    with np.load(path) as f:
+        itime = int(f["itime"])
+        if int(f["n_levels"]) != L:
+            raise ValueError("snapshot depth differs from the state")
+        refined_np = [f[f"refined_{ell}"] for ell in range(L - 1)]
+        for r_snap, r_st in zip(refined_np, state.refined):
+            if not np.array_equal(r_snap.astype(bool),
+                                  r_st.detach().cpu().numpy()):
+                raise ValueError(
+                    "snapshot refinement maps differ from the state "
+                    "(structure is rebuilt from the input grid, "
+                    "equiSources.f90:1124-1127)")
+        enum = sfc.enumerate_leaves(n, n, n, refined_np)
+        shapes = [lv.shape for lv in state.levels]
+        keys = ["HI", "HeI", "HeII", "temperature"]
+        with_vel = "velx" in f and state.levels[0].vel is not None
+        if with_vel:
+            keys += ["velx", "vely", "velz"]
+        levels = {k: sfc.scatter_leaves(enum, f[k].astype(np.float64), shapes)
+                  for k in keys}
+
+    def level(st, lv):
+        def t(key):
+            return torch.as_tensor(levels[key][lv], dtype=dtype,
+                                   device=device)
+        HI, HeI, HeII = _clamp_species(st, t("HI"), t("HeI"), t("HeII"))
+        vel = (torch.stack([t(k) for k in ("velx", "vely", "velz")])
+               if with_vel else st.vel)
+        return dataclasses.replace(st, HI=HI, HeI=HeI, HeII=HeII,
+                                   tgas=t("temperature"), vel=vel)
+
+    new_levels = [level(st, ell) for ell, st in enumerate(state.levels)]
+    # non-leaf positions got zeros from the scatter: fill by prolongation
+    # so the dense fields stay everywhere defined
+    for ell in range(1, L):
+        cov = amr_mod.prolong(state.refined[ell - 1])
+        prev, cur = new_levels[ell - 1], new_levels[ell]
+        new_levels[ell] = dataclasses.replace(cur, **{
+            k: torch.where(cov, getattr(cur, k),
+                           amr_mod.prolong(getattr(prev, k)))
+            for k in ("HI", "HeI", "HeII", "tgas")})
+    state = amr_mod.MultiLevelState(levels=tuple(new_levels),
+                                    refined=state.refined)
+    return amr_mod.sync_restriction_multi(state), itime
+
+
+# the storage forms of the JAX package's io/snapshot.py:320-555
 write_snapshot_sparse = _not_ported("write_snapshot_sparse",
                                     "Block-sparse AMR")
 read_snapshot_sparse = _not_ported("read_snapshot_sparse", "Block-sparse AMR")
 # the species of nested grids, one set per level: the JAX package's
 # species_extra(prefix=f"species{ell}") and read_species(tuple of templates)
-species_extra_ml = _not_ported("species_extra_ml", "L-level dense AMR")
-read_species_ml = _not_ported("read_species_ml", "L-level dense AMR")
+species_extra_ml = _not_ported("species_extra_ml", RAYS_ML_ITEM)
+read_species_ml = _not_ported("read_species_ml", RAYS_ML_ITEM)
 
 
 # the non-equilibrium prognostic state: chemistry_noneq.SpeciesState's fields

@@ -22,6 +22,17 @@ mode sweeps, chemistry on each level, sync_restriction) with device ms,
 host ms and, up to 32^3, the launches from two profiler windows; one
 zone's sweep traced at full width (its launches and device-busy share);
 up to 32^3 also a profiled step.
+amr L >= 2 (modes 9 and 6, no ranks, no noneq) runs the L-level step
+(core/step_amr.py::MultiLevelModel) with L levels on the galaxy with
+nested central refinement (ml_galaxy: level l refines the central
+1/2^(l+1) of each axis, the finer levels the copies of the coarser at the
+start, each in its own equilibrium), times its plan setup and
+validate_coupling_depth once, and reports its layers (opacity on every
+level and the L-level sweep where the mode sweeps, chemistry on each
+level, sync_restriction_multi) with device ms, host ms and, up to 16^3,
+the launches from two profiler windows; the first zone batch's sweep over
+its first 8 base slabs traced at full width (its launches and
+device-busy share); and the peak device memory.
 Otherwise it runs one warm-up step, times each layer of a step with CUDA
 events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
 per march step; noneq: tracer, opacity, sweep, _assemble_photo_rates and
@@ -61,8 +72,9 @@ from .core import (
     rays,
     rays_amr,
     sweep_amr,
+    sweep_multilevel,
 )
-from .core.step_amr import AMRModel
+from .core.step_amr import AMRModel, MultiLevelModel
 from .geometry import octants
 from .parallel.mesh import make_grid_mesh
 from .roofline_sweep import nvidia_smi
@@ -309,6 +321,87 @@ def amr_zone_launches(amodel, state, slabs: int | None = None) -> int:
     return counts[0]
 
 
+def ml_layer_names(n_levels: int) -> tuple:
+    return ("opacity", "sweep", *(f"chemistry_{ell}"
+                                  for ell in range(n_levels)),
+            "sync_restriction_multi")
+
+
+def ml_layers(amodel, state, count=()):
+    """One L-level step from `state`, layer by layer, as MultiLevelModel's
+    step runs it: (the state after the step, {layer: (device ms, host ms,
+    launches)}) for opacity on every level and the L-level sweep (where the
+    mode sweeps), chemistry on each level (chemistry_0, chemistry_1, ...)
+    and sync_restriction_multi.  The layers named in `count` run three
+    times and count their launches (_layer); the others run once, launches
+    None."""
+    rt = amodel.rt
+    rows = {}
+
+    def layer(name, fn):
+        out, *rows[name] = (_layer if name in count else _timed)(fn)
+        return out
+
+    s0 = amodel._zero_rates(state)
+    levels = s0.levels
+    if amodel.plan is not None:
+        kappas = layer("opacity", lambda: amodel._kappas(s0))
+        js = layer("sweep", lambda: sweep_multilevel.diffuse_sweep_multilevel(
+            kappas, list(s0.refined), amodel.plan, rt.uvb, rt.geom.cell_size,
+            amodel.n_coupling_iters))
+        levels = [dataclasses.replace(lv, Jmean=j)
+                  for lv, j in zip(levels, js)]
+    levels = [layer(f"chemistry_{ell}", lambda lv=lv, ell=ell:
+                    amodel.chemistry(lv, amodel.level_geom(ell)))
+              for ell, lv in enumerate(levels)]
+    s2 = layer("sync_restriction_multi", lambda: amr.sync_restriction_multi(
+        amr.MultiLevelState(levels=tuple(levels), refined=s0.refined)))
+    return s2, {k: tuple(v) for k, v in rows.items()}
+
+
+def ml_batch_window(amodel, state, slabs: int):
+    """The L-level sweep of the plan's first zone batch
+    (sweep_multilevel.zone_batches: its first direction-count group, as
+    many zones as diffuse_sweep_multilevel batches) over its first `slabs`
+    base slabs at the grid's full plane width, in a profiler window of its
+    own: (host wall s, device-busy s, kernel launches, zones in the
+    batch)."""
+    rt = amodel.rt
+    plan = amodel.plan
+    kappas = amodel._kappas(state)
+    dtype, device = kappas[0].dtype, kappas[0].device
+    shape0 = tuple(kappas[0].shape[1:])
+    zones = next(sweep_multilevel.zone_batches(plan, shape0, dtype, device))
+    refined = list(state.refined)
+    k_rots, cov_rots, ref_rots, tables = sweep_multilevel.batch_inputs(
+        zones, [torch.movedim(k, 0, -1) for k in kappas],
+        amr.cover_masks(refined, shape0, device), refined,
+        rt.geom.cell_size)
+
+    def cut(xs):
+        return [None if x is None else x.narrow(1, 0, slabs * 2 ** ell)
+                for ell, x in enumerate(xs)]
+    k_rots, cov_rots, ref_rots = (cut(x) for x in (k_rots, cov_rots,
+                                                  ref_rots))
+    tables = [{k: (tuple(t[:slabs * 2 ** ell] for t in v)
+                   if isinstance(v, tuple) else v[:slabs * 2 ** ell])
+               for k, v in t_l.items()}
+              for ell, t_l in enumerate(tables)]
+
+    def body():
+        t0 = time.perf_counter()
+        sweep_multilevel.sweep_zones_ml(k_rots, cov_rots, ref_rots, tables,
+                                        rt.uvb, plan.weight,
+                                        amodel.n_coupling_iters)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, events = _traced(body)
+    launches = sum(1 for name, _, _ in events
+                   if not name.startswith(("Memcpy", "Memset")))
+    return wall, _busy_us(events) / 1e6, launches, len(zones)
+
+
 def noneq_layers(model, state, species, ctx=None, mesh=None,
                  dt: float = MYR, n_substeps: int = 200) -> dict:
     """One non-equilibrium step, layer by layer, from `state` and
@@ -426,6 +519,74 @@ def amr_sources(geom, device="cuda"):
         dtype=torch.float32, device=device)
 
 
+def ml_galaxy(model, n_levels: int, box_kpc: float = 300.0,
+              device="cuda"):
+    """The L-level galaxy of the L-level profile: galaxy_state on the base,
+    level l refining the central 1/2^(l+1) of each axis (balanced with
+    amr.enforce_balance), the finer levels the copies of the coarser,
+    each level in its own equilibrium."""
+    n = model.geom.nx
+    refined = []
+    for ell in range(n_levels - 1):
+        m = n * 2 ** ell
+        lo, hi = m // 2 - m // 2 ** (ell + 2), m // 2 + m // 2 ** (ell + 2)
+        r = np.zeros((m, m, m), bool)
+        r[lo:hi, lo:hi, lo:hi] = True
+        refined.append(r)
+    state = amr.make_multilevel_state(galaxy_state(n, box_kpc, device),
+                                      amr.enforce_balance(refined))
+    return amr.sync_restriction_multi(amr.MultiLevelState(
+        levels=tuple(model.initialize_equilibrium(lv)
+                     for lv in state.levels),
+        refined=state.refined))
+
+
+def main_ml(n: int, level: int, mode: int, n_levels: int, smi: str) -> None:
+    cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
+                    reionization_model=10, self_shielding_threshold_kpc=0.1)
+    model = RTModel.setup(cfg, GridGeometry(n, n, n, 300.0 * KPC),
+                          torch.float32, "cuda")
+    t0 = time.perf_counter()
+    amodel = MultiLevelModel.setup(model, n_levels)
+    plan_s = time.perf_counter() - t0
+    state = ml_galaxy(model, n_levels)
+    parents = [int(r.sum()) for r in state.refined]
+    if amodel.plan is not None:
+        (depth, val_ms, val_host, _) = _timed(
+            lambda: amodel.validate_coupling_depth(state))
+        print(f"validate_coupling_depth: depth {depth}, {val_ms:.3f} ms "
+              f"(host {val_host:.3f} ms); card {smi}")
+    step = amodel.make_step()
+    nf0 = amodel.neutral_fraction(state)
+    state = step(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, rows = ml_layers(amodel, state,
+                            count=ml_layer_names(n_levels) if n <= 16
+                            else ())
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    print(f"{n_levels}-level mode {mode} at {n}^3 (refined parents per "
+          f"level {parents}) x {cfg.n_directions} dirs f32, coupling depth "
+          f"{amodel.n_coupling_iters}: plan setup {plan_s:.3f} s (host); "
+          f"one step {step_s:.3f} s, layers (device ms / host ms / "
+          "launches): " + ", ".join(
+              f"{k} {ms:.3f} / {host:.3f} / {k_n}"
+              for k, (ms, host, k_n) in rows.items())
+          + f"; neutral fraction {nf0:.7f} -> "
+          f"{amodel.neutral_fraction(state):.7f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; card {smi}")
+    if amodel.plan is not None:
+        slabs = min(8, n)
+        wall, busy, launches, zones = ml_batch_window(amodel, state, slabs)
+        print(f"the first zone batch's sweep ({zones} zones of "
+              f"{amodel.plan.zones[0].ndir} directions), its first {slabs} "
+              f"base slabs: wall {wall * 1e3:.3f} ms, device busy "
+              f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), {launches} "
+              f"launches; card {smi}")
+
+
 def main_amr(n: int, level: int, mode: int, smi: str) -> None:
     cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
                     reionization_model=10, self_shielding_threshold_kpc=0.1)
@@ -476,11 +637,18 @@ def main_amr(n: int, level: int, mode: int, smi: str) -> None:
 
 
 def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
-         noneq: int = 0, two_level: int = 0) -> None:
+         noneq: int = 0, nested: int = 0) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
-    if two_level:
+    if nested >= 2:
+        if ranks or noneq or mode not in (MODE_UVB_TRANSFER_ONLY,
+                                          MODE_NO_STARS_THIN_UVB):
+            raise SystemExit("the L-level profile runs modes 9 and 6 on one "
+                             "rank with equilibrium chemistry")
+        main_ml(n, level, mode, nested, smi)
+        return
+    if nested:
         if ranks or noneq or mode not in (
                 MODE_UVB_TRANSFER_ONLY, MODE_NO_STARS_THIN_UVB,
                 MODE_BOTH_STELLAR_UVB_TRANSFER,

@@ -33,10 +33,14 @@ N = 12
 _LEVEL = ("--angular-level", "1")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
     """One intra-op thread: the eager two-level sweep is ~10^5 small CPU
-    ops an iteration, on which more threads only spin."""
+    ops an iteration, on which more threads only spin.  Module-scoped, so
+    that it also holds for the module's fixtures (mode9, point_runs),
+    which a function-scoped one would only follow: run with 8 threads,
+    point_runs' mode-8 port run took 4x the CPU time for the same wall
+    time alone, and 273 s beside the other test workers."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -250,8 +254,9 @@ def test_three_levels_under_amr_depth_2_run_two_level(tmp_path):
 
 @pytest.mark.parametrize("flags,mode,core,match", [
     (("--chemistry", "noneq"), 9, False,
-     r"--chemistry noneq on a two-level AMR grid .*MultiLevelModel\(2\).* "
-     r"is not ported yet: ROADMAP, L-level dense AMR$"),
+     r"--chemistry noneq on a two-level AMR grid \(the JAX CLI runs it "
+     r"through MultiLevelModel\) is not ported yet: ROADMAP, L-level dense "
+     r"AMR PR b \(core/rays_multilevel\.py\)$"),
     (("--mesh-shape", "4"), 9, False, r"a mesh on a two-level AMR grid "
      r"\(shard_amr_state\) is not ported yet: ROADMAP, Distribution$"),
     (("--sweep-strategy", "zones"), 6, False, r"a mesh on a two-level AMR "
@@ -260,9 +265,9 @@ def test_three_levels_under_amr_depth_2_run_two_level(tmp_path):
      r"--debug-checkify is not ported yet: ROADMAP, core/debug\.py$"),
     (("--ckpt-format", "orbax"), 9, False, r"--ckpt-format orbax is not "
      r"ported yet: ROADMAP, Remaining I/O \(io/checkpoint\.py\)$"),
-    ((), 9, True, r"a grid of 3 data levels under --amr-depth 4 \(the "
-     r"L-level and block-sparse storage forms\) is not ported yet: "
-     r"ROADMAP, L-level dense AMR and Block-sparse AMR$"),
+    (("--amr-storage", "sparse"), 9, True, r"the block-sparse storage of a "
+     r"grid of 3 data levels \(--amr-storage sparse, dense 0\.0 GB\) is "
+     r"not ported yet: ROADMAP, Block-sparse AMR$"),
 ])
 def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
                                         core, match):
@@ -274,6 +279,7 @@ def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
     def no_ingestion(*args, **kwargs):
         raise AssertionError("the grid was ingested")
     monkeypatch.setattr(amr, "amr_from_levels", no_ingestion)
+    monkeypatch.setattr(amr, "multilevel_from_levels", no_ingestion)
     with pytest.raises(NotImplementedError, match=match):
         _run("torch", config, tmp_path, "--iters", "1", *flags)
     assert not (tmp_path / "time").exists()

@@ -140,6 +140,7 @@ _PORT_MODULES = (
     "radiativetransfer_tpu_torch.core.step_amr",
     "radiativetransfer_tpu_torch.core.sweep_amr",
     "radiativetransfer_tpu_torch.core.sweep_cuda",
+    "radiativetransfer_tpu_torch.core.sweep_multilevel",
     "radiativetransfer_tpu_torch.core.variants_cuda",
     "radiativetransfer_tpu_torch.io.diagnostics",
     "radiativetransfer_tpu_torch.io.grid_io",

@@ -388,8 +388,8 @@ def test_snapshot_names_and_time_log(tmp_path):
 
 
 @pytest.mark.parametrize("name", [
-    "write_snapshot_ml", "read_snapshot_ml", "species_extra", "read_species",
-    "write_snapshot_sparse", "read_snapshot_sparse"])
+    "species_extra", "read_species", "write_snapshot_sparse",
+    "read_snapshot_sparse"])
 def test_storage_forms_not_ported(name):
     # the species forms are ported for uniform grids: what is not is their
     # per-level form of nested grids

@@ -23,6 +23,7 @@ from radiativetransfer_tpu_torch.constants import (
     KPC,
     MH,
     MHE,
+    MYR,
     NO_DUST,
     NO_SUBLIMATION,
     PSI,
@@ -206,6 +207,70 @@ def test_trace_matches_jax_f32_default_kills():
     j, t, src = _trace_both(torch.float32, volume=(BOX / N) ** 3)
     assert t[0].krate24.dtype == torch.float32
     _assert_traces_close(j, t, src, rel=1e-5, floor=1e-37)
+
+
+def test_f32_deposits_survive_a_flushing_index_add(monkeypatch):
+    """bench.py::bench_step's cell cut to 16^3 (a uniform box of 2000 kpc,
+    nH 2e-4, T 1.5e4, 8 sources from seed 0, maxPixelLevel 3), its gas
+    ionized to a neutral fraction of 1e-3 so the rays cross it: over this
+    cell volume a fifth of the float64 trace's nonzero deposits are below
+    float32's smallest normal value (1.2e-38), and a CUDA float32
+    index_add_ flushes such adds to zero.  With index_add_ flushing them
+    here too, the float32 trace keeps every deposit that float32 can hold
+    (the tracer accumulates them times a power of two,
+    rays._deposit_scale: only those below float32's smallest subnormal,
+    1.4e-45, are 0) and holds every channel within 1e-5 of its peak of the
+    float64 trace with the same kills.  Without the scale it loses them,
+    as the card lost 2.9 million of the 128^3 cell's (ROADMAP, faults
+    found in the port).  (torch.set_flush_denormal is no stand-in for the
+    card here: it also zeroes the float32 tables' subnormal weights and
+    the subnormal totals, which the card keeps.)"""
+    from radiativetransfer_tpu_torch.bench import bench_sources
+    from radiativetransfer_tpu_torch.core.step import StellarContext
+    n = 16
+    tiny = torch.finfo(torch.float32).tiny
+    geom = tstate.GridGeometry(n, n, n, 2000.0 * KPC)
+    pop = tstellar.blackbody_population(q_ionizing=1.0e51)
+    kills = dict(tau_kill=trays.default_tau_kill(torch.float32),
+                 rel_kill=trays.default_rel_kill(torch.float32))
+    index_add = torch.Tensor.index_add_
+
+    def flushing(self, dim, index, source, **kw):
+        if self.dtype == torch.float32:
+            source = torch.where(source.abs() < tiny, 0.0, source)
+        return index_add(self, dim, index, source, **kw)
+
+    rf = {}
+    threads = torch.get_num_threads()
+    # one intra-op thread: the eager march's small ops only spin on more
+    torch.set_num_threads(1)
+    try:
+        for dtype in (torch.float64, torch.float32):
+            ctx = StellarContext.build(pop, bench_sources(n, 8), geom,
+                                       10.0 * MYR, metal_coefs=[(0, 0.0)],
+                                       max_pixel_level=3, dtype=dtype,
+                                       device="cpu")
+            state = tstate.uniform_state(n, nh=2e-4, tgas=1.5e4,
+                                         x_neutral=1e-3, dtype=dtype,
+                                         device="cpu")
+            with monkeypatch.context() as mp:
+                mp.setattr(torch.Tensor, "index_add_", flushing)
+                out, _ = trays.trace_point_sources(
+                    state, geom, ctx.sources, ctx.tables, max_pixel_level=3,
+                    dtype=dtype, **kills)
+            rf[dtype] = torch.stack([getattr(out, f.name).double()
+                                     for f in dataclasses.fields(out)])
+    finally:
+        torch.set_num_threads(threads)
+    a, b = rf[torch.float32], rf[torch.float64]
+    below = int(((b != 0) & (b.abs() < tiny)).sum())
+    assert below > 0.1 * int((b != 0).sum())
+    lost = (b != 0) & (a == 0)
+    assert not bool((lost & (b.abs() >= 2.0 ** -149)).any())
+    for i in range(len(b)):
+        peak = float(b[i].abs().max())
+        assert float((a[i] - b[i]).abs().max()) <= 1e-5 * peak
+    assert float(b[0].max()) > 0.0 and float(b[3].max()) > 0.0
 
 
 def test_unroll_keeps_the_result():
