@@ -7,7 +7,8 @@ Drives radiativetransfer_tpu_torch's paths through their public entry
 points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
 8 (point sources + UVB), the roofline script, the bench, mode 9 on a 1-D
 grid mesh, the CLI from files, the non-equilibrium chemistry, two-level
-AMR and L-level AMR -- and holds each hand-written kernel
+AMR, L-level AMR and its point sources and non-equilibrium chemistry --
+and holds each hand-written kernel
 against its plain PyTorch version.  Phases, one line or more each; any
 failure raises and the script exits non-zero:
 
@@ -106,8 +107,9 @@ failure raises and the script exits non-zero:
     iterations (the cluster kernel's launches, none of the plane
     kernel's; the `time` log, 3 snapshots, the last read back onto the
     equilibrium state); a restart through python -m
-    radiativetransfer_tpu_torch.cli (itime 4 against the same iteration
-    in this process); mode 8 with the 12 sources, 2 iterations (the
+    radiativetransfer_tpu_torch.cli in a process of its own, run beside
+    this process's next checks (itime 4 against the same iteration in
+    this process); mode 8 with the 12 sources, 2 iterations (the
     `weight` file, cosmicSpectrum.npz, fesc in [0, 1]); mode 9 on 4 ranks
     through --sweep-strategy rdma (the cluster ring) and zones (the
     per-zone cluster kernel), 2 iterations each, against the one-device
@@ -125,13 +127,15 @@ failure raises and the script exits non-zero:
     step with phase 9's sources (k27..k31 finite and non-negative, k31 >
     0 somewhere, the species' nH the state's within 1e-5); then the CLI
     from write_cli_inputs' files: noneq mode 9, 3 iterations, a restart
-    through python -m from the itime-1 snapshot (its itime 2 within 1e-4
-    of this process's), noneq mode 8 with the 12 sources, 2 iterations,
+    through python -m from the itime-1 snapshot, beside mode 8 (its
+    itime 2 within 1e-4 of this process's), noneq mode 8 with the 12
+    sources, 2 iterations,
     and noneq mode 9 on 4 ranks through rdma and zones, 1 iteration each
     (neutral fraction and HI within 1e-4 of one device's);
 18. two-level AMR (core/step_amr.py::AMRModel and its tracer
-    core/rays_amr.py, plain PyTorch: no hand-written kernel runs on them,
-    and every kernel's count is held across the phase but for check (c)):
+    core/rays_amr.py, the L-level march at L = 2, plain PyTorch: no
+    hand-written kernel runs on them, and every kernel's count is held
+    across the phase but for check (c)):
     (a) 3 f64 mode-9 steps and one f64 mode-8 step with 3 sources at 24^3
     with its refined centre, level 2, on the card against the CPU's (every
     species within 1e-9 of its peak on both levels, the ray diagnostics
@@ -154,17 +158,19 @@ failure raises and the script exits non-zero:
     fraction within 1e-4); (d) the CLI on the two-level 32^3 grid with its
     central half refined (cut from 128^3: (b) times the full width, (d)
     covers the CLI's branch): mode 9, 2 iterations, a restart of one
-    through python -m from the itime-1 snapshot (within 1e-4), mode 8
+    through python -m from the itime-1 snapshot beside mode 8 (within
+    1e-4), mode 8
     with the 12 sources, 1 iteration (the `weight` file,
     cosmicSpectrum.npz, fesc in [0, 1], the neutral fraction below its
-    start), --chemistry noneq refused before the grid is ingested; (e)
-    the launches of each layer at 32^3, level 3, mode 8 (the tracer with
-    its march steps), from two profiler windows that must agree, the
-    sweep's by zone (one zone at 32^3 from two windows, equal to (b)'s
-    first 32 slabs at 128^3 width; (b)'s 16 and 32 slabs: the launches a
+    start); (e) the launches of each layer at 32^3, level 3, mode 8 (the
+    tracer with its march steps), from two profiler windows that must
+    agree, the sweep's by zone (one zone at 32^3 from two windows, equal
+    to (b)'s first 32 slabs at 128^3 width; (b)'s 16 and 32 slabs: the launches a
     base slab and a zone, whence a whole zone's count at 128^3, derived);
-    every profiler window's markers and clocks (profile_step.WINDOWS; a
-    window that loses its markers raises);
+    every profiler window's markers, clocks and tails
+    (profile_step.WINDOWS; a window that loses its markers is taken once
+    more with a longer warm-up and tail, and raises if that one loses
+    them too);
 19. L-level dense AMR (core/step_amr.py::MultiLevelModel and its sweep
     core/sweep_multilevel.py, plain PyTorch: no hand-written kernel runs
     on them, and every kernel's count is held across the phase but for
@@ -188,8 +194,35 @@ failure raises and the script exits non-zero:
     1e-5 of each band's peak); (d) the CLI on the L-level ML_CLI_N^3 =
     32^3 grid: mode 9, 2 iterations (the grid: and coupling depth: lines),
     a restart of one from the itime-1 snapshot (within 1e-4), mode 6, and
-    mode 8, --chemistry noneq and --amr-storage sparse refused before
-    ingestion, naming their ROADMAP items.
+    --amr-storage sparse refused before ingestion, naming its ROADMAP
+    item;
+20. point sources and the non-equilibrium chemistry on L-level grids
+    (core/rays_multilevel.py, MultiLevelModel.trace and make_noneq_step,
+    plain PyTorch: every kernel's count is held across the phase): (a)
+    phase 19's 24^3 grid, 3 levels, 3 of its sources at maxPixelLevel 4,
+    f64, 2 coupling passes: one mode-8 step, one noneq mode-9 step and
+    one noneq mode-8 step (5 substeps) on the card against the CPU's,
+    each level within 1e-9 of each field's peak; (b) phase 19's
+    full-width cell at phase 19's coupling depth with the galaxy's 12
+    sources, maxPixelLevel 6, f32: one mode-8 step layer by
+    layer (profile_step.ml_layers: the tracer with its march steps, CUDA
+    events and host ms), the tracer in a profiler window (the card's busy
+    share), peak memory, one mode-1 step, one noneq mode-9 step layer by
+    layer (profile_step.ml_noneq_layers: evolve_noneq on each level), the
+    f32 trace against the f64 trace of the same state with float32's
+    kills (every level's six channels within 5e-5 of each peak, the
+    escape fractions within 1e-5; the deposits below float32's smallest
+    normal value and those the f32 trace lost counted), the tracer's
+    launches a march step from two agreeing profiler windows at an 8^3
+    base; (c) L = 2 on the card, f64, phase 19's 24^3 grid cut to two
+    levels: one mode-8 step of MultiLevelModel(2) against one of AMRModel,
+    each level's fields and rates and the ray diagnostics within 1e-9 of
+    their peaks; (d) the CLI at ML_CLI_N^3 = 32^3, angular level 1: mode
+    8 on the L-level grid and --chemistry noneq mode 9 on the two-level
+    and the L-level grids, 2 iterations each through python -m, each in a
+    process of its own beside (a) and (c), each restarted in this process
+    from its itime-1 snapshot (within 1e-4; the noneq ones with their
+    species).
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -198,6 +231,7 @@ without a CUDA device.  Needs no JAX and no network.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -1704,6 +1738,53 @@ def _cli(config: str, outdir: str, *flags,
     return buf.getvalue(), seconds
 
 
+class _CliProcess:
+    """`python -m radiativetransfer_tpu_torch.cli *argv` in a process of its
+    own, started from the script's directory and run while this process
+    goes on (a restart through the real entry point); result() waits for
+    it.  An unfinished one is killed when the script exits."""
+    live: list = []
+
+    def __init__(self, argv):
+        import tempfile
+        import threading
+        self.out, self.err = (tempfile.TemporaryFile("w+") for _ in "oe")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "radiativetransfer_tpu_torch.cli", *argv],
+            stdout=self.out, stderr=self.err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.seconds = None
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+        _CliProcess.live.append(self.proc)
+
+    def _wait(self):
+        self.proc.wait()
+        self.seconds = time.perf_counter() - self.t0
+
+    def result(self, timeout: float = 600.0):
+        """(return code, stdout, stderr, the process's wall seconds)."""
+        self.waiter.join(timeout)
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+            raise TimeoutError(f"the CLI process ran over {timeout} s")
+        _CliProcess.live.remove(self.proc)
+        self.out.seek(0)
+        self.err.seek(0)
+        return (self.proc.returncode, self.out.read(), self.err.read(),
+                self.seconds)
+
+
+@atexit.register
+def _kill_cli_processes() -> None:
+    for proc in _CliProcess.live:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def _config_variant(config: str, dest: str, **subs) -> str:
     """A copy of an inputParameters file at `dest` with `key = value`
     lines replaced (e.g. mode=8, restart=1)."""
@@ -1832,6 +1913,14 @@ def phase_cli(smi: str) -> dict:
               f"({100 * busy_ms / traced_ms:.2f}%), {n_dev} device events")
         assert n_dev > 0 and busy_ms > 0, "the trace shows no device time"
 
+        # restart through the real entry point, one more iteration, in a
+        # process of its own while this one reads and writes the snapshot,
+        # runs the same iteration and mode 8 (it writes only into d9)
+        restart = _config_variant(config, os.path.join(tmp, "restart"),
+                                  restart=1)
+        restarted = _CliProcess([restart, "--snapshot-dir", d9, "--iters",
+                                 "1"])
+
         # the last snapshot onto the equilibrium state: HI as written
         model = RTModel.setup(load_config(config), geom, torch.float32,
                               DEVICE)
@@ -1855,23 +1944,6 @@ def phase_cli(smi: str) -> dict:
               f"(host; {snap_mb:.1f} MB compressed)")
         del back, eq, state, model
 
-        # restart through the real entry point, one more iteration
-        restart = _config_variant(config, os.path.join(tmp, "restart"),
-                                  restart=1)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "radiativetransfer_tpu_torch.cli",
-             restart, "--snapshot-dir", d9, "--iters", "1"],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        restart_s = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            print(f"[16 cli]   {line}")
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        assert (f"restarted from {snaps[-1]} at itime=3" in proc.stdout), \
-            proc.stdout
-        with open(os.path.join(d9, "time")) as fh:
-            assert "itime =    4" in fh.read()
         # the same 4th iteration in this process, from the same snapshot
         d9b = os.path.join(tmp, "mode9_restart")
         os.makedirs(d9b)
@@ -1879,12 +1951,6 @@ def phase_cli(smi: str) -> dict:
         _zero_sweep_launches()
         _cli(restart, d9b, "--iters", "1")
         launches["cli_restart"] = sweep_cluster.LAUNCHES
-        nf_sub, nf_in = _time_log(d9)[4], _time_log(d9b)[4]
-        rel = abs(nf_sub - nf_in) / nf_in
-        print(f"[16 cli] restart: python -m ...cli {restart_s:.3f} s, "
-              f"itime 4 neutral fraction {nf_sub:.8f} against {nf_in:.8f} "
-              f"in this process (rel {rel:.2e}, tol 1e-4)")
-        assert rel <= 1e-4, (nf_sub, nf_in)
 
         # mode 8, the 12 sources, 2 iterations
         d8 = os.path.join(tmp, "mode8")
@@ -1913,6 +1979,22 @@ def phase_cli(smi: str) -> dict:
               f"{call8:.3f} s, iterations' dt {_fmt(dts8)} s, cluster "
               f"kernel "
               f"launches {sweep_cluster.LAUNCHES}")
+
+        # the restart's 4th iteration against this process's
+        rc, stdout, stderr, restart_s = restarted.result()
+        for line in stdout.splitlines():
+            print(f"[16 cli]   {line}")
+        assert rc == 0, stderr[-4000:]
+        assert (f"restarted from {snaps[-1]} at itime=3" in stdout), stdout
+        with open(os.path.join(d9, "time")) as fh:
+            assert "itime =    4" in fh.read()
+        nf_sub, nf_in = _time_log(d9)[4], _time_log(d9b)[4]
+        rel = abs(nf_sub - nf_in) / nf_in
+        print(f"[16 cli] restart: python -m ...cli {restart_s:.3f} s (beside "
+              f"this process's checks), itime 4 neutral fraction "
+              f"{nf_sub:.8f} against {nf_in:.8f} in this process (rel "
+              f"{rel:.2e}, tol 1e-4)")
+        assert rel <= 1e-4, (nf_sub, nf_in)
 
         # mode 9 on a 4-rank mesh: the ring, then the zones strategy
         mesh_logs, mesh = {}, {}
@@ -2161,31 +2243,15 @@ def phase_noneq(smi: str) -> dict:
               f"iterations' dt {_fmt(dts9)} s, neutral fractions "
               f"{list(log9.values())}")
 
-        # restart through the entry point from the itime-1 snapshot
+        # restart through the entry point from the itime-1 snapshot, in a
+        # process of its own while this one runs mode 8
         dr = os.path.join(tmp, "noneq9_restart")
         os.makedirs(dr)
         shutil.copy(snapshot.snapshot_name(1, d9), dr)
         restart = _config_variant(config, os.path.join(tmp, "restart"),
                                   restart=1)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "radiativetransfer_tpu_torch.cli",
-             restart, "--snapshot-dir", dr, "--iters", "1", *noneq],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        restart_s = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            print(f"[17 noneq]   {line}")
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        assert "restored 9-species noneq state from snapshot" in proc.stdout
-        assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
-                in proc.stdout), proc.stdout
-        nf_sub = _time_log(dr)[2]
-        rel = abs(nf_sub - log9[2]) / log9[2]
-        print(f"[17 noneq] restart: python -m ...cli {restart_s:.3f} s, "
-              f"itime 2 neutral fraction {nf_sub:.8f} against {log9[2]:.8f}"
-              f" in this process (rel {rel:.2e}, tol 1e-4)")
-        assert rel <= 1e-4, (nf_sub, log9[2])
+        restarted = _CliProcess([restart, "--snapshot-dir", dr, "--iters",
+                                 "1", *noneq])
 
         # mode 8, the 12 sources, 2 iterations
         d8 = os.path.join(tmp, "noneq8")
@@ -2206,6 +2272,21 @@ def phase_noneq(smi: str) -> dict:
             0.0 <= v <= 1.0 for v in log8.values()), log8
         print(f"[17 noneq] CLI mode 8 noneq {n}^3 x 192, 12 sources: call "
               f"{call8:.3f} s, iterations' dt {_fmt(dts8)} s")
+
+        rc, stdout, stderr, restart_s = restarted.result()
+        for line in stdout.splitlines():
+            print(f"[17 noneq]   {line}")
+        assert rc == 0, stderr[-4000:]
+        assert "restored 9-species noneq state from snapshot" in stdout
+        assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
+                in stdout), stdout
+        nf_sub = _time_log(dr)[2]
+        rel = abs(nf_sub - log9[2]) / log9[2]
+        print(f"[17 noneq] restart: python -m ...cli {restart_s:.3f} s "
+              f"(beside mode 8), itime 2 neutral fraction {nf_sub:.8f} "
+              f"against {log9[2]:.8f} in this process (rel {rel:.2e}, tol "
+              f"1e-4)")
+        assert rel <= 1e-4, (nf_sub, log9[2])
 
         # mode 9 on 4 ranks through the ring and the zones strategy
         with np.load(snapshot.snapshot_name(1, d9)) as f:
@@ -2364,14 +2445,16 @@ def uniform_tracer_flush(tmp: str, n: int = MAIN_N) -> dict:
     return out
 
 
-def _cli_stellar(config: str, levels, abun2, refined, geom, dtype, device):
+def _cli_stellar(config: str, levels, abun2, refined, geom, dtype, device,
+                 noneq: bool = False):
     """The StellarContext cli.main builds for the point sources of
     `config` (write_cli_inputs' 12) on the base level's abun2 (a tensor)
     of the grid ingested from `levels`: read_star_file, load_population
     (blackbodies: the inputs carry no Starburst99 SEDs), the metallicity
-    buckets, prepare_sources on the refined map (None for a uniform grid;
-    a star in a refined parent at its fine leaf's centre) and
-    StellarContext.build at 10 Myr, maxPixelLevel 6."""
+    buckets, prepare_sources on the (base) refined map (None for a uniform
+    grid; a star in a refined parent at its fine leaf's centre) and
+    StellarContext.build at 10 Myr, maxPixelLevel 6 (noneq: with the
+    k27..k31 weights, as --chemistry noneq builds it)."""
     from radiativetransfer_tpu_torch.config import load_config
     from radiativetransfer_tpu_torch.constants import MYR
     from radiativetransfer_tpu_torch.core.step import StellarContext
@@ -2394,7 +2477,7 @@ def _cli_stellar(config: str, levels, abun2, refined, geom, dtype, device):
     return StellarContext.build(
         pop, batch, geom, 10.0 * MYR, metal_coefs=coefs or [(0, 0.0)],
         n_stars_specific_age=n_young,
-        dust_approximation=cfg.dust_approximation, dtype=dtype,
+        dust_approximation=cfg.dust_approximation, noneq=noneq, dtype=dtype,
         device=device)
 
 
@@ -2706,7 +2789,7 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     # (d) the CLI on a two-level grid: mode 9, 2 iterations, a restart of
     # one through python -m from the itime-1 snapshot; mode 8 with the 12
     # sources, 1 iteration (with 2 phase 18 took 251.2 s, over its 220 s
-    # budget); --chemistry noneq raises before the grid is ingested.  The
+    # budget); --chemistry noneq on it: phase 20 (d).  The
     # grid is 32^3 with its central half refined: the branch, the snapshot
     # and the restart are the same at any width, (b) times the full width,
     # and the iterations are launch-bound (~25 s at 128^3, ~14 s at 64^3),
@@ -2731,24 +2814,9 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     shutil.copy(snapshot.snapshot_name(1, d9), dr)
     restart = _config_variant(config32, os.path.join(tmp, "restart.cfg"),
                               restart=1)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "radiativetransfer_tpu_torch.cli",
-         restart, "--snapshot-dir", dr, "--iters", "1"],
-        capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    restart_s = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
-        print(f"[18 amr]   {line}")
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
-            in proc.stdout), proc.stdout
-    nf_sub = _time_log(dr)[2]
-    rel = abs(nf_sub - log9[2]) / log9[2]
-    print(f"[18 amr] restart: python -m ...cli {restart_s:.3f} s, itime "
-          f"2 neutral fraction {nf_sub:.8f} against {log9[2]:.8f} in "
-          f"this process (rel {rel:.2e}, tol 1e-4)")
-    assert rel <= 1e-4, (nf_sub, log9[2])
+    # in a process of its own while this one runs mode 8 (joined before
+    # (e)'s profiler windows)
+    restarted = _CliProcess([restart, "--snapshot-dir", dr, "--iters", "1"])
     d8 = os.path.join(tmp, "amr8")
     config8 = _config_variant(config32, os.path.join(tmp, "mode8.cfg"),
                               mode=8)
@@ -2771,25 +2839,19 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     assert list(log8) == [1] and all(v < nf8_0 for v in log8.values())
     assert n_weight == 12 and len(fesc8) == 7
     assert all(0.0 <= f <= 1.0 for f in fesc8), fesc8
+    rc, stdout, stderr, restart_s = restarted.result()
+    for line in stdout.splitlines():
+        print(f"[18 amr]   {line}")
+    assert rc == 0, stderr[-4000:]
+    assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
+            in stdout), stdout
+    nf_sub = _time_log(dr)[2]
+    rel = abs(nf_sub - log9[2]) / log9[2]
+    print(f"[18 amr] restart: python -m ...cli {restart_s:.3f} s (beside "
+          f"mode 8), itime 2 neutral fraction {nf_sub:.8f} against "
+          f"{log9[2]:.8f} in this process (rel {rel:.2e}, tol 1e-4)")
+    assert rel <= 1e-4, (nf_sub, log9[2])
     assert np.isfinite(spec).all() and float(spec.max()) > 0.0
-    d_noneq = os.path.join(tmp, "amr_noneq")
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(buf):
-            from radiativetransfer_tpu_torch import cli
-            cli.main([config32, "--snapshot-dir", d_noneq, "--iters", "1",
-                      "--chemistry", "noneq"])
-    except NotImplementedError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError("--chemistry noneq ran on the two-level grid")
-    refused_s = time.perf_counter() - t0
-    print(f"[18 amr] CLI --chemistry noneq on the two-level {n_cli}^3 grid: "
-          f"refused in {refused_s:.3f} s: {refusal}")
-    assert "ROADMAP, L-level dense AMR" in refusal
-    assert "grid:" not in buf.getvalue(), "refused after ingestion"
-    assert not os.path.exists(os.path.join(d_noneq, "time"))
     assert _kernel_counts() == counts0, "the two-level CLI launched a kernel"
     out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s,
                cli_dts8=dts8, cli_call8_s=call8)
@@ -2834,20 +2896,37 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     assert march32 > 0 and tracer32 > march32
     assert _kernel_counts() == counts0, "the two-level step launched a kernel"
     phase_s = time.perf_counter() - t_phase
-    windows = profile_step.WINDOWS
-    lags = [w[3] for w in windows]
     print(f"[18 amr] phase 18: {phase_s:.1f} s; {smi}")
-    print(f"[18 amr] the run's {len(windows)} profiler windows (phases 17 "
-          f"and 18), each after a warm-up step of "
-          f"{profile_step._WARMUP_MARKERS} spin kernels: at least "
-          f"{min(w[1] for w in windows)} of {profile_step._MARKERS} opening "
-          f"and {min(w[2] for w in windows)} of {profile_step._MARKERS} "
-          f"closing markers recorded in each; the least launch-to-kernel "
-          f"delay of a window {min(lags):.1f} to {max(lags):.1f} us (a "
-          f"negative one: the card's clock read early against the host's)")
+    windows = _print_windows("18 amr", "phases 17 and 18")
     out.update(launches32=rows32, march32=march32, per_slab=per_slab,
-               zone128=zone128, phase_s=phase_s, windows=len(windows))
+               zone128=zone128, phase_s=phase_s, windows=windows)
     return out
+
+
+def _print_windows(tag: str, phases: str) -> int:
+    """Prints the markers, clocks and tails of the run's profiler windows
+    so far (profile_step.WINDOWS); returns how many were kept (a first
+    take that lost its markers is followed by its retake, and not kept)."""
+    from radiativetransfer_tpu_torch import profile_step
+    rows = profile_step.WINDOWS
+    retaken = {i for i in range(len(rows) - 1) if rows[i + 1][-1] == 1}
+    lost = [w for i, w in enumerate(rows) if i in retaken]
+    kept = [w for i, w in enumerate(rows) if i not in retaken]
+    tails = [w[7] for w in kept]
+    lags = [w[3] for w in rows]
+    print(f"[{tag}] the run's {len(kept)} profiler windows ({phases}), each "
+          f"after a warm-up step of {profile_step._WARMUP_MARKERS} spin "
+          f"kernels (twice that in a retake) and with {min(tails):.3f} to "
+          f"{max(tails):.3f} s of host idle before it closed: at least "
+          f"{min(w[1] for w in kept)} of {profile_step._MARKERS} opening "
+          f"and {min(w[2] for w in kept)} of {profile_step._MARKERS} "
+          f"closing markers recorded in each; "
+          f"{len(lost)} taken again, the lost takes' markers (opening, "
+          f"closing) {[(w[1], w[2]) for w in lost]}; the least "
+          f"launch-to-kernel delay of a window {min(lags):.1f} to "
+          f"{max(lags):.1f} us (a negative one: the card's clock read early "
+          f"against the host's)")
+    return len(kept)
 
 
 def phase_ml(smi: str) -> dict:
@@ -2984,8 +3063,8 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     step9 = ml.make_step()
     (state, warm_s) = timed(lambda: step9(state))
     torch.cuda.reset_peak_memory_stats()
-    (state1, rows), step_s = timed(lambda: profile_step.ml_layers(ml,
-                                                                  state))
+    (state1, rows, _), step_s = timed(lambda: profile_step.ml_layers(
+        ml, state))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     nf1 = ml.neutral_fraction(state1)
     print(f"[19 ml] {n}^3 + 2 levels x 192 f32 mode-9 step, coupling depth "
@@ -3024,7 +3103,8 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     assert ml6.plan is None
     step6 = ml6.make_step()
     s6, warm6_s = timed(lambda: step6(state))
-    (s6, rows6), step6_s = timed(lambda: profile_step.ml_layers(ml6, s6))
+    (s6, rows6, _), step6_s = timed(lambda: profile_step.ml_layers(ml6,
+                                                                     s6))
     nf6 = ml6.neutral_fraction(s6)
     print(f"[19 ml] {n}^3 + 2 levels f32 mode-6 step (the thin UVB, no "
           f"sweep): warm-up {warm6_s:.3f} s, the step {step6_s:.3f} s, "
@@ -3043,8 +3123,8 @@ def _phase_ml(tmp: str, smi: str) -> dict:
         (st, _), _ = ingest(k, f32, DEVICE)
         mk = step_amr.MultiLevelModel.setup(model(k, level, f32, DEVICE), 3)
         mk.n_coupling_iters = depth
-        _, rows_k = profile_step.ml_layers(mk, equilibrium(mk.rt, st),
-                                           count=("sweep",))
+        _, rows_k, _ = profile_step.ml_layers(
+            mk, equilibrium(mk.rt, st), count=("sweep",))
         counted[k] = rows_k["sweep"][2]
     per_slab, rest = divmod(counted[8] - counted[4], 4)
     # the small bases' batches hold their whole groups; the derivation
@@ -3161,37 +3241,450 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     assert "coupling depth" not in out6 and list(_time_log(d6)) == [1]
     print(f"[19 ml] CLI mode 6 on the L-level {n_cli}^3 grid: call "
           f"{call6:.3f} s")
-    config8 = _config_variant(config, os.path.join(tmp, "mode8.cfg"), mode=8)
-    refusals = {}
-    for what, cfg_path, flags in (
-            ("mode 8", config8, ()),
-            ("--chemistry noneq", config, ("--chemistry", "noneq")),
-            ("--amr-storage sparse", config, ("--amr-storage", "sparse"))):
-        d = os.path.join(tmp, "refused")
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(buf):
-                cli.main([cfg_path, "--snapshot-dir", d, "--iters", "1",
-                          *flags])
-        except NotImplementedError as e:
-            refusals[what] = (str(e), time.perf_counter() - t0)
-        else:
-            raise AssertionError(f"{what} ran on the L-level grid")
-        assert "grid:" not in buf.getvalue(), f"{what} refused after ingestion"
-        assert not os.path.exists(os.path.join(d, "time"))
-    for what, (msg, secs) in refusals.items():
-        print(f"[19 ml] CLI {what} on the L-level grid: refused in "
-              f"{secs:.3f} s: {msg}")
-    assert "ROADMAP, L-level dense AMR PR b" in refusals["mode 8"][0]
-    assert "ROADMAP, L-level dense AMR PR b" in refusals[
-        "--chemistry noneq"][0]
-    assert "ROADMAP, Block-sparse AMR" in refusals["--amr-storage sparse"][0]
+    d = os.path.join(tmp, "refused")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main([config, "--snapshot-dir", d, "--iters", "1",
+                      "--amr-storage", "sparse"])
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("--amr-storage sparse ran on the L-level grid")
+    print(f"[19 ml] CLI --amr-storage sparse on the L-level grid: refused in "
+          f"{time.perf_counter() - t0:.3f} s: {refusal}")
+    assert "grid:" not in buf.getvalue(), "refused after ingestion"
+    assert not os.path.exists(os.path.join(d, "time"))
+    assert "ROADMAP, Block-sparse AMR" in refusal
     assert _kernel_counts() == counts0, "the L-level CLI launched a kernel"
     phase_s = time.perf_counter() - t_phase
     print(f"[19 ml] phase 19: {phase_s:.1f} s; {smi}")
     out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s,
                cli_call6_s=call6, phase_s=phase_s)
+    return out
+
+
+def _sweep_once(sweep):
+    """A MultiLevelModel._sweep that runs `sweep` on its first state and
+    puts that Jmean into every later one, whose species must be the
+    first's (so its opacities and Jmean are too)."""
+    first = []
+
+    def swept(state):
+        species = [(lv.HI, lv.HeI, lv.HeII) for lv in state.levels]
+        if not first:
+            first.append((species, [lv.Jmean for lv in
+                                    sweep(state).levels]))
+        assert all(torch.equal(a, b) for x, y in zip(species, first[0][0])
+                   for a, b in zip(x, y)), "another state's sweep"
+        return dataclasses.replace(state, levels=tuple(
+            dataclasses.replace(lv, Jmean=j)
+            for lv, j in zip(state.levels, first[0][1])))
+    return swept
+
+
+def phase_ml_sources(smi: str, depth: int | None = None) -> dict:
+    """20: point sources and the non-equilibrium chemistry on L-level
+    grids (core/rays_multilevel.py, MultiLevelModel.trace and
+    make_noneq_step, the CLI's nested noneq branch) on the card.  Plain
+    PyTorch: the path launches none of the hand-written kernels (every
+    count is held).  depth: the full-width cell's coupling depth, as phase
+    19 validated it (validated here when None)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_ml_sources(tmp, smi, depth)
+
+
+def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
+    """phase_ml_sources' checks, with `tmp` a directory of their own."""
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch import profile_step
+    from radiativetransfer_tpu_torch.config import (
+        MODE_BOTH_STELLAR_UVB_TRANSFER,
+        MODE_STELLAR_TRANSFER_THIN_UVB,
+        MODE_UVB_TRANSFER_ONLY,
+    )
+    from radiativetransfer_tpu_torch.constants import KPC, MYR
+    from radiativetransfer_tpu_torch.core import (
+        amr,
+        chemistry_noneq,
+        rays,
+        rays_multilevel,
+        step_amr,
+    )
+    from radiativetransfer_tpu_torch.io import grid_io, snapshot
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    mode8, mode1 = (MODE_BOTH_STELLAR_UVB_TRANSFER,
+                    MODE_STELLAR_TRANSFER_THIN_UVB)
+    channels = tuple(f.name for f in dataclasses.fields(rays.RateFields))
+    out = {}
+
+    def model(n, level, dtype, device, mode=MODE_UVB_TRANSFER_ONLY):
+        cfg = rt.RunConfig(mode=mode, current_redshift=6.55,
+                           n_angular_level=level, reionization_model=10,
+                           self_shielding_threshold_kpc=0.1)
+        return rt.RTModel.setup(cfg, rt.GridGeometry(n, n, n, 300.0 * KPC),
+                                dtype, device)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    def equilibrium(m, state):
+        return amr.sync_restriction_multi(amr.MultiLevelState(
+            levels=tuple(m.initialize_equilibrium(lv)
+                         for lv in state.levels), refined=state.refined))
+
+    def ingest(n, dtype, device, max_depth=4, core=True):
+        """(the nested state of write_cli_inputs' galaxy at n^3 with its
+        refined centre (and core), the levels read, its inputParameters)."""
+        directory = os.path.join(tmp, f"inputs{n}{'' if core else 'c'}")
+        config = os.path.join(directory, "inputParameters")
+        if not os.path.exists(directory):
+            config = write_cli_inputs(directory, n, refine_center=True,
+                                      refine_core=core)
+        levels = grid_io.read_level_npz(
+            os.path.join(directory, "testgrid_velmet.npz"))
+        return amr.multilevel_from_levels(
+            levels, True, dtype, device=device,
+            max_depth=max_depth)[0], levels, config
+
+    def sources(config, levels, state, geom, dtype, device, noneq=False,
+                first=None, max_pixel_level=6):
+        """The CLI's StellarContext of the grid (_cli_stellar), its first
+        `first` sources kept."""
+        ctx = _cli_stellar(config, levels, state.levels[0].abun2,
+                           state.refined[0], geom, dtype, device,
+                           noneq=noneq)
+        if first is not None:
+            b = ctx.sources
+            ctx = dataclasses.replace(ctx, sources=rays.SourceBatch(
+                position=b.position[:first], weight=b.weight[:first],
+                table_idx=b.table_idx[:first]),
+                n_stars_specific_age=int(b.weight[:first].sum()))
+        return dataclasses.replace(ctx, max_pixel_level=max_pixel_level)
+
+    def worst(a, b, names):
+        """The largest |a - b| over each field's peak in b, field by field
+        and level by level of two MultiLevelStates, b's on its device
+        (fields 0 in b must be 0 in a)."""
+        err = 0.0
+        for x, y in zip(a.levels, b.levels):
+            for k in names:
+                u, v = getattr(x, k).to(getattr(y, k)), getattr(y, k)
+                peak = float(v.abs().max())
+                err = max(err, float((u - v).abs().max()) / peak if peak
+                          else float(u.abs().max()))
+        return err
+
+    def rf_worst(a, b, names=channels):
+        """The same over per-level rate fields (tuples), channel by
+        channel."""
+        return max(float((getattr(x, k).to(getattr(y, k)) - getattr(y, k))
+                         .abs().max() / getattr(y, k).abs().max())
+                   for x, y in zip(a, b) for k in names
+                   if float(getattr(y, k).abs().max()) > 0.0)
+
+    counts0 = _kernel_counts()
+    fields = ("HI", "HeI", "HeII", "Jmean", "krate24", "crate24")
+
+    # (d), its runs: the CLI at 32^3, angular level 1 (the branches,
+    # snapshots and restarts are the same at 12 directions as at 192,
+    # which (b) runs; at 192, one after another, (d) took 71.6 s on an
+    # H100): mode 8 on the L-level grid, --chemistry noneq mode 9 on the
+    # two-level and the L-level grids, 2 iterations each, each through
+    # python -m in a process of its own, beside (a) and (c) (joined before
+    # (b)'s timings and profiler windows)
+    n_cli = out["cli_n"] = ML_CLI_N
+    cli_ml = write_cli_inputs(os.path.join(tmp, "cli_ml"), n_cli,
+                              refine_center=True, refine_core=True)
+    cli_two = write_cli_inputs(os.path.join(tmp, "cli_two"), n_cli,
+                               refine_center=True)
+    noneq_flags = ("--chemistry", "noneq")
+    cli_cases = [
+        ("mode 8, L-level", _config_variant(
+            cli_ml, os.path.join(tmp, "ml8.cfg"), mode=8), ()),
+        ("noneq mode 9, two-level", cli_two, noneq_flags),
+        ("noneq mode 9, L-level", cli_ml, noneq_flags)]
+    cli_procs = {}
+    for name, config, flags in cli_cases:
+        d = os.path.join(tmp, re.sub(r"\W+", "_", name))
+        os.makedirs(d)
+        cli_procs[name] = _CliProcess([config, "--snapshot-dir", d, "--iters",
+                                       "2", "--angular-level", "1", *flags])
+
+    # (a) 24^3 with its refined centre and core (3 levels), angular level
+    # 1, f64, 3 of the galaxy's sources at maxPixelLevel 4: one mode-8
+    # step, one noneq mode-9 step and one noneq mode-8 step (5 substeps:
+    # the CPU's network at 96^3 takes ~1 s a substep; 2 coupling passes,
+    # the full-width cell's depth) on the card against the CPU's, from the
+    # CPU's equilibrium.  The three steps sweep the same opacities (a
+    # step's tracer changes no species): the CPU sweeps them once
+    st24, lv24, cfg24 = ingest(24, f64, "cpu")
+    cpu9, cpu8 = model(24, 1, f64, "cpu"), model(24, 1, f64, "cpu", mode8)
+    st24 = equilibrium(cpu9, st24)
+    arrays = st24.to_numpy()
+    runs = {}
+    for device in ("cpu", DEVICE):
+        m9, m8 = ((cpu9, cpu8) if device == "cpu" else
+                  (model(24, 1, f64, DEVICE), model(24, 1, f64, DEVICE,
+                                                     mode8)))
+        ml9, ml8 = (step_amr.MultiLevelModel.setup(m, 3) for m in (m9, m8))
+        ml9.n_coupling_iters = ml8.n_coupling_iters = 2
+        st = amr.MultiLevelState.from_numpy(arrays, dtype=f64, device=device)
+        if device == "cpu":
+            ml9._sweep = ml8._sweep = _sweep_once(ml9._sweep)
+        ctx, ctxn = (sources(cfg24, lv24, st, m8.geom, f64, device,
+                             noneq=noneq, first=3, max_pixel_level=4)
+                     for noneq in (False, True))
+        sp = tuple(chemistry_noneq.species_from_field_state(lv)
+                   for lv in st.levels)
+        (s8, _), t8 = timed(lambda: ml8.make_step(ctx)(st))
+        (s9n, sp9n), t9n = timed(lambda: ml9.make_noneq_step(
+            MYR, n_substeps=5)(st, sp))
+        (s8n, sp8n, _), t8n = timed(lambda: ml8.make_noneq_step(
+            MYR, ctxn, n_substeps=5)(st, sp))
+        runs[device] = ((s8, s9n, s8n), (sp9n, sp8n), (t8, t9n, t8n))
+    (card, card_sp, t_card), (host, host_sp, t_host) = (runs[DEVICE],
+                                                         runs["cpu"])
+    errs = [worst(card[0], host[0], fields),
+            max(worst(card[1], host[1], fields[:4]),
+                max(_species_worst(a, b) for a, b in zip(card_sp[0],
+                                                         host_sp[0]))),
+            max(worst(card[2], host[2], fields),
+                max(_species_worst(a, b) for a, b in zip(card_sp[1],
+                                                         host_sp[1])))]
+    parents = [int(r.sum()) for r in st24.refined]
+    print(f"[20 mlsrc] 24^3 + refined parents per level {parents}, 3 "
+          f"levels, level 1, f64, 3 sources at maxPixelLevel 4: card / CPU "
+          f"seconds: mode 8 {t_card[0]:.3f} / {t_host[0]:.3f}, noneq mode 9 "
+          f"{t_card[1]:.3f} / {t_host[1]:.3f}, noneq mode 8 {t_card[2]:.3f} "
+          f"/ {t_host[2]:.3f} (5 substeps); max diff of each level's "
+          f"fields, rates and species over their peaks: {errs[0]:.2e}, "
+          f"{errs[1]:.2e}, {errs[2]:.2e} (tol 1e-9)")
+    assert max(errs) <= 1e-9, errs
+    assert all(float(lv.krate24.max()) > 0.0 for lv in card[0].levels)
+    out["card_vs_cpu"] = errs
+    del runs, card, host, card_sp, host_sp, cpu9, cpu8, arrays
+
+    # (c) L = 2 on the card, f64: the 24^3 grid cut to two levels, one
+    # mode-8 step of the two-level model (AMRModel: the CLI's equilibrium
+    # route) against one of MultiLevelModel(2) (its noneq route) from the
+    # same state; both trace through the L-level march
+    two, lv2, cfg2 = ingest(24, f64, DEVICE, max_depth=2)
+    m2 = model(24, 1, f64, DEVICE, mode8)
+    two = equilibrium(m2, two)
+    ctx2 = sources(cfg2, lv2, two, m2.geom, f64, DEVICE, first=3,
+                   max_pixel_level=4)
+    am2 = step_amr.AMRModel.setup(m2)
+    (s_ml, diag_m), ml_s = timed(lambda: step_amr.MultiLevelModel.setup(
+        m2, 2).make_step(ctx2)(two))
+    (s_amr, diag_2), amr_s = timed(lambda: am2.make_step(ctx2)(
+        amr.two_level_view(two)))
+    err_c = max(worst(s_ml, amr.MultiLevelState(
+        levels=(s_amr.base, s_amr.fine), refined=(s_amr.refined,)),
+        fields), max(
+        float((getattr(diag_m, f.name) - getattr(diag_2, f.name)).abs().max()
+              / getattr(diag_2, f.name).abs().max())
+        for f in dataclasses.fields(diag_2)))
+    print(f"[20 mlsrc] L = 2 (24^3 + {int(two.refined[0].sum())} parents), "
+          f"f64, 3 sources, mode 8: MultiLevelModel(2)'s step "
+          f"({ml_s:.3f} s) against AMRModel's ({amr_s:.3f} s): max diff "
+          f"{err_c:.2e} of each level's fields, rates and diagnostics over "
+          f"their peaks (tol 1e-9)")
+    assert err_c <= 1e-9, err_c
+    out["two_level_err"] = err_c
+    del two, s_ml, s_amr, m2, am2, ctx2, st24
+
+    # (d), its restarts: each run's output, then its restart in this
+    # process from its itime-1 snapshot, its itime 2 within 1e-4 of the
+    # run's
+    cli_runs = {}
+    for name, config, flags in cli_cases:
+        d = os.path.join(tmp, re.sub(r"\W+", "_", name))
+        rc, run_out, err, call_s = cli_procs[name].result()
+        for line in run_out.splitlines():
+            print(f"[20 mlsrc]   {line}")
+        assert rc == 0, err[-4000:]
+        flags = ("--angular-level", "1", *flags)
+        log = _time_log(d)
+        assert list(log) == [1, 2] and all(0.0 < v < 1.0
+                                           for v in log.values()), log
+        cd = re.search(r"^coupling depth: (\d) ", run_out, re.M)
+        depth_flags = ("--coupling-depth", cd.group(1)) if cd else ()
+        dr = d + "_restart"
+        os.makedirs(dr)
+        shutil.copy(snapshot.snapshot_name(1, d), dr)
+        restart = _config_variant(config, d + "_restart.cfg", restart=1)
+        out_r, restart_s = _cli(restart, dr, "--iters", "1", *flags,
+                                *depth_flags, tag="20 mlsrc")
+        assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
+                in out_r), out_r
+        if "noneq" in flags:
+            assert "restored 9-species noneq state from snapshot" in out_r
+            with np.load(snapshot.snapshot_name(2, d)) as f:
+                assert "species1_H2I" in f
+        nf_r = _time_log(dr)[2]
+        rel = abs(nf_r - log[2]) / log[2]
+        dts = _iteration_dts(run_out, n_cli ** 3 * 12)
+        fesc = re.findall(r"fesc=(\S+)", run_out)
+        print(f"[20 mlsrc] CLI {name} on the {n_cli}^3 grid: python -m "
+              f"...cli {call_s:.3f} s (beside (a) and (c)), iterations' dt "
+              f"{_fmt(dts)} s, neutral fractions {list(log.values())}"
+              + (f", fesc {fesc[-1]}" if fesc else "")
+              + f"; restart in this process {restart_s:.3f} s, itime 2 "
+              f"{nf_r:.8f} against {log[2]:.8f} (rel {rel:.2e}, tol 1e-4)")
+        assert rel <= 1e-4, (name, nf_r, log[2])
+        cli_runs[name] = (dts, call_s, restart_s)
+
+    # (b) the full-width cell, f32: phase 19's galaxy at 64^3 with its
+    # refined centre and core and its 12 sources at maxPixelLevel 6, 192
+    # directions
+    n, level = ML_N, MAIN_LEVEL
+    (state, levels, config), ingest_s = timed(lambda: ingest(n, f32, DEVICE))
+    m8 = model(n, level, f32, DEVICE, mode8)
+    ml8, plan_s = timed(lambda: step_amr.MultiLevelModel.setup(m8, 3))
+    depth_s = 0.0
+    if depth is None:
+        depth, depth_s = timed(lambda: ml8.validate_coupling_depth(state))
+    ml8.n_coupling_iters = depth
+    state, eq_s = timed(lambda: equilibrium(m8, state))
+    ctx, src_s = timed(lambda: sources(config, levels, state, m8.geom, f32,
+                                       DEVICE))
+    nf0 = ml8.neutral_fraction(state)
+    print(f"[20 mlsrc] {n}^3 + refined parents per level "
+          f"{[int(r.sum()) for r in state.refined]}: ingested in "
+          f"{ingest_s:.3f} s, plan {plan_s:.3f} s, coupling depth {depth} "
+          f"in {depth_s:.3f} s, equilibrium {eq_s:.3f} s, the "
+          f"{ctx.sources.n_sources} sources prepared as the CLI does "
+          f"{src_s:.3f} s; neutral fraction {nf0:.7f}")
+    torch.cuda.reset_peak_memory_stats()
+    (s8, rows8, march), step8_s = timed(lambda: profile_step.ml_layers(
+        ml8, state, stellar=ctx))
+    peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+    nf8 = ml8.neutral_fraction(s8)
+    tr_ms, tr_host = rows8["tracer"][:2]
+    print(f"[20 mlsrc] {n}^3 + 2 levels x 192 f32 L-level mode-8 step, "
+          f"{ctx.sources.n_sources} sources, maxPixelLevel "
+          f"{ctx.max_pixel_level}: {step8_s:.3f} s, layers (device ms by "
+          "CUDA events / host ms to enqueue): " + ", ".join(
+              f"{k} {ms:.3f} / {h:.3f}" for k, (ms, h, _) in rows8.items())
+          + f"; the tracer {march} march steps ({tr_ms / march:.3f} ms a "
+          f"step); neutral fraction {nf0:.7f} -> {nf8:.7f}; peak device "
+          f"memory {peak8:.3f} GiB; {smi}")
+    assert np.isfinite(nf8) and 0.0 < nf8 < nf0, (nf0, nf8)
+    assert all(bool(torch.isfinite(getattr(lv, k)).all())
+               for lv in s8.levels for k in fields)
+    assert all(float(lv.krate24.max()) > 0.0 for lv in s8.levels)
+    del s8
+    tr_wall, tr_busy, tr_events, _ = profile_step.profiled(
+        lambda s: ml8.trace(ml8._zero_rates(s), ctx)[0], [state], steps=1)
+    print(f"[20 mlsrc] the {n}^3 L-level tracer in a profiler window: wall "
+          f"{tr_wall * 1e3:.3f} ms, device busy {tr_busy * 1e3:.3f} ms "
+          f"({100 * tr_busy / tr_wall:.1f}%), {tr_events:.0f} device events "
+          f"({tr_events / march:.1f} a march step)")
+    ml1 = step_amr.MultiLevelModel.setup(model(n, level, f32, DEVICE, mode1),
+                                         3)
+    assert ml1.plan is None
+    (s1, diag1), step1_s = timed(lambda: ml1.make_step(ctx)(state))
+    nf1 = ml1.neutral_fraction(s1)
+    fesc1 = rays.escape_fractions(diag1, ctx.sources.weight)
+    print(f"[20 mlsrc] {n}^3 f32 L-level mode-1 step (the tracer, three "
+          f"chemistries, no sweep): {step1_s:.3f} s; neutral fraction "
+          f"{nf0:.7f} -> {nf1:.7f}; escape fractions at the outer radius "
+          f"{_fmt(fesc1[:, -1])}")
+    assert 0.0 < nf1 < nf0 and bool(np.isfinite(fesc1).all())
+    del s1, ml1
+    ml9 = dataclasses.replace(ml8, rt=model(n, level, f32, DEVICE))
+    species = tuple(chemistry_noneq.species_from_field_state(lv)
+                    for lv in state.levels)
+    torch.cuda.reset_peak_memory_stats()
+    (s9, sp9, rows9, _), step9_s = timed(lambda: profile_step.ml_noneq_layers(
+        ml9, state, species))
+    peak9 = torch.cuda.max_memory_allocated() / 2 ** 30
+    nf9 = ml9.neutral_fraction(s9)
+    print(f"[20 mlsrc] {n}^3 + 2 levels x 192 f32 L-level noneq mode-9 step "
+          f"(1 Myr, 200 substeps): {step9_s:.3f} s, layers (device ms / host "
+          "ms): " + ", ".join(f"{k} {ms:.3f} / {h:.3f}"
+                              for k, (ms, h, _) in rows9.items())
+          + f"; neutral fraction {nf0:.7f} -> {nf9:.7f}; peak device memory "
+          f"{peak9:.3f} GiB")
+    assert np.isfinite(nf9) and 0.0 < nf9 < 1.0
+    assert all(bool(torch.isfinite(getattr(sp, k)).all())
+               for sp in sp9 for k in ("HI", "H2I", "de", "eint"))
+    del s9, sp9, species, ml9
+    # the float32 trace against float64's of the same state with the same
+    # (float32's) kills: every level's six channels within 5e-5 of each
+    # peak (phase 18's bound), the escape fractions within 1e-5; the
+    # deposits below float32's smallest normal value, which the
+    # rays_multilevel scale keeps from the card's flush, and the f64
+    # trace's nonzero deposits that float32 can hold and the f32 trace
+    # lost, counted
+    kills = dict(tau_kill=rays.default_tau_kill(f32),
+                 rel_kill=rays.default_rel_kill(f32))
+    ctx64 = sources(config, levels, state, m8.geom, f64, DEVICE)
+    (t32, t64), trace_s = zip(*(timed(
+        lambda c=c, d=d: rays_multilevel.trace_point_sources_ml(
+            state, m8.geom, c.sources, c.tables,
+            dust_approximation=c.dust_approximation,
+            max_pixel_level=c.max_pixel_level, dtype=d, **kills))
+        for c, d in ((ctx, f32), (ctx64, f64))))
+    err_levels = [rf_worst((a,), (b,)) for a, b in zip(t32[0], t64[0])]
+    fesc32, fesc64 = (rays.escape_fractions(t[1], ctx.sources.weight)
+                      for t in (t32, t64))
+    fesc_err = float(np.abs(fesc32 - fesc64).max())
+    tiny = torch.finfo(f32).tiny
+    counted = []
+    for a, b in zip(t32[0], t64[0]):
+        x = torch.stack([getattr(a, k) for k in channels]).double()
+        y = torch.stack([getattr(b, k) for k in channels])
+        lost = (y != 0) & (x == 0) & (y.abs() >= 2.0 ** -149)
+        counted.append((int((y != 0).sum()),
+                        int(((y != 0) & (y.abs() < tiny)).sum()),
+                        int(lost.sum()),
+                        float((y.abs() * lost).amax(dim=1).div(
+                            y.abs().amax(dim=1).clamp(min=1e-300)).max())))
+    print(f"[20 mlsrc] the {n}^3 f32 trace ({trace_s[0]:.3f} s) against the "
+          f"f64 trace ({trace_s[1]:.3f} s), both with tau_kill "
+          f"{kills['tau_kill']} and rel_kill {kills['rel_kill']}: channels "
+          f"max diff by level {_fmt(err_levels)} of each channel's peak "
+          f"(tol 5e-5), escape fractions {fesc_err:.2e} (tol 1e-5); by "
+          f"level (nonzero in f64, below float32's smallest normal "
+          f"{tiny:.3e}, lost by f32 though float32 holds them, the largest "
+          f"lost over its channel's peak): {counted}")
+    assert max(err_levels) <= 5e-5 and fesc_err <= 1e-5, (err_levels,
+                                                           fesc_err)
+    del t32, t64, ctx64, state, levels, ml8, m8
+    # the tracer's launches a march step, from two agreeing profiler
+    # windows of a whole trace at an 8^3 base with its 12 sources
+    st8, lv8, cfg8 = ingest(8, f32, DEVICE)
+    m8s = model(8, level, f32, DEVICE, mode8)
+    ml8s = step_amr.MultiLevelModel.setup(m8s, 3)
+    _, rows_s, march_s = profile_step.ml_layers(
+        ml8s, equilibrium(m8s, st8), count=("tracer",),
+        stellar=sources(cfg8, lv8, st8, m8s.geom, f32, DEVICE))
+    per_step = rows_s["tracer"][2] / march_s
+    print(f"[20 mlsrc] the L-level tracer at an 8^3 base (3 levels, 12 "
+          f"sources, maxPixelLevel 6): {rows_s['tracer'][2]} launches in "
+          f"two agreeing traces of {march_s} march steps, {per_step:.1f} a "
+          f"march step")
+    assert march_s > 0 and rows_s["tracer"][2] > march_s
+    assert _kernel_counts() == counts0, "the L-level step launched a kernel"
+    out.update(step8_s=step8_s, layers8=rows8, march=march, peak8_gib=peak8,
+               tracer_busy_share=tr_busy / tr_wall, mode1_s=step1_s,
+               noneq9_s=step9_s, layers9=rows9, peak9_gib=peak9,
+               trace_err=(*err_levels, fesc_err), deposits=counted,
+               launches_per_march_step=per_step, depth=depth)
+
+    assert _kernel_counts() == counts0, "the L-level CLI launched a kernel"
+    phase_s = time.perf_counter() - t_phase
+    print(f"[20 mlsrc] phase 20: {phase_s:.1f} s; {smi}")
+    _print_windows("20 mlsrc", "phases 17 to 20")
+    out.update(cli=cli_runs, phase_s=phase_s)
     return out
 
 
@@ -3224,6 +3717,7 @@ def main() -> None:
     noneq = timed_phase(17, phase_noneq, smi)
     amr_out = timed_phase(18, phase_amr, smi)
     ml_out = timed_phase(19, phase_ml, smi)
+    timed_phase(20, phase_ml_sources, smi, ml_out["depth"])
     print("[main] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; the script so far {time.perf_counter() - t_start:.1f} s")

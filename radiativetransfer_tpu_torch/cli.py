@@ -32,22 +32,25 @@ its mesh over every device it sees.
 A grid of two data levels (or more, under `--amr-depth 2`, the deeper
 levels averaged onto the second) runs as two-level AMR
 (core/step_amr.py::AMRModel) in modes 9, 8, 6 and 1, the point sources
-traced through both levels (core/rays_amr.py).  A grid of more data levels
-under `--amr-depth` > 2 runs as L-level dense AMR
-(core/step_amr.py::MultiLevelModel, up to --amr-depth levels, the deeper
-ones averaged onto the deepest kept) in modes 9 and 6, its sweep's
-coupling depth validated on the ingested grid unless `--coupling-depth`
-fixes it, where the JAX CLI would keep it dense: always under
-`--amr-storage dense`, under `auto` (the default) while the dense levels'
-17 fields take at most 4e9 bytes.  The diagnostic modes 2, 3, 4 and 7 of
-a nested grid read its base level, as the JAX CLI's do; its snapshots are
-cellArray leaf streams (io/snapshot.py::write_snapshot_amr,
-write_snapshot_ml).
+traced through both levels (core/rays_amr.py, the L-level tracer at
+L = 2).  A grid of more data levels under `--amr-depth` > 2 runs as L-level
+dense AMR (core/step_amr.py::MultiLevelModel, up to --amr-depth levels,
+the deeper ones averaged onto the deepest kept) in modes 9, 8, 6 and 1,
+the point sources traced through every level (core/rays_multilevel.py),
+its sweep's coupling depth validated on the ingested grid unless
+`--coupling-depth` fixes it, where the JAX CLI would keep it dense: always
+under `--amr-storage dense`, under `auto` (the default) while the dense
+levels' 17 fields take at most 4e9 bytes.  `--chemistry noneq` on a nested
+grid runs MultiLevelModel.make_noneq_step, a two-level grid as
+MultiLevelModel(2) at the default coupling depth, as the JAX CLI does, and
+writes L-level snapshots with each level's species (`species{l}_*`).  The
+diagnostic modes 2, 3, 4 and 7 of a nested grid read its base level, as
+the JAX CLI's do; its snapshots are cellArray leaf streams
+(io/snapshot.py::write_snapshot_amr, write_snapshot_ml).
 
 Not ported yet, and refused before any work with NotImplementedError
 naming their ROADMAP entries: the block-sparse storage (`--amr-storage
-sparse`, or `auto` above 4e9 bytes), point sources (modes 8 and 1) on an
-L-level grid, `--chemistry noneq` and a mesh on any nested grid, `.h4`
+sparse`, or `auto` above 4e9 bytes), a mesh on a nested grid, `.h4`
 grids, `--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`,
 point sources on a mesh and the multi-process flags.
 """
@@ -224,7 +227,7 @@ def _dense_bytes(levels, depth: int, x64: bool) -> int:
                for ell in range(depth))
 
 
-def _nesting(levels, args, cfg, mesh, noneq: bool) -> str:
+def _nesting(levels, args, mesh) -> str:
     """How the grid runs, as the JAX CLI decides it: "uniform" (one data
     level), "amr" (two-level AMR: two data levels, or more under
     --amr-depth 2) or "ml" (L-level dense AMR: more than two data levels
@@ -246,21 +249,11 @@ def _nesting(levels, args, cfg, mesh, noneq: bool) -> str:
                 f"{dense_bytes / 1e9:.1f} GB) is not ported yet: ROADMAP, "
                 f"Block-sparse AMR")
         kind = "ml"
-    grid, shard = (("an L-level", "shard_multilevel_state") if kind == "ml"
-                   else ("a two-level", "shard_amr_state"))
-    refused = [
-        (kind == "ml" and cfg.run_stellar_transfer,
-         f"point sources (mode {cfg.mode}) on an L-level AMR grid",
-         amr.RAYS_ML_ITEM),
-        (noneq, f"--chemistry noneq on {grid} AMR grid (the JAX CLI runs "
-         f"it through MultiLevelModel)", amr.RAYS_ML_ITEM),
-        (mesh is not None, f"a mesh on {grid} AMR grid ({shard})",
-         "Distribution"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP, "
-                                      f"{item}")
+    if mesh is not None:
+        grid, shard = (("an L-level", "shard_multilevel_state")
+                       if kind == "ml" else ("a two-level", "shard_amr_state"))
+        raise NotImplementedError(f"a mesh on {grid} AMR grid ({shard}) is "
+                                  f"not ported yet: ROADMAP, Distribution")
     return kind
 
 
@@ -280,7 +273,8 @@ def _check_finite(states, itime: int) -> None:
 def _restore_noneq(species, restart_snap):
     """The species of a noneq restart: those of the snapshot the fields
     were restored from, else (no restart, or a snapshot without species)
-    the equilibrium ones given, with a warning in the latter case.  A
+    the equilibrium ones given, with a warning in the latter case.
+    species: a SpeciesState, or a nested run's tuple of one a level.  A
     snapshot whose species do not fit the grid raises (read_species)."""
     if restart_snap is not None:
         sp2 = snapshot.read_species(restart_snap, species)
@@ -329,7 +323,7 @@ def main(argv=None):
         for i, lv in enumerate(levels):
             print(f"level = {i + 1}  cells = {lv.ncell}")
         return
-    nesting = _nesting(levels, args, cfg, mesh, noneq)
+    nesting = _nesting(levels, args, mesh)
     # the nested state: an AMRState ("amr") or a MultiLevelState ("ml")
     nested = None
     if nesting == "amr":
@@ -350,6 +344,14 @@ def main(argv=None):
         state, geom = grid_io.build_uniform_state(levels, cfg.read_metals,
                                                   dtype=dtype, device=device)
     print(f"grid: {geom.nx}^3, box = {geom.physical_box_size / KPC:.1f} kpc")
+    # the coupling depth is validated on grids ingested as L-level; a
+    # two-level grid's noneq run goes through MultiLevelModel(2) at the
+    # default depth, as the JAX CLI's does
+    validate_depth = nesting == "ml"
+    if nesting == "amr" and noneq:
+        nested = amr.MultiLevelState(levels=(nested.base, nested.fine),
+                                     refined=(nested.refined,))
+        nesting = "ml"
 
     if cfg.mode == MODE_CLUMPING_FACTOR:
         rho = state.rho.detach().cpu().numpy()
@@ -424,7 +426,9 @@ def main(argv=None):
         step = amodel.make_step(stellar_ctx)
     elif nesting == "ml":
         amodel = step_amr.MultiLevelModel.setup(model, nested.n_levels)
-        step = amodel.make_step()
+        step = (amodel.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
+                                       evolve_energy=args.evolve_energy)
+                if noneq else amodel.make_step(stellar_ctx))
     elif noneq:
         step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                      evolve_energy=args.evolve_energy,
@@ -442,7 +446,7 @@ def main(argv=None):
             fine=model.initialize_equilibrium(nested.fine)))
         nf0 = amodel.neutral_fraction(nested)
     elif nesting == "ml":
-        if cfg.run_uvb_transfer:
+        if cfg.run_uvb_transfer and validate_depth:
             if args.coupling_depth:
                 amodel.n_coupling_iters = args.coupling_depth
                 print(f"coupling depth: {args.coupling_depth} (fixed)")
@@ -479,7 +483,14 @@ def main(argv=None):
     if mesh is not None:
         state = pmesh.shard_state(state, mesh)
     species = None
-    if noneq:
+    if noneq and nested is not None:
+        species = _restore_noneq(
+            tuple(chemistry_noneq.species_from_field_state(lv)
+                  for lv in nested.levels), restart_snap)
+        print(f"non-equilibrium chemistry ({nested.n_levels} levels): "
+              f"dt = {args.dt_myr} Myr, evolve_energy = "
+              f"{args.evolve_energy}")
+    elif noneq:
         species = _restore_noneq(
             chemistry_noneq.species_from_field_state(state), restart_snap)
         if mesh is not None:
@@ -503,7 +514,10 @@ def main(argv=None):
         for _ in iter_range:
             itime += 1
             t0 = time.time()
-            if nested is not None:
+            if nested is not None and noneq:
+                nested, species, *traced = step(nested, species)
+                diag = traced[0] if traced else None
+            elif nested is not None:
                 out = step(nested)
                 nested, diag = out if isinstance(out, tuple) else (out, None)
             elif noneq:
@@ -543,7 +557,11 @@ def main(argv=None):
             elif nesting == "ml":
                 snapshot.write_snapshot_ml(
                     snapshot.snapshot_name(itime, args.snapshot_dir),
-                    nested, itime, geom.physical_box_size)
+                    nested, itime, geom.physical_box_size,
+                    extra=({k: v for ell, spc in enumerate(species)
+                            for k, v in snapshot.species_extra(
+                                spc, prefix=f"species{ell}").items()}
+                           if noneq else None))
             else:
                 snapshot.write_snapshot(
                     snapshot.snapshot_name(itime, args.snapshot_dir), state,

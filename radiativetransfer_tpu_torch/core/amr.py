@@ -25,11 +25,6 @@ import torch
 from ..constants import MH, PSI
 from .state import FieldState, GridGeometry, make_state
 
-# the ROADMAP item of what nested grids do not run yet: point sources on
-# an L-level grid and the non-equilibrium chemistry of any nested grid
-RAYS_ML_ITEM = "L-level dense AMR PR b (core/rays_multilevel.py)"
-
-
 @dataclasses.dataclass
 class AMRState:
     """Two-level nested state.

@@ -2,26 +2,38 @@
 
 Counterpart of AMRModel and MultiLevelModel in the JAX package's
 core/step_amr.py, the AMR analogs of core/step.py: zero rates ->
-point-source trace (rays_amr) -> opacities + the nested sweep (sweep_amr,
-sweep_multilevel) -> per-level equilibrium chemistry -> restriction sync
-(the reference's recursive per-leaf updates walk the octree; here each
-level is one dense elementwise pass).  The two-level model runs modes 9
-(UVB only), 8 (point sources and the UVB), 1 (point sources and the thin
-UVB) and 6 (the thin UVB, no stars) on one device; the L-level model modes
-9 and 6.  Not ported yet, and raising NotImplementedError naming their
-ROADMAP items: point sources on an L-level grid (core/rays_multilevel.py),
-the device mesh (shard_amr_state, shard_multilevel_state, the distributed
-tracers), the non-equilibrium steps of nested grids and the block-sparse
+point-source trace (rays_multilevel; rays_amr is its L = 2 case) ->
+opacities + the nested sweep (sweep_amr, sweep_multilevel) -> per-level
+equilibrium chemistry -> restriction sync (the reference's recursive per-leaf updates walk the
+octree; here each level is one dense elementwise pass).  Both models run
+modes 9 (UVB only), 8 (point sources and the UVB), 1 (point sources and
+the thin UVB) and 6 (the thin UVB, no stars) on one device, and the
+L-level model also the non-equilibrium 9-species chemistry
+(make_noneq_step, which the CLI runs on two-level grids too, as
+MultiLevelModel(2)).  Not ported yet, and raising NotImplementedError
+naming their ROADMAP items: the device mesh (shard_amr_state,
+shard_multilevel_state, the distributed tracers) and the block-sparse
 model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from . import amr, chemistry, opacity, rays_amr, sweep_amr, sweep_multilevel
+from . import (
+    amr,
+    chemistry,
+    chemistry_noneq,
+    opacity,
+    rays,
+    rays_amr,
+    rays_multilevel,
+    sweep_amr,
+    sweep_multilevel,
+)
 from .state import GridGeometry
 
 
@@ -126,17 +138,12 @@ class AMRModel:
 
     def make_step(self, stellar=None, mesh=None):
         """The iteration step, a plain eager function: state -> state, or
-        with a StellarContext state -> (state, RayDiagnostics), tracing
-        whatever the mode (as RTModel.make_step)."""
+        with a StellarContext state -> (state, RayDiagnostics or None), as
+        step returns them."""
         self._check_supported(mesh)
         if stellar is None:
             return lambda state: self.step(state)[0]
-
-        def step(state: amr.AMRState):
-            state, diag = self.trace(self._zero_rates(state), stellar)
-            return self._sweep_and_chemistry(state), diag
-
-        return step
+        return functools.partial(self.step, stellar=stellar)
 
     def neutral_fraction(self, state: amr.AMRState) -> float:
         """Leaf-volume-weighted neutral hydrogen fraction, summed in float64
@@ -153,9 +160,11 @@ class AMRModel:
 
 @dataclasses.dataclass
 class MultiLevelModel:
-    """L-level model wrapper around an RTModel's tables/config: modes 9
-    and 6 on one device (the multilevel sweep core/sweep_multilevel.py,
-    chemistry on each level, sync_restriction_multi)."""
+    """L-level model wrapper around an RTModel's tables/config: modes 9,
+    8, 1 and 6 and the non-equilibrium chemistry on one device (the
+    L-level tracer core/rays_multilevel.py, the multilevel sweep
+    core/sweep_multilevel.py, chemistry on each level,
+    sync_restriction_multi)."""
     rt: "object"                      # core.step.RTModel
     n_levels: int
     plan: sweep_multilevel.MLSweepPlan | None
@@ -167,20 +176,15 @@ class MultiLevelModel:
     @classmethod
     def setup(cls, rt_model, n_levels: int) -> "MultiLevelModel":
         """The L-level sweep plan (every level's templates, on the host)
-        when the run sweeps the UVB.  A mode that traces point sources
-        raises NotImplementedError, before any work."""
-        model = cls(rt=rt_model, n_levels=n_levels, plan=None)
-        model._check_supported()
+        when the run sweeps the UVB."""
+        plan = None
         if rt_model.config.run_uvb_transfer:
-            model.plan = sweep_multilevel.build_ml_sweep_plan(
+            plan = sweep_multilevel.build_ml_sweep_plan(
                 rt_model.config.n_angular_level, rt_model.geom.nx, n_levels)
-        return model
+        return cls(rt=rt_model, n_levels=n_levels, plan=plan)
 
-    def _check_supported(self, stellar=None, mesh=None) -> None:
-        if stellar is not None or self.rt.config.run_stellar_transfer:
-            raise NotImplementedError(
-                f"point sources (mode {self.rt.config.mode}) on an L-level "
-                f"grid are not ported yet: ROADMAP, {amr.RAYS_ML_ITEM}")
+    @staticmethod
+    def _check_supported(mesh) -> None:
         if mesh is not None:
             raise NotImplementedError(
                 "an L-level state on a mesh (shard_multilevel_state) is not "
@@ -223,10 +227,38 @@ class MultiLevelModel:
             refined=state.refined)
 
     def step(self, state: amr.MultiLevelState, stellar=None, mesh=None):
-        """One full iteration; returns (state, None): the modes that
-        trace point sources are not ported."""
-        self._check_supported(stellar, mesh)
-        return self._sweep_and_chemistry(self._zero_rates(state)), None
+        """One full iteration; returns (state, RayDiagnostics), the
+        diagnostics None unless the mode traces point sources (a
+        StellarContext given in mode 1 or 8)."""
+        self._check_supported(mesh)
+        state = self._zero_rates(state)
+        diag = None
+        if self.rt.config.run_stellar_transfer and stellar is not None:
+            state, _, diag = self.trace(state, stellar)
+        return self._sweep_and_chemistry(state), diag
+
+    def trace(self, state: amr.MultiLevelState, stellar,
+              rates_mode: str = "auto"):
+        """The point-source phase (the JAX package's
+        MultiLevelModel._traced): trace every source through every level
+        and put the six deposit fields into the (zero-rate) state, level
+        l's times 8^l: the tables are over the BASE cell's volume
+        (StellarContext.build), a level-l cell's is 8^-l of it.  Returns
+        (state, the tracer's per-level rate fields as it made them,
+        RayDiagnostics); rates_mode: rays_multilevel's."""
+        rfs, diag = rays_multilevel.trace_point_sources_ml(
+            state, self.rt.geom, stellar.sources, stellar.tables,
+            dust_approximation=stellar.dust_approximation,
+            max_pixel_level=stellar.max_pixel_level,
+            dtype=state.levels[0].rho.dtype, rates_mode=rates_mode)
+        names = [f.name for f in dataclasses.fields(rays.RateFields)]
+        levels = tuple(
+            dataclasses.replace(lv, **{
+                k: getattr(rf, k).reshape(lv.shape) * 8.0 ** ell
+                for k in names})
+            for ell, (lv, rf) in enumerate(zip(state.levels, rfs)))
+        return amr.MultiLevelState(levels=levels,
+                                   refined=state.refined), rfs, diag
 
     def _sweep(self, state: amr.MultiLevelState) -> amr.MultiLevelState:
         """Every level's opacities and the L-level sweep, into Jmean."""
@@ -261,9 +293,105 @@ class MultiLevelModel:
         return amr.sync_restriction_multi(state)
 
     def make_step(self, stellar=None, mesh=None):
-        """The iteration step, a plain eager function: state -> state."""
-        self._check_supported(stellar, mesh)
-        return lambda state: self.step(state)[0]
+        """The iteration step, a plain eager function: state -> state, or
+        with a StellarContext state -> (state, RayDiagnostics or None), as
+        step returns them."""
+        self._check_supported(mesh)
+        if stellar is None:
+            return lambda state: self.step(state)[0]
+        return functools.partial(self.step, stellar=stellar)
+
+    def noneq_tables(self) -> chemistry_noneq.NoneqTablesDevice:
+        """The network's tables, the model's in the run's dtype on its
+        device (as RTModel.make_noneq_step's)."""
+        k16 = self.rt.dev_tables.k16
+        return chemistry_noneq.NoneqTablesDevice.from_tables(
+            self.rt.tables, k16.dtype, k16.device)
+
+    def evolve_level(self, ell: int, lv, spc, rfs, dt: float, tables,
+                     n_substeps: int = 200, evolve_energy: bool = False):
+        """Level l's network advanced by dt [s] with its own photo rates
+        (RTModel._assemble_photo_rates on the level; with the tracer's
+        per-level NoneqRateFields `rfs`, its k27..k31 times 8^l):
+        (the level's FieldState, HI/HeI/HeII and with evolve_energy tgas
+        synced from the species, the species)."""
+        rt = self.rt
+        rf = None
+        if rfs is not None:
+            rf = rays.NoneqRateFields(**{
+                f.name: getattr(rfs[ell], f.name).reshape(lv.shape)
+                * 8.0 ** ell for f in dataclasses.fields(rfs[ell])})
+        spc = chemistry_noneq.evolve_noneq(
+            spc, dt, tables, photo=rt._assemble_photo_rates(lv, rf),
+            n_substeps=n_substeps, evolve_energy=evolve_energy,
+            tgas_fixed=None if evolve_energy else lv.tgas,
+            current_redshift=rt.config.current_redshift)
+        dtype = lv.HI.dtype
+        lv = dataclasses.replace(
+            lv, HI=spc.HI.to(dtype), HeI=spc.HeI.to(dtype),
+            HeII=spc.HeII.to(dtype),
+            tgas=spc.tgas.to(dtype) if evolve_energy else lv.tgas)
+        return lv, spc
+
+    def sync_noneq(self, state: amr.MultiLevelState, species):
+        """sync_restriction_multi, then the species restricted onto refined
+        parents (their children's average), finest level first: (state,
+        species tuple)."""
+        state = amr.sync_restriction_multi(state)
+        species = list(species)
+        for ell in range(self.n_levels - 2, -1, -1):
+            r = state.refined[ell]
+            coarse, fine = species[ell], species[ell + 1]
+            species[ell] = chemistry_noneq.SpeciesState(**{
+                f.name: torch.where(r, amr.restrict(getattr(fine, f.name)),
+                                    getattr(coarse, f.name))
+                for f in dataclasses.fields(coarse)})
+        return state, tuple(species)
+
+    def make_noneq_step(self, dt: float, stellar=None, n_substeps: int = 200,
+                        evolve_energy: bool = False, mesh=None):
+        """Transport + non-equilibrium 9-species chemistry on an L-level
+        grid, each level advanced by dt [s] with its own photo rates (the
+        reference's network tables are global, coll_rates.f:3-234: nothing
+        in the physics is level-specific), then the species restricted
+        onto refined parents, finest level first.
+
+        Returns step(state, species) -> (state, species), or with a
+        StellarContext (built noneq=True) (state, species,
+        RayDiagnostics): `species` is a tuple of one
+        chemistry_noneq.SpeciesState a level (species_from_field_state on
+        each), the state's HI/HeI/HeII (and tgas with evolve_energy)
+        synced from them each step.  The tracer runs in its
+        quadrature_noneq mode; its k27..k31 deposits, per-particle rates
+        over the BASE cell (the weights over its face area, the segment in
+        base cells), scale by 8^l on level l as the six band channels do
+        (evolve_level)."""
+        self._check_supported(mesh)
+        tables = self.noneq_tables()
+
+        def sweep_and_evolve(state, species, rfs):
+            if self.rt.config.run_uvb_transfer:
+                state = self._sweep(state)
+            levels, species = zip(*(
+                self.evolve_level(ell, lv, spc, rfs, dt, tables, n_substeps,
+                                  evolve_energy)
+                for ell, (lv, spc) in enumerate(zip(state.levels, species))))
+            return self.sync_noneq(amr.MultiLevelState(
+                levels=levels, refined=state.refined), species)
+
+        if stellar is None:
+            def step(state: amr.MultiLevelState, species):
+                return sweep_and_evolve(self._zero_rates(state), species,
+                                        None)
+            return step
+
+        def step_traced(state: amr.MultiLevelState, species):
+            state, rfs, diag = self.trace(self._zero_rates(state), stellar,
+                                          "quadrature_noneq")
+            state, species = sweep_and_evolve(state, species, rfs)
+            return state, species, diag
+
+        return step_traced
 
     def neutral_fraction(self, state: amr.MultiLevelState) -> float:
         """Leaf-volume-weighted neutral hydrogen fraction, summed in float64

@@ -15,11 +15,11 @@ and L-level) AMR states flatten their leaves through the SFC codec
 other.  Restart re-inflates onto a freshly
 built grid with the same species clamping as the reference, in torch on
 the state's device.  A non-equilibrium run adds its 9-species state
-(`species_extra`, `read_species`) under keys that `read_snapshot` does not
-read, so an equilibrium run restarts from it too.  L-level states
-(write_snapshot_ml) flatten every level's leaves the same way.  The
-block-sparse form and the species of nested grids are not ported yet and
-raise.
+(`species_extra`, `read_species`; a nested run one set a level, under
+`species{l}_*`) under keys that the field readers do not read, so an
+equilibrium run restarts from it too.  L-level states (write_snapshot_ml)
+flatten every level's leaves the same way.  The block-sparse form is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import re
 import numpy as np
 import torch
 
-from ..core.amr import RAYS_ML_ITEM
 from ..core.chemistry_noneq import SPECIES, SpeciesState
 from ..core.state import FieldState
 from . import sfc
@@ -209,11 +208,13 @@ def read_snapshot_amr(path: str, state) -> tuple["object", int]:
 
 
 def write_snapshot_ml(path: str, state, itime: int,
-                      physical_box_size: float) -> None:
+                      physical_box_size: float,
+                      extra: dict | None = None) -> None:
     """Write an L-level MultiLevelState in depth-first cellArray leaf order
     (the SFC codec enumerates any depth), with the JAX package's keys: the
     depth `n_levels`, each leaf's `level`, the leaf streams in float32 and
-    the refinement maps `refined_{l}` as uint8."""
+    the refinement maps `refined_{l}` as uint8; `extra` (a noneq run's
+    species_extra of each level) is written beside them."""
     n = state.n
     refined_np = [r.detach().cpu().numpy().astype(np.uint8)
                   for r in state.refined]
@@ -233,6 +234,8 @@ def write_snapshot_ml(path: str, state, itime: int,
         data["velx"], data["vely"], data["velz"] = leaves[len(_FIELDS):]
     for ell, r in enumerate(refined_np):
         data[f"refined_{ell}"] = r
+    if extra:
+        data.update(extra)
     np.savez_compressed(path, **data)
 
 
@@ -296,54 +299,62 @@ def read_snapshot_ml(path: str, state) -> tuple["object", int]:
 write_snapshot_sparse = _not_ported("write_snapshot_sparse",
                                     "Block-sparse AMR")
 read_snapshot_sparse = _not_ported("read_snapshot_sparse", "Block-sparse AMR")
-# the species of nested grids, one set per level: the JAX package's
-# species_extra(prefix=f"species{ell}") and read_species(tuple of templates)
-species_extra_ml = _not_ported("species_extra_ml", RAYS_ML_ITEM)
-read_species_ml = _not_ported("read_species_ml", RAYS_ML_ITEM)
 
 
 # the non-equilibrium prognostic state: chemistry_noneq.SpeciesState's fields
 SPECIES_FIELDS = (*SPECIES, "eint")
 
 
-def species_extra(species) -> dict:
+def species_extra(species, prefix: str = "species0") -> dict:
     """Snapshot payload for a chemistry_noneq.SpeciesState, at the run's
     full precision and grid shape: the 9-species abundances and internal
     energy are PROGNOSTIC, so a restart continues them instead of
     re-deriving them from equilibrium (the reference's restart restores
     every prognostic field, equiSources.f90:1071-1167).  The keys are the
-    JAX package's, `species0_{field}`."""
+    JAX package's, `{prefix}_{field}`: a nested run calls it once a level
+    with prefix f"species{l}"."""
     host = torch.stack([getattr(species, k) for k in SPECIES_FIELDS])
     host = host.detach().cpu().numpy()
-    return {f"species0_{k}": host[i] for i, k in enumerate(SPECIES_FIELDS)}
+    return {f"{prefix}_{k}": host[i] for i, k in enumerate(SPECIES_FIELDS)}
 
 
 def read_species(path: str, template):
     """The 9-species state of a snapshot, in the template's dtype on its
     device, or None when the snapshot carries none (an equilibrium run
-    wrote it).  template: a chemistry_noneq.SpeciesState on the run's grid.
+    wrote it).  template: a chemistry_noneq.SpeciesState on the run's grid,
+    or a tuple of one a level for a nested run (keys `species{l}_*`),
+    which returns a tuple.
 
-    A snapshot with some of the species arrays, or with arrays of another
-    shape than the grid's, raises ValueError: the restart stops there, it
-    never carries on from a fresh equilibrium."""
-    dtype, device = template.HI.dtype, template.HI.device
-    shape = tuple(template.HI.shape)
-    keys = [f"species0_{k}" for k in SPECIES_FIELDS]
+    A snapshot with some of the species arrays, of fewer levels than the
+    template, or with arrays of another shape than the grid's, raises
+    ValueError: the restart stops there, it never carries on from a fresh
+    equilibrium."""
+    single = not isinstance(template, tuple)
+    temps = (template,) if single else template
+    keys = [[f"species{ell}_{k}" for k in SPECIES_FIELDS]
+            for ell in range(len(temps))]
+    every = [k for ks in keys for k in ks]
     with np.load(path) as f:
-        present = [k for k in keys if k in f]
+        present = [k for k in every if k in f]
         if not present:
             return None
-        if len(present) != len(keys):
-            missing = sorted(set(keys) - set(present))
+        if len(present) != len(every):
+            missing = sorted(set(every) - set(present))
             raise ValueError(f"{path}: species state incomplete, missing "
                              f"{missing}")
-        arrays = {k: f[key] for k, key in zip(SPECIES_FIELDS, keys)}
-    for k, a in arrays.items():
-        if a.shape != shape:
-            raise ValueError(f"{path}: species0_{k} has shape {a.shape}, "
-                             f"the grid is {shape}")
-    return SpeciesState(**{k: torch.as_tensor(a, dtype=dtype, device=device)
-                           for k, a in arrays.items()})
+        arrays = [{k: f[key] for k, key in zip(SPECIES_FIELDS, ks)}
+                  for ks in keys]
+    out = []
+    for ell, (t, arr) in enumerate(zip(temps, arrays)):
+        shape = tuple(t.HI.shape)
+        for k, a in arr.items():
+            if a.shape != shape:
+                raise ValueError(f"{path}: species{ell}_{k} has shape "
+                                 f"{a.shape}, the grid is {shape}")
+        out.append(SpeciesState(**{
+            k: torch.as_tensor(a, dtype=t.HI.dtype, device=t.HI.device)
+            for k, a in arr.items()}))
+    return out[0] if single else tuple(out)
 
 
 def latest_snapshot(directory: str = ".") -> str | None:

@@ -22,17 +22,21 @@ mode sweeps, chemistry on each level, sync_restriction) with device ms,
 host ms and, up to 32^3, the launches from two profiler windows; one
 zone's sweep traced at full width (its launches and device-busy share);
 up to 32^3 also a profiled step.
-amr L >= 2 (modes 9 and 6, no ranks, no noneq) runs the L-level step
-(core/step_amr.py::MultiLevelModel) with L levels on the galaxy with
-nested central refinement (ml_galaxy: level l refines the central
-1/2^(l+1) of each axis, the finer levels the copies of the coarser at the
-start, each in its own equilibrium), times its plan setup and
-validate_coupling_depth once, and reports its layers (opacity on every
-level and the L-level sweep where the mode sweeps, chemistry on each
-level, sync_restriction_multi) with device ms, host ms and, up to 16^3,
-the launches from two profiler windows; the first zone batch's sweep over
-its first 8 base slabs traced at full width (its launches and
-device-busy share); and the peak device memory.
+amr L >= 2 (modes 9, 6, 8 and 1, no ranks; noneq 1 in modes 9 and 8)
+runs the L-level step (core/step_amr.py::MultiLevelModel, make_noneq_step
+with noneq 1) with L levels on the galaxy with nested central refinement
+(ml_galaxy: level l refines the central 1/2^(l+1) of each axis, the finer
+levels the copies of the coarser at the start, each in its own
+equilibrium), in modes 8 and 1 with the 8 sources of amr_sources, times
+its plan setup and validate_coupling_depth once, and reports its layers
+(the tracer with its march steps, opacity on every level and the L-level
+sweep where the mode sweeps, chemistry on each level and
+sync_restriction_multi, or noneq each level's evolve_noneq and
+sync_noneq) with device ms, host ms and, up to 16^3, the launches from two
+profiler windows; the tracer in a profiler window (its device-busy share
+and events a march step); the first zone batch's sweep over its first 8
+base slabs traced at full width (its launches and device-busy share); and
+the peak device memory.
 Otherwise it runs one warm-up step, times each layer of a step with CUDA
 events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
 per march step; noneq: tracer, opacity, sweep, _assemble_photo_rates and
@@ -70,7 +74,7 @@ from .core import (
     chemistry_noneq,
     opacity,
     rays,
-    rays_amr,
+    rays_multilevel,
     sweep_amr,
     sweep_multilevel,
 )
@@ -108,10 +112,15 @@ def _event_ms(fn):
 # the spin kernels that open and close each profiler window (_traced):
 # 20 of ~1 ms each (2e6 clock cycles); 200 in the profiler's warm-up step
 _MARKERS, _MARKER_CYCLES, _WARMUP_MARKERS = 20, 2_000_000, 200
+# the host's idle in seconds between a window's closing markers and its
+# end: at least _TAIL_S, and twice the largest clock disagreement (least
+# launch-to-kernel delay) that an earlier window recorded, at most _TAIL_MAX_S
+_TAIL_S, _TAIL_MAX_S = 0.25, 2.0
 # one row per profiler window of _traced: (seconds since this module was
 # imported, opening and closing markers recorded, the least and the
 # largest delay in us from a launch on the host to its kernel's start on
-# the card, kernel launches on the host, kernels recorded)
+# the card, kernel launches on the host, kernels recorded, the tail's
+# idle s, 0 for a first take and 1 for its retake)
 WINDOWS: list[tuple] = []
 _T_IMPORT = time.perf_counter()
 
@@ -160,11 +169,51 @@ def _traced(fn):
     the window opened on an idle card or idled 0.2 s on the host first.
     A warm-up step of ~200 ms of spin kernels ahead of the recorded step
     (schedule warmup=1: recording on, its events dropped) kept every
-    kernel (ROADMAP, faults found in the port).  In the recorded step fn
-    runs between _MARKERS spin kernels of ~1 ms each on either side, and
-    its events are those between the markers; raises unless a marker was
-    recorded on each side.  Every window's markers and clocks go into
+    kernel.  Later in such a process the card's clock can also read
+    tens of ms late against the host's, and a window then drops its last
+    kernels, which seem to end after it closed; so the host idles
+    (_tail_s) between the closing markers and the window's end (ROADMAP,
+    faults found in the port).  In the recorded step fn runs between
+    _MARKERS spin kernels of ~1 ms each on either side, and its events
+    are those between the markers.  A window that lost the markers of
+    one side is taken once more with twice the warm-up and a tail of at
+    least 1 s and three times its largest delay; raises if that one
+    loses them too.  Every window's markers and clocks go into
     WINDOWS."""
+    for retake in (0, 1):
+        tail = (max(1.0, 3.0 * tail, 3e-6 * np.nan_to_num(clocks[1]))
+                if retake else _tail_s())
+        out, events, clocks = _trace_once(fn, tail, 1 + retake)
+        inner = [i for i, e in enumerate(events)
+                 if "spin_kernel" not in e[0]]
+        first = inner[0] if inner else len(events)
+        last = len(events) - 1 - inner[-1] if inner else 0
+        WINDOWS.append((time.perf_counter() - _T_IMPORT, first, last,
+                        *clocks, tail, retake))
+        if (inner and first > 0 and last > 0
+                and inner[-1] - inner[0] + 1 == len(inner)):
+            return out, events[inner[0]:inner[-1] + 1]
+    raise RuntimeError(
+        f"a profiler window, taken twice, recorded {first} of its "
+        f"{_MARKERS} opening markers and {last} of its {_MARKERS} closing "
+        f"ones around {len(inner)} device events; launch-to-kernel delays "
+        f"{clocks[0]:.1f} to {clocks[1]:.1f} us, {clocks[2]} launches, "
+        f"{clocks[3]} kernels, the tail's idle {tail:.3f} s")
+
+
+def _tail_s() -> float:
+    """The host's idle in s at the end of the next window: _TAIL_S, or
+    twice the largest |least launch-to-kernel delay| of the windows so
+    far, up to _TAIL_MAX_S."""
+    lags = [abs(w[3]) for w in WINDOWS if w[3] == w[3]]
+    return min(_TAIL_MAX_S, max(_TAIL_S, 2e-6 * max(lags, default=0.0)))
+
+
+def _trace_once(fn, tail: float, warmups: int):
+    """(fn(), the device events, the clocks) of one window (_traced):
+    `warmups` x _WARMUP_MARKERS spin kernels in the warm-up step, then
+    _MARKERS, fn, _MARKERS and `tail` s of host idle in the recorded
+    one."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         with profile(activities=[ProfilerActivity.CPU,
@@ -173,27 +222,16 @@ def _traced(fn):
                                        repeat=1),
                      on_trace_ready=lambda p: p.export_chrome_trace(
                          path)) as prof:
-            _markers(_WARMUP_MARKERS)
+            _markers(warmups * _WARMUP_MARKERS)
             prof.step()
             _markers()
             out = fn()
             torch.cuda.synchronize()
             _markers()
+            time.sleep(tail)
             prof.step()
         events, clocks = _trace_kernels(path)
-    inner = [i for i, e in enumerate(events) if "spin_kernel" not in e[0]]
-    first = inner[0] if inner else len(events)
-    last = len(events) - 1 - inner[-1] if inner else 0
-    WINDOWS.append((time.perf_counter() - _T_IMPORT, first, last, *clocks))
-    if not (inner and first > 0 and last > 0
-            and inner[-1] - inner[0] + 1 == len(inner)):
-        raise RuntimeError(
-            f"a profiler window recorded {first} of its {_MARKERS} opening "
-            f"markers and {last} of its {_MARKERS} closing ones around "
-            f"{len(inner)} device events; launch-to-kernel delays "
-            f"{clocks[0]:.1f} to {clocks[1]:.1f} us, {clocks[2]} launches, "
-            f"{clocks[3]} kernels")
-    return out, events[inner[0]:inner[-1] + 1]
+    return out, events, clocks
 
 
 def _layer(fn):
@@ -235,6 +273,18 @@ def _timed(fn):
     return out, start.elapsed_time(end), host_ms, None
 
 
+def _layer_rows(count):
+    """(rows, layer): layer(name, fn) runs fn as _layer (the names in
+    `count`) or _timed and puts its (device ms, host ms, launches) into
+    rows[name]."""
+    rows = {}
+
+    def layer(name, fn):
+        out, *rows[name] = (_layer if name in count else _timed)(fn)
+        return out
+    return rows, layer
+
+
 AMR_LAYERS = ("tracer", "opacity_base", "opacity_fine", "sweep",
               "chemistry_base", "chemistry_fine", "sync_restriction")
 
@@ -251,19 +301,14 @@ def amr_layers(amodel, state, count=AMR_LAYERS, stellar=None):
     one's 1.4e6 longer).  March steps: those of one trace, 0 without
     one."""
     rt = amodel.rt
-    rows = {}
-
-    def layer(name, fn):
-        out, *rows[name] = (_layer if name in count else _timed)(fn)
-        return out
-
+    rows, layer = _layer_rows(count)
     s0 = dataclasses.replace(state, base=state.base.zero_rates(),
                              fine=state.fine.zero_rates())
     march = 0
     if stellar is not None:
-        steps0 = rays_amr.MARCH_STEPS
+        steps0 = rays_multilevel.MARCH_STEPS
         s0, _ = layer("tracer", lambda s=s0: amodel.trace(s, stellar))
-        march = ((rays_amr.MARCH_STEPS - steps0)
+        march = ((rays_multilevel.MARCH_STEPS - steps0)
                  // (3 if "tracer" in count else 1))
     base, fine = s0.base, s0.fine
     if amodel.plan is not None:
@@ -321,42 +366,90 @@ def amr_zone_launches(amodel, state, slabs: int | None = None) -> int:
     return counts[0]
 
 
-def ml_layer_names(n_levels: int) -> tuple:
+def ml_layer_names(n_levels: int, noneq: bool = False) -> tuple:
+    """The layers of ml_layers (noneq False) or ml_noneq_layers, but the
+    tracer."""
+    if noneq:
+        return ("opacity", "sweep", *(f"evolve_noneq_{ell}"
+                                      for ell in range(n_levels)),
+                "sync_noneq")
     return ("opacity", "sweep", *(f"chemistry_{ell}"
                                   for ell in range(n_levels)),
             "sync_restriction_multi")
 
 
-def ml_layers(amodel, state, count=()):
-    """One L-level step from `state`, layer by layer, as MultiLevelModel's
-    step runs it: (the state after the step, {layer: (device ms, host ms,
-    launches)}) for opacity on every level and the L-level sweep (where the
-    mode sweeps), chemistry on each level (chemistry_0, chemistry_1, ...)
-    and sync_restriction_multi.  The layers named in `count` run three
-    times and count their launches (_layer); the others run once, launches
-    None."""
+def _ml_traced_and_swept(amodel, state, layer, stellar, rates_mode):
+    """The layers that an L-level step runs before its chemistry, from
+    `state`'s zero rates: the tracer (with a StellarContext), opacity on
+    every level and the sweep (where the mode sweeps).  Returns (the state
+    with the deposits and Jmean, the tracer's per-level rate fields or
+    None, its march steps)."""
     rt = amodel.rt
-    rows = {}
-
-    def layer(name, fn):
-        out, *rows[name] = (_layer if name in count else _timed)(fn)
-        return out
-
     s0 = amodel._zero_rates(state)
-    levels = s0.levels
+    rfs, march = None, 0
+    if stellar is not None:
+        steps0 = rays_multilevel.MARCH_STEPS
+        s0, rfs, _ = layer("tracer", lambda s=s0: amodel.trace(s, stellar,
+                                                               rates_mode))
+        march = rays_multilevel.MARCH_STEPS - steps0
     if amodel.plan is not None:
         kappas = layer("opacity", lambda: amodel._kappas(s0))
         js = layer("sweep", lambda: sweep_multilevel.diffuse_sweep_multilevel(
             kappas, list(s0.refined), amodel.plan, rt.uvb, rt.geom.cell_size,
             amodel.n_coupling_iters))
-        levels = [dataclasses.replace(lv, Jmean=j)
-                  for lv, j in zip(levels, js)]
+        s0 = amr.MultiLevelState(
+            levels=tuple(dataclasses.replace(lv, Jmean=j)
+                         for lv, j in zip(s0.levels, js)),
+            refined=s0.refined)
+    return s0, rfs, march
+
+
+def ml_layers(amodel, state, count=(), stellar=None):
+    """One L-level step from `state`, layer by layer, as MultiLevelModel's
+    step runs it: (the state after the step, {layer: (device ms, host ms,
+    launches)}, the tracer's march steps) for the tracer (with a
+    StellarContext), opacity on every level and the L-level sweep (where
+    the mode sweeps), chemistry on each level (chemistry_0, chemistry_1,
+    ...) and sync_restriction_multi.  The layers named in `count` run
+    three times and count their launches (_layer); the others run once,
+    launches None.  March steps: those of one trace, 0 without one."""
+    rows, layer = _layer_rows(count)
+    s0, _, march = _ml_traced_and_swept(amodel, state, layer, stellar,
+                                        "auto")
     levels = [layer(f"chemistry_{ell}", lambda lv=lv, ell=ell:
                     amodel.chemistry(lv, amodel.level_geom(ell)))
-              for ell, lv in enumerate(levels)]
+              for ell, lv in enumerate(s0.levels)]
     s2 = layer("sync_restriction_multi", lambda: amr.sync_restriction_multi(
         amr.MultiLevelState(levels=tuple(levels), refined=s0.refined)))
-    return s2, {k: tuple(v) for k, v in rows.items()}
+    if "tracer" in count:
+        march //= 3
+    return s2, {k: tuple(v) for k, v in rows.items()}, march
+
+
+def ml_noneq_layers(amodel, state, species, count=(), stellar=None,
+                    dt: float = MYR, n_substeps: int = 200):
+    """One L-level non-equilibrium step (temperature held) from `state`
+    and `species`, layer by layer, as MultiLevelModel.make_noneq_step runs
+    it: (the state and species after the step, {layer: (device ms, host
+    ms, launches)}, the tracer's march steps) for the tracer (with a
+    StellarContext built noneq=True, in its quadrature_noneq mode),
+    opacity and the sweep (where the mode sweeps), each level's photo
+    rates and evolve_noneq (evolve_noneq_0, ...) and sync_noneq; `count`
+    as ml_layers takes it."""
+    rows, layer = _layer_rows(count)
+    s0, rfs, march = _ml_traced_and_swept(amodel, state, layer, stellar,
+                                          "quadrature_noneq")
+    tables = amodel.noneq_tables()
+    levels, new_species = zip(*(
+        layer(f"evolve_noneq_{ell}", lambda lv=lv, spc=spc, ell=ell:
+              amodel.evolve_level(ell, lv, spc, rfs, dt, tables,
+                                  n_substeps))
+        for ell, (lv, spc) in enumerate(zip(s0.levels, species))))
+    s2, sp2 = layer("sync_noneq", lambda: amodel.sync_noneq(
+        amr.MultiLevelState(levels=levels, refined=s0.refined), new_species))
+    if "tracer" in count:
+        march //= 3
+    return s2, sp2, {k: tuple(v) for k, v in rows.items()}, march
 
 
 def ml_batch_window(amodel, state, slabs: int):
@@ -506,17 +599,18 @@ def amr_galaxy(model, box_kpc: float = 300.0, device="cuda"):
         fine=model.initialize_equilibrium(state.fine)))
 
 
-def amr_sources(geom, device="cuda"):
-    """The point sources of the two-level profile, in float32: 8 from
+def amr_sources(geom, device="cuda", noneq: bool = False):
+    """The point sources of the nested profiles, in float32: 8 from
     bench_sources (seed 0, the central [0.3, 0.7]^3), blackbodies of
-    q = 1e51 at 10 Myr, as the uniform mode-8 profile's."""
+    q = 1e51 at 10 Myr, as the uniform mode-8 profile's (noneq: with the
+    k27..k31 weights)."""
     from .bench import bench_sources
     from .core.step import StellarContext
     from .tables import stellar
     return StellarContext.build(
         stellar.blackbody_population(q_ionizing=1.0e51),
         bench_sources(geom.nx, 8), geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
-        dtype=torch.float32, device=device)
+        noneq=noneq, dtype=torch.float32, device=device)
 
 
 def ml_galaxy(model, n_levels: int, box_kpc: float = 300.0,
@@ -541,7 +635,8 @@ def ml_galaxy(model, n_levels: int, box_kpc: float = 300.0,
         refined=state.refined))
 
 
-def main_ml(n: int, level: int, mode: int, n_levels: int, smi: str) -> None:
+def main_ml(n: int, level: int, mode: int, n_levels: int, noneq: bool,
+            smi: str) -> None:
     cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
                     reionization_model=10, self_shielding_threshold_kpc=0.1)
     model = RTModel.setup(cfg, GridGeometry(n, n, n, 300.0 * KPC),
@@ -551,32 +646,62 @@ def main_ml(n: int, level: int, mode: int, n_levels: int, smi: str) -> None:
     plan_s = time.perf_counter() - t0
     state = ml_galaxy(model, n_levels)
     parents = [int(r.sum()) for r in state.refined]
+    ctx = (amr_sources(model.geom, noneq=noneq)
+           if cfg.run_stellar_transfer else None)
     if amodel.plan is not None:
         (depth, val_ms, val_host, _) = _timed(
             lambda: amodel.validate_coupling_depth(state))
         print(f"validate_coupling_depth: depth {depth}, {val_ms:.3f} ms "
               f"(host {val_host:.3f} ms); card {smi}")
-    step = amodel.make_step()
     nf0 = amodel.neutral_fraction(state)
-    state = step(state)
+    names = ml_layer_names(n_levels, noneq)
+    if ctx is not None:
+        names = ("tracer", *names)
+    count = names if n <= 16 else ()
+    if noneq:
+        species = tuple(chemistry_noneq.species_from_field_state(lv)
+                        for lv in state.levels)
+        state, species = amodel.make_noneq_step(MYR, ctx)(state,
+                                                          species)[:2]
+    elif ctx is not None:
+        state = amodel.make_step(ctx)(state)[0]
+    else:
+        state = amodel.make_step()(state)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, rows = ml_layers(amodel, state,
-                            count=ml_layer_names(n_levels) if n <= 16
-                            else ())
+    if noneq:
+        state, species, rows, march = ml_noneq_layers(
+            amodel, state, species, count=count, stellar=ctx)
+    else:
+        state, rows, march = ml_layers(amodel, state, count=count,
+                                       stellar=ctx)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    print(f"{n_levels}-level mode {mode} at {n}^3 (refined parents per "
-          f"level {parents}) x {cfg.n_directions} dirs f32, coupling depth "
-          f"{amodel.n_coupling_iters}: plan setup {plan_s:.3f} s (host); "
-          f"one step {step_s:.3f} s, layers (device ms / host ms / "
-          "launches): " + ", ".join(
+    print(f"{n_levels}-level mode {mode}{' noneq' if noneq else ''} at "
+          f"{n}^3 (refined parents per level {parents}) x "
+          f"{cfg.n_directions} dirs f32, coupling depth "
+          f"{amodel.n_coupling_iters}"
+          + (f", {ctx.sources.n_sources} sources (the tracer {march} march "
+             f"steps)" if ctx is not None else "")
+          + f": plan setup {plan_s:.3f} s (host); one step {step_s:.3f} s, "
+          "layers (device ms / host ms / launches): " + ", ".join(
               f"{k} {ms:.3f} / {host:.3f} / {k_n}"
               for k, (ms, host, k_n) in rows.items())
           + f"; neutral fraction {nf0:.7f} -> "
           f"{amodel.neutral_fraction(state):.7f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; card {smi}")
+    if ctx is not None and count:
+        print(f"the tracer's launches a march step (two agreeing windows): "
+              f"{rows['tracer'][2] / march:.1f}; card {smi}")
+    if ctx is not None:
+        wall, busy, events, _ = profiled(
+            lambda s: amodel.trace(amodel._zero_rates(s), ctx)[0], [state],
+            steps=1)
+        print(f"the tracer in a profiler window: wall {wall * 1e3:.3f} ms, "
+              f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), "
+              f"{events:.0f} device events ({events / max(march, 1):.1f} a "
+              f"march step); card {smi}")
     if amodel.plan is not None:
         slabs = min(8, n)
         wall, busy, launches, zones = ml_batch_window(amodel, state, slabs)
@@ -642,11 +767,15 @@ def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
     if nested >= 2:
-        if ranks or noneq or mode not in (MODE_UVB_TRANSFER_ONLY,
-                                          MODE_NO_STARS_THIN_UVB):
-            raise SystemExit("the L-level profile runs modes 9 and 6 on one "
-                             "rank with equilibrium chemistry")
-        main_ml(n, level, mode, nested, smi)
+        if ranks or mode not in (
+                MODE_UVB_TRANSFER_ONLY, MODE_NO_STARS_THIN_UVB,
+                MODE_BOTH_STELLAR_UVB_TRANSFER,
+                MODE_STELLAR_TRANSFER_THIN_UVB) or (noneq and mode not in (
+                    MODE_UVB_TRANSFER_ONLY, MODE_BOTH_STELLAR_UVB_TRANSFER)):
+            raise SystemExit("the L-level profile runs modes 9, 6, 8 and 1 "
+                             "on one rank, the noneq chemistry in modes 9 "
+                             "and 8")
+        main_ml(n, level, mode, nested, bool(noneq), smi)
         return
     if nested:
         if ranks or noneq or mode not in (

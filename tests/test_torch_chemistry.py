@@ -15,6 +15,18 @@ from radiativetransfer_tpu_torch.core import chemistry as tchem
 from radiativetransfer_tpu_torch.core.state import FieldState, GridGeometry
 from radiativetransfer_tpu_torch.core.step import RTModel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the port's eager ops are small CPU ops, on
+    which more threads only spin beside the other test workers (module-
+    scoped, so that the module's fixtures run pinned too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # f64: the same ops in the same order, up to the rounding of fused or
 # reordered sums; f32: the same, at single precision
 RTOL = {torch.float64: 1e-10, torch.float32: 1e-5}

@@ -24,6 +24,18 @@ from radiativetransfer_tpu import cli as jcli
 from radiativetransfer_tpu_torch import cli as tcli
 from radiativetransfer_tpu_torch.io import grid_io
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the port's eager ops are small CPU ops, on
+    which more threads only spin beside the other test workers (module-
+    scoped, so that the module's fixtures run pinned too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 16
 # the port's common flags: the CPU, and the JAX CLI's test sizes
 _LEVEL = ("--angular-level", "1")
@@ -290,8 +302,8 @@ def _h4_grid(directory):
     (("--num-processes", "2"), 9, None, "Distribution"),
     (("--mesh-shape", "2,2"), 9, None, "Distribution"),
     (("--mesh-shape", "4"), 8, None, "Distribution"),
-    (("--chemistry", "noneq"), 8, _two_level_grid,
-     "ROADMAP, L-level dense AMR"),
+    (("--chemistry", "noneq", "--mesh-shape", "2"), 8, _two_level_grid,
+     "a mesh on a two-level AMR grid"),
     ((), 9, _h4_grid, "Remaining I/O"),
 ])
 def test_not_ported_raise_before_any_step(tmp_path, flags, mode, edit,

@@ -253,10 +253,9 @@ def test_three_levels_under_amr_depth_2_run_two_level(tmp_path):
 
 
 @pytest.mark.parametrize("flags,mode,core,match", [
-    (("--chemistry", "noneq"), 9, False,
-     r"--chemistry noneq on a two-level AMR grid \(the JAX CLI runs it "
-     r"through MultiLevelModel\) is not ported yet: ROADMAP, L-level dense "
-     r"AMR PR b \(core/rays_multilevel\.py\)$"),
+    (("--chemistry", "noneq", "--mesh-shape", "4"), 9, False,
+     r"a mesh on a two-level AMR grid \(shard_amr_state\) is not ported "
+     r"yet: ROADMAP, Distribution$"),
     (("--mesh-shape", "4"), 9, False, r"a mesh on a two-level AMR grid "
      r"\(shard_amr_state\) is not ported yet: ROADMAP, Distribution$"),
     (("--sweep-strategy", "zones"), 6, False, r"a mesh on a two-level AMR "

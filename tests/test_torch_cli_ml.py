@@ -11,7 +11,18 @@ relative and the two iterations' snapshots (cellArray leaf streams with
 within 1e-10 of each array's peak; a snapshot of either package restarts
 the other within 1e-9 (float32 species; under --coupling-depth, the depth
 the writer validated); mode 6 runs on both; the diagnostic modes 2 and 7 print the
-same lines.  The storage choice (dense, or block-sparse above 4e9 bytes)
+same lines.  Modes 8 and 1 (maxPixelLevel 3, the galaxy's 12 sources):
+logs within 1e-10, the `fesc=` lines and `weight` files identical,
+cosmicSpectrum.npz within 1e-9.  `--chemistry noneq` on the L-level grid
+and on the two-level one (the galaxy without its core; MultiLevelModel(2)
+at the default coupling depth, no `coupling depth:` line): mode 9 (2
+iterations) and mode 8 (1 iteration, the 12 sources at maxPixelLevel 3:
+the `fesc=` lines identical, cosmicSpectrum.npz within 1e-9), logs
+within 1e-10, the snapshots (with each level's species,
+`species{l}_*`) key for key within 1e-10 of each array's peak; the port
+restarts either package's noneq snapshot, and the JAX CLI the port's
+L-level one, within 1e-10 (the JAX CLI cannot restart a two-level noneq
+run: ROADMAP section 3).  The storage choice (dense, or block-sparse above 4e9 bytes)
 follows the JAX CLI's formula, and every refusal on an L-level grid
 raises before the grid is ingested, naming its ROADMAP item.  The JAX
 CLI's sweeps run compiled (its coupling-depth validation runs them op by
@@ -54,11 +65,14 @@ def _one_thread():
 @pytest.fixture(scope="module", autouse=True)
 def _jax_sweeps_compiled():
     """The JAX package's L-level sweep compiled once per coupling depth
-    and plan (the same code, run as XLA programs)."""
+    and plan (the same code, run as XLA programs), shared by the runs'
+    equal plans: build_ml_sweep_plan's are a function of the directions,
+    the base's width and the depth."""
     sweep, cache = jsm.diffuse_sweep_multilevel, {}
 
     def compiled(kappas, refined, plan, uvb, cell_size, n_coupling_iters=4):
-        key = (id(plan), n_coupling_iters)
+        key = (plan.n_directions, plan.nslab, plan.n_levels,
+               n_coupling_iters)
         if key not in cache:
             cache[key] = (plan, jax.jit(lambda ks, rs, u, c: sweep(
                 ks, rs, plan, u, c, n_coupling_iters)))
@@ -68,10 +82,10 @@ def _jax_sweeps_compiled():
         yield
 
 
-def _inputs(directory, n=N, **kw) -> str:
+def _inputs(directory, n=N, refine_core=True, **kw) -> str:
     os.makedirs(directory, exist_ok=True)
     return chip_smoke.write_cli_inputs(str(directory), n, refine_center=True,
-                                       refine_core=True, **kw)
+                                       refine_core=refine_core, **kw)
 
 
 def _run(pkg: str, config: str, outdir, *flags) -> str:
@@ -206,40 +220,33 @@ def test_storage_choice_follows_the_jax_formula():
     def args(**kw):
         return tcli._parser().parse_args(["cfg", *kw.pop("flags", [])])
 
-    cfg = types.SimpleNamespace(run_stellar_transfer=False, mode=9)
     # 80^3 + 160^3 + 320^3 cells of 17 fields: 2.54e9 bytes in f32, under
     # the limit, 5.08e9 in f64, over it
     deep = levels(80 ** 3, 8, 8)
-    assert tcli._nesting(deep, args(), cfg, None, False) == "ml"
+    assert tcli._nesting(deep, args(), None) == "ml"
     with pytest.raises(NotImplementedError, match=r"--amr-storage auto, "
                        r"dense 5\.1 GB\) is not ported yet: ROADMAP, "
                        r"Block-sparse AMR$"):
-        tcli._nesting(deep, args(flags=["--x64"]), cfg, None, False)
+        tcli._nesting(deep, args(flags=["--x64"]), None)
     assert tcli._nesting(deep, args(flags=["--x64", "--amr-storage",
-                                           "dense"]), cfg, None,
-                         False) == "ml"
+                                           "dense"]), None) == "ml"
     with pytest.raises(NotImplementedError, match="Block-sparse AMR$"):
         tcli._nesting(levels(8, 8, 8), args(flags=["--amr-storage",
-                                                   "sparse"]), cfg, None,
-                      False)
-    assert tcli._nesting(deep, args(flags=["--amr-depth", "2"]), cfg, None,
-                         False) == "amr"
-    assert tcli._nesting(levels(8, 8), args(), cfg, None, False) == "amr"
-    assert tcli._nesting(levels(8, 0, 0), args(), cfg, None,
-                         False) == "uniform"
+                                                   "sparse"]), None)
+    assert tcli._nesting(deep, args(flags=["--amr-depth", "2"]),
+                         None) == "amr"
+    assert tcli._nesting(levels(8, 8), args(), None) == "amr"
+    assert tcli._nesting(levels(8, 0, 0), args(), None) == "uniform"
 
 
-_ITEM = r"ROADMAP, L-level dense AMR PR b \(core/rays_multilevel\.py\)$"
+_MESH = (r"a mesh on an L-level AMR grid \(shard_multilevel_state\) is not "
+         r"ported yet: ROADMAP, Distribution$")
 
 
 @pytest.mark.parametrize("flags,mode,match", [
-    ((), 8, r"point sources \(mode 8\) on an L-level AMR grid is not "
-     r"ported yet: " + _ITEM),
-    ((), 1, r"point sources \(mode 1\) on an L-level AMR grid is not "
-     r"ported yet: " + _ITEM),
-    (("--chemistry", "noneq"), 9, r"--chemistry noneq on an L-level AMR "
-     r"grid \(the JAX CLI runs it through MultiLevelModel\) is not ported "
-     r"yet: " + _ITEM),
+    (("--mesh-shape", "2"), 8, _MESH),
+    (("--mesh-shape", "2"), 1, _MESH),
+    (("--chemistry", "noneq", "--mesh-shape", "2"), 9, _MESH),
     (("--amr-storage", "sparse"), 9, r"block-sparse storage .* is not "
      r"ported yet: ROADMAP, Block-sparse AMR$"),
     (("--mesh-shape", "4"), 9, r"a mesh on an L-level AMR grid "
@@ -263,3 +270,138 @@ def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
     with pytest.raises(NotImplementedError, match=match):
         _run("torch", config, tmp_path, "--iters", "1", *flags)
     assert not (tmp_path / "time").exists()
+
+
+_STARS = ("--x64", "--max-pixel-level", "3")
+
+
+@pytest.fixture(scope="module")
+def point_runs(tmp_path_factory):
+    """Each package's mode-8 and mode-1 runs on the L-level grid, 2
+    iterations: {(pkg, mode): (stdout, dir)}."""
+    root = tmp_path_factory.mktemp("ml_cli_stars")
+    out = {}
+    for mode in (8, 1):
+        for pkg in ("torch", "jax"):
+            d = root / f"{pkg}{mode}"
+            out[pkg, mode] = (_run(pkg, _inputs(d, mode=mode), d, "--iters",
+                                   "2", *_STARS), d)
+    return out
+
+
+@pytest.mark.parametrize("mode", [8, 1])
+def test_point_source_modes_x64_match_jax(point_runs, mode):
+    (out_t, dt), (out_j, dj) = point_runs["torch", mode], point_runs["jax",
+                                                                     mode]
+    _assert_logs_close(_time_log(dt), _time_log(dj))
+    assert list(_time_log(dt)) == [1, 2]
+    assert _GRID in out_t.splitlines()
+    assert "nStars/specificAge/non-degenerate = 12 12 12" in out_t
+    assert (dt / "weight").read_bytes() == (dj / "weight").read_bytes()
+    fesc = [re.findall(r"fesc=(\S+)", o) for o in (out_t, out_j)]
+    assert fesc[0] == fesc[1] and len(fesc[0]) == 2
+    with np.load(dt / "cosmicSpectrum.npz") as ft, \
+            np.load(dj / "cosmicSpectrum.npz") as fj:
+        np.testing.assert_array_equal(ft["freq"], fj["freq"])
+        peak = float(np.abs(fj["spectrum"]).max())
+        assert peak > 0.0
+        np.testing.assert_allclose(ft["spectrum"], fj["spectrum"], rtol=0,
+                                   atol=1e-9 * peak)
+    _assert_snapshots_close(dt / "cellArray0002.npz",
+                            dj / "cellArray0002.npz")
+
+
+_NONEQ = ("--x64", "--chemistry", "noneq")
+# the noneq runs: (grid, mode) -> (the grid refines its core, iterations,
+# extra flags); mode 8 with the galaxy's 12 sources, one iteration (the
+# restarts start from mode 9's itime-1 snapshots)
+_NONEQ_RUNS = {("ml", 9): (True, 2, ()), ("two", 9): (False, 2, ()),
+               ("ml", 8): (True, 1, _STARS[1:]),
+               ("two", 8): (False, 1, _STARS[1:])}
+
+
+@pytest.fixture(scope="module")
+def noneq_runs(tmp_path_factory):
+    """Each package's --chemistry noneq runs in --x64 (_NONEQ_RUNS):
+    {(pkg, grid, mode): (stdout, dir)}."""
+    root = tmp_path_factory.mktemp("ml_cli_noneq")
+    out = {}
+    for (grid, mode), (core, iters, flags) in _NONEQ_RUNS.items():
+        for pkg in ("torch", "jax"):
+            d = root / f"{pkg}_{grid}{mode}"
+            out[pkg, grid, mode] = (_run(
+                pkg, _inputs(d, mode=mode, refine_core=core), d, "--iters",
+                str(iters), *_NONEQ, *flags), d)
+    return out
+
+
+def _assert_noneq_snapshots_close(path_t, path_j, n_levels):
+    with np.load(path_t) as ft, np.load(path_j) as fj:
+        assert list(ft.keys()) == list(fj.keys())
+        assert int(ft["n_levels"]) == n_levels
+        for ell in range(n_levels):
+            assert f"species{ell}_H2I" in ft, ell
+            assert ft[f"species{ell}_HI"].shape == ((N * 2 ** ell,) * 3)
+            assert ft[f"species{ell}_HI"].dtype == np.float64
+        for k in fj:
+            a, b = ft[k], fj[k]
+            assert a.dtype == b.dtype, k
+            if a.dtype.kind == "f" and a.ndim:
+                peak = float(np.abs(b).max())
+                assert np.abs(a - b).max() <= 1e-10 * peak, k
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+@pytest.mark.parametrize("grid,mode", list(_NONEQ_RUNS))
+def test_noneq_x64_matches_jax(noneq_runs, grid, mode):
+    (out_t, dt), (out_j, dj) = (noneq_runs["torch", grid, mode],
+                                noneq_runs["jax", grid, mode])
+    iters = _NONEQ_RUNS[grid, mode][1]
+    _assert_logs_close(_time_log(dt), _time_log(dj))
+    assert list(_time_log(dt)) == list(range(1, iters + 1))
+    n_levels = 3 if grid == "ml" else 2
+    assert (f"non-equilibrium chemistry ({n_levels} levels): dt = 1.0 Myr, "
+            f"evolve_energy = False") in out_t.splitlines()
+    if grid == "two":
+        assert "grid: 8^3 + refined level (64 parents)" in out_t.splitlines()
+        assert "coupling depth" not in out_t + out_j
+    else:
+        assert _GRID in out_t.splitlines()
+    if mode == 8:
+        assert ("nStars/specificAge/non-degenerate = 12 12 12"
+                in out_t.splitlines())
+        fesc = [re.findall(r"fesc=(\S+)", o) for o in (out_t, out_j)]
+        assert fesc[0] == fesc[1] and len(fesc[0]) == iters
+        with np.load(dt / "cosmicSpectrum.npz") as ft, \
+                np.load(dj / "cosmicSpectrum.npz") as fj:
+            peak = float(np.abs(fj["spectrum"]).max())
+            assert peak > 0.0
+            np.testing.assert_allclose(ft["spectrum"], fj["spectrum"],
+                                       rtol=0, atol=1e-9 * peak)
+    for it in range(1, iters + 1):
+        name = f"cellArray{it:04d}.npz"
+        _assert_noneq_snapshots_close(dt / name, dj / name, n_levels)
+
+
+@pytest.mark.parametrize("grid,writer,reader", [
+    ("ml", "jax", "torch"), ("ml", "torch", "jax"), ("two", "jax", "torch")])
+def test_noneq_restart_across_packages(noneq_runs, tmp_path, grid, writer,
+                                       reader):
+    """The reader restarts the writer's itime-1 noneq snapshot, fields and
+    species (at the writer's coupling depth on the L-level grid): its itime
+    2 is the writer's within 1e-10."""
+    out_w, src = noneq_runs[writer, grid, 9]
+    d = tmp_path / reader
+    config = _inputs(d, restart=1, refine_core=grid == "ml")
+    shutil.copy(src / "cellArray0001.npz", d)
+    flags = ()
+    if grid == "ml":
+        flags = ("--coupling-depth",
+                 re.search(r"coupling depth: (\d+)", out_w).group(1))
+    out = _run(reader, config, d, "--iters", "1", *_NONEQ, *flags)
+    assert f"restarted from {d}/cellArray0001.npz at itime=1" in out
+    assert "restored 9-species noneq state from snapshot" in out
+    log = _time_log(d)
+    assert list(log) == [2]
+    _assert_logs_close(log, {2: _time_log(src)[2]})

@@ -135,6 +135,7 @@ _PORT_MODULES = (
     "radiativetransfer_tpu_torch.core.expansion",
     "radiativetransfer_tpu_torch.core.probes_cuda",
     "radiativetransfer_tpu_torch.core.rays",
+    "radiativetransfer_tpu_torch.core.rays_multilevel",
     "radiativetransfer_tpu_torch.core.scatter_cuda",
     "radiativetransfer_tpu_torch.core.step",
     "radiativetransfer_tpu_torch.core.step_amr",
@@ -196,3 +197,48 @@ def test_parse_inline_input_parameters():
         jconfig.parse_legacy_input_parameters(_INPUT_PARAMETERS))
     assert [f.name for f in dataclasses.fields(tconfig.RunConfig)] == \
         [f.name for f in dataclasses.fields(jconfig.RunConfig)]
+
+
+@pytest.mark.parametrize("takes", ["kept", "retaken", "lost"])
+def test_profiler_window_retake(monkeypatch, takes):
+    """profile_step._traced keeps a window that recorded markers on both
+    sides, takes once more (twice the warm-up, a tail of at least 1 s) one
+    that lost them, and raises if the retake loses them too; the tail
+    grows with the clocks' disagreement of earlier windows."""
+    from radiativetransfer_tpu_torch import profile_step
+    spin, kernel = ("spin_kernel", 0.0, 1.0), ("k", 1.0, 2.0)
+    whole = ([spin] * 20 + [kernel] * 3 + [spin] * 20,
+             (5.0, 90.0, 43, 43))
+    cut = ([spin] * 27 + [kernel] * 2, (29_000.0, 89_900.0, 43, 29))
+    takes_ = {"kept": [whole], "retaken": [cut, whole],
+              "lost": [cut, cut]}[takes]
+    calls = []
+
+    def trace_once(fn, tail, warmups):
+        calls.append((tail, warmups))
+        events, clocks = takes_[len(calls) - 1]
+        return fn(), events, clocks
+
+    monkeypatch.setattr(profile_step, "_trace_once", trace_once)
+    monkeypatch.setattr(profile_step, "WINDOWS", [])
+    if takes == "lost":
+        with pytest.raises(RuntimeError, match="taken twice"):
+            profile_step._traced(lambda: 7)
+    else:
+        out, events = profile_step._traced(lambda: 7)
+        assert out == 7 and events == [kernel] * 3
+    assert calls[0] == (profile_step._TAIL_S, 1)
+    assert len(calls) == len(takes_)
+    if len(calls) == 2:
+        assert calls[1] == (1.0, 2)
+    rows = profile_step.WINDOWS
+    assert [w[-1] for w in rows] == list(range(len(takes_)))
+    assert (rows[0][1], rows[0][2]) == ((20, 20) if takes == "kept"
+                                        else (27, 0))
+    # the next window's tail: twice the largest |least delay| so far,
+    # from _TAIL_S up to _TAIL_MAX_S
+    assert profile_step._tail_s() == profile_step._TAIL_S
+    rows.append((0.0, 20, 20, -400_000.0, 0.0, 1, 1, 0.25, 0))
+    assert profile_step._tail_s() == pytest.approx(0.8)
+    rows.append((0.0, 20, 20, 5e6, 5e6, 1, 1, 0.8, 0))
+    assert profile_step._tail_s() == profile_step._TAIL_MAX_S

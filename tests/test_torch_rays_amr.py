@@ -1,6 +1,7 @@
-"""PyTorch port, the two-level AMR tracer (core/rays_amr.py) against the
-JAX package's trace_point_sources_amr on the same NumPy inputs, and the
-JAX package's degenerate limits of tests/test_rays_amr.py on the port.
+"""PyTorch port, the two-level AMR tracer (core/rays_amr.py, the L-level
+march at L = 2) against the JAX package's trace_point_sources_amr on the
+same NumPy inputs, and the JAX package's degenerate limits of
+tests/test_rays_amr.py on the port.
 
 Tolerances: float64 traces agree to 1e-9 of each field's largest value
 at n = 8, where the fine grid (n2 = 16) keeps the JAX package's float32
@@ -31,6 +32,7 @@ from radiativetransfer_tpu_torch.constants import (
 from radiativetransfer_tpu_torch.core import amr as tamr
 from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.core import rays_amr as trays_amr
+from radiativetransfer_tpu_torch.core import rays_multilevel as trml
 from radiativetransfer_tpu_torch.core import state as tstate
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
 from test_torch_rays import _tables
@@ -294,7 +296,8 @@ def test_refinement_boundary_handoff(bb_tables):
 
 def test_face_exact_f32_rays_terminate():
     """The JAX package's tests/test_rays_multilevel.py::
-    TestCornerHitTermination for the two-level march: float32 rays parked
+    TestCornerHitTermination for the march at L = 2 (the one
+    core/rays_amr.py runs): float32 rays parked
     exactly on a fine cell's corner (two coordinates on faces, the state
     every crossing's snap produces) with negative components on those
     axes must march on and leave the box, not freeze in the zero-step
@@ -310,11 +313,15 @@ def test_face_exact_f32_rays_terminate():
     state = _amr(tstate.make_state(nh * MH / PSI, np.full(nh.shape, 1e4), nh,
                                    dtype=torch.float64, device="cpu"),
                  refined)
+    # the two-level layout of the L-level march (core/rays_amr.py calls
+    # it at L = 2): both levels' packed rows concatenated
     fields = {
-        level: trays._pack_fields(*(x.to(f32) for x in (
+        "lv_all": torch.cat([trays._pack_fields(*(x.reshape(-1).to(f32)
+                                                  for x in (
             fs.HI, fs.HeI, fs.HeII, fs.nh, fs.abun2)))
-        for level, fs in (("base", state.base), ("fine", state.fine))}
-    fields["refined"] = state.refined.reshape(-1)
+            for fs in (state.base, state.fine)]),
+        "leaf_level": trml.leaf_level_volume((state.refined,), n, 2),
+        "offsets": torch.tensor([0, n ** 3], dtype=torch.int64)}
     R = 8
     pos = np.tile(np.array([[0.2764418, 45.0 / n2, 45.0 / n2]], np.float32),
                   (R, 1))                    # y and z exactly on faces
@@ -337,16 +344,15 @@ def test_face_exact_f32_rays_terminate():
                                torch.tensor(quad_w[None] / geom.cell_volume,
                                             dtype=f32)))
 
-    def zeros(k):
-        return trays.RateFields(*[torch.zeros(k, dtype=f32)
-                                  for _ in range(6)])
+    rf = trays.RateFields(*[torch.zeros(n ** 3 + n2 ** 3, dtype=f32)
+                            for _ in range(6)])
     cap = 6 * n2
-    steps0 = trays_amr.MARCH_STEPS
-    out, _ = trays_amr._march_phase_amr(
-        ray, fields, geom, rate_ctx, trays.RayDiagnostics.zeros(1, f32, "cpu"),
-        zeros(n ** 3), zeros(n2 ** 3), 1e9, True, NO_DUST, cap,
-        torch.zeros(R, dtype=torch.int64), tau_kill=30.0, rel_kill=1e-10,
-        scale=1.0)
+    steps0 = trml.MARCH_STEPS
+    out, _ = trml._march_phase_ml(
+        ray, fields, geom, 2, rate_ctx,
+        trays.RayDiagnostics.zeros(1, f32, "cpu"), rf, 1e9, True, NO_DUST,
+        cap, torch.zeros(R, dtype=torch.int64), tau_kill=30.0,
+        rel_kill=1e-10, scale=1.0)
     # every ray left the box (or died) well before the cap
     assert not bool(out.alive.any())
-    assert trays_amr.MARCH_STEPS - steps0 < cap // 2
+    assert trml.MARCH_STEPS - steps0 < cap // 2

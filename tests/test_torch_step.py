@@ -27,6 +27,18 @@ from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the port's eager ops are small CPU ops, on
+    which more threads only spin beside the other test workers (module-
+    scoped, so that the module's fixtures run pinned too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # neutral fractions of one f32 step on the 24^3 anchor setup, as the JAX
 # package's 8-device dry run records them (MULTICHIP_r05.json): mode 9, and
 # mode 8 with 11 sources

@@ -5,12 +5,17 @@ MultiLevelModel in modes 9 and 6 on 3 levels at n = 4, angular level 1,
 float64: 2 steps from the same state (a lognormal base, the refined
 levels' densities drawn on their own, nested balanced maps with
 refinement chains) within 1e-10 of each field's peak on every level, and
-the neutral fraction within 1e-10; MultiLevelModel(2) against the port's
+the neutral fraction within 1e-10; modes 8 and 1 with three sources
+(maxPixelLevel 3) within 1e-9, the deposits and the ray diagnostics too;
+MultiLevelModel(2) against the port's
 AMRModel on a two-level state; the L-level snapshot written by either
 package restarts the other (the files key for key and dtype for dtype,
 the floats within 1e-10 of each peak; the restored states within 1e-10),
-and a snapshot of another depth or refinement raises; point sources, the
-mesh and the modes that trace raise naming their ROADMAP items."""
+and a snapshot of another depth or refinement raises; each level's
+9-species state written beside the fields (species_extra's prefix
+`species{l}`) by either package reads back in the other exactly (the
+tuple form of read_species), and an incomplete or mis-shaped one raises;
+the mesh raises naming its ROADMAP item."""
 
 import dataclasses
 
@@ -21,21 +26,28 @@ import torch
 
 import radiativetransfer_tpu_torch as rt
 from radiativetransfer_tpu.core import amr as jamr
+from radiativetransfer_tpu.core import chemistry_noneq as jcn
+from radiativetransfer_tpu.core import rays as jrays
 from radiativetransfer_tpu.core import state as jstate
 from radiativetransfer_tpu.core import step as jstep
 from radiativetransfer_tpu.core import step_amr as jstep_amr
 from radiativetransfer_tpu.io import snapshot as jsnap
+from radiativetransfer_tpu.tables import stellar as jstellar
 from radiativetransfer_tpu_torch.config import (
     MODE_BOTH_STELLAR_UVB_TRANSFER,
     MODE_NO_STARS_THIN_UVB,
+    MODE_STELLAR_TRANSFER_THIN_UVB,
     MODE_UVB_TRANSFER_ONLY,
     RunConfig,
 )
-from radiativetransfer_tpu_torch.constants import KPC, MH, PSI
+from radiativetransfer_tpu_torch.constants import KPC, MH, MYR, PSI
 from radiativetransfer_tpu_torch.core import amr as tamr
+from radiativetransfer_tpu_torch.core import chemistry_noneq as tcn
+from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.core import step_amr as tstep_amr
 from radiativetransfer_tpu_torch.io import snapshot as tsnap
 from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
+from radiativetransfer_tpu_torch.tables import stellar as tstellar
 
 N = 4
 F64 = torch.float64
@@ -154,6 +166,50 @@ def test_ml_steps_match_jax_f64(mode):
             assert bool((lv.Jmean[:, m] > 0).any())
 
 
+@pytest.mark.parametrize("mode", [MODE_BOTH_STELLAR_UVB_TRANSFER,
+                                  MODE_STELLAR_TRANSFER_THIN_UVB])
+def test_ml_point_source_steps_match_jax_f64(mode):
+    """Modes 8 and 1: three sources (one in a doubly refined cell) in two
+    SED buckets, as the CLI builds them (StellarContext.build, the tables
+    over the base cell's volume), 2 steps: every level's fields and the
+    deposits (level l's times 8^l) within 1e-9 of each peak, the ray
+    diagnostics too."""
+    jrt, trt = _rt(mode)
+    jml = jstep_amr.MultiLevelModel.setup(jrt, 3)
+    tml = tstep_amr.MultiLevelModel.setup(trt, 3)
+    assert (tml.plan is None) == (mode == MODE_STELLAR_TRANSFER_THIN_UVB)
+    src = dict(position=np.array([[0.5 + 0.25 / N, 0.5 + 0.75 / N,
+                                   0.5 + 0.25 / N], [0.3, 0.47, 0.55],
+                                  [0.81, 0.2, 0.5]]),
+               weight=np.array([4.0, 2.0, 1.0]),
+               table_idx=np.array([0, 1, 0], np.int32))
+    args = (10.0 * MYR,)
+    kw = dict(metal_coefs=[(0, 0.0), (1, 0.0)], max_pixel_level=3)
+    jc = jstep.StellarContext.build(
+        jstellar.blackbody_population(n_metal=3), jrays.SourceBatch(**src),
+        jrt.geom, *args, **kw)
+    tc = rt.StellarContext.build(
+        tstellar.blackbody_population(n_metal=3), trays.SourceBatch(**src),
+        trt.geom, *args, dtype=F64, device="cpu", **kw)
+    js, ts = _states()
+    jstep_fn, tstep_fn = jml.make_step(jc), tml.make_step(tc)
+    for _ in range(2):
+        (js, jdiag), (ts, tdiag) = jstep_fn(js), tstep_fn(ts)
+        assert _worst(ts, js, ("HI", "HeI", "HeII", "tgas", "krate24",
+                               "krate26", "crate24")) <= 1e-9
+        for f in dataclasses.fields(jdiag):
+            a, b = getattr(tdiag, f.name).numpy(), np.asarray(
+                getattr(jdiag, f.name))
+            assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max(), f.name
+    assert all(float(lv.krate24.max()) > 0.0 for lv in ts.levels)
+    nf_t, nf_j = tml.neutral_fraction(ts), jml.neutral_fraction(js)
+    assert abs(nf_t - nf_j) <= 1e-9 * nf_j
+    # step() traces only in a point-source mode, with a context
+    s_ctx, diag = tml.step(ts, tc)
+    assert diag is not None and _worst(s_ctx, tml.make_step(tc)(ts)[0],
+                                       ("HI",)) == 0.0
+
+
 def test_two_levels_match_amr_model():
     """MultiLevelModel(2) gives the port's AMRModel step: the L-level
     sweep at its 4 passes and the two-level sweep at its 3 agree once
@@ -240,19 +296,86 @@ def test_snapshot_of_another_grid_raises(stepped, tmp_path):
         tsnap.read_snapshot_ml(path, flipped)
 
 
+def _species_extra(mod, species) -> dict:
+    """One package's snapshot payload of a tuple of per-level species."""
+    extra = {}
+    for ell, spc in enumerate(species):
+        extra.update(mod.species_extra(spc, prefix=f"species{ell}"))
+    return extra
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_species_snapshots_across_packages(stepped, tmp_path, writer):
+    js, ts, geom = stepped
+    j_sp = tuple(jcn.species_from_field_state(lv, f_h2=1e-4)
+                 for lv in js.levels)
+    t_sp = tuple(tcn.species_from_field_state(lv, f_h2=1e-4)
+                 for lv in ts.levels)
+    path = str(tmp_path / "s.npz")
+    if writer == "jax":
+        jsnap.write_snapshot_ml(path, js, 2, geom.physical_box_size,
+                                extra=_species_extra(jsnap, j_sp))
+        got = tsnap.read_species(path, t_sp)
+        got = [{k: getattr(sp, k).numpy() for k in tsnap.SPECIES_FIELDS}
+               for sp in got]
+    else:
+        tsnap.write_snapshot_ml(path, ts, 2, geom.physical_box_size,
+                                extra=_species_extra(tsnap, t_sp))
+        got = jsnap.read_species(path, j_sp)
+        got = [{k: np.asarray(getattr(sp, k)) for k in tsnap.SPECIES_FIELDS}
+               for sp in got]
+    # the writer's species, to the bit
+    assert len(got) == 3
+    for ell, sp in enumerate(j_sp if writer == "jax" else t_sp):
+        for k in tsnap.SPECIES_FIELDS:
+            np.testing.assert_array_equal(got[ell][k],
+                                          np.asarray(getattr(sp, k)),
+                                          err_msg=f"species{ell}_{k}")
+    # the fields restart as from the file without species; one template
+    # reads the base level's species
+    plain = str(tmp_path / "plain.npz")
+    tsnap.write_snapshot_ml(plain, ts, 2, geom.physical_box_size)
+    restored, plain_restored = (tsnap.read_snapshot_ml(x, ts)
+                                for x in (path, plain))
+    assert restored[1] == plain_restored[1] == 2
+    assert all(torch.equal(a.HI, b.HI) for a, b in zip(
+        restored[0].levels, plain_restored[0].levels))
+    base = tsnap.read_species(path, t_sp[0])
+    np.testing.assert_array_equal(base.H2I.numpy(), got[0]["H2I"])
+
+
+def test_species_snapshot_that_does_not_fit_raises(stepped, tmp_path):
+    _, ts, geom = stepped
+    t_sp = tuple(tcn.species_from_field_state(lv) for lv in ts.levels)
+    path = str(tmp_path / "two.npz")
+    tsnap.write_snapshot_ml(path, ts, 1, geom.physical_box_size,
+                            extra=_species_extra(tsnap, t_sp[:2]))
+    with pytest.raises(ValueError, match=r"incomplete, missing "
+                       r"\['species2_H2I'"):
+        tsnap.read_species(path, t_sp)
+    with pytest.raises(ValueError, match=r"species1_HI has shape \(8, 8, "
+                       r"8\), the grid is \(16, 16, 16\)"):
+        tsnap.read_species(path, (t_sp[0], t_sp[2]))
+    plain = str(tmp_path / "plain.npz")
+    tsnap.write_snapshot_ml(plain, ts, 1, geom.physical_box_size)
+    assert tsnap.read_species(plain, t_sp) is None
+
+
 def test_sources_and_mesh_raise_naming_roadmap():
-    _, trt = _rt(MODE_UVB_TRANSFER_ONLY)
-    ml = tstep_amr.MultiLevelModel.setup(trt, 3)
-    _, ts = _states()
-    item = r"ROADMAP, L-level dense AMR PR b \(core/rays_multilevel\.py\)$"
-    with pytest.raises(NotImplementedError, match=item):
-        ml.make_step(stellar=object())
-    with pytest.raises(NotImplementedError, match=item):
-        ml.step(ts, stellar=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution$"):
-        ml.make_step(mesh=make_grid_mesh(2, device="cpu"))
+    """Point sources run on an L-level grid (modes 8 and 1 set up, no
+    refusal); a mesh, with or without them and in the noneq step, raises
+    naming its ROADMAP item."""
     _, t8 = _rt(MODE_BOTH_STELLAR_UVB_TRANSFER)
-    with pytest.raises(NotImplementedError, match=r"mode 8\) .*" + item):
-        tstep_amr.MultiLevelModel.setup(t8, 3)
+    ml = tstep_amr.MultiLevelModel.setup(t8, 3)
+    assert ml.plan is not None
+    _, ts = _states()
+    mesh = make_grid_mesh(2, device="cpu")
+    item = "ROADMAP, Distribution$"
     with pytest.raises(NotImplementedError, match=item):
-        tsnap.species_extra_ml(None)
+        ml.make_step(mesh=mesh)
+    with pytest.raises(NotImplementedError, match=item):
+        ml.make_step(stellar=object(), mesh=mesh)
+    with pytest.raises(NotImplementedError, match=item):
+        ml.step(ts, stellar=object(), mesh=mesh)
+    with pytest.raises(NotImplementedError, match=item):
+        ml.make_noneq_step(1.0, mesh=mesh)
