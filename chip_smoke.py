@@ -194,8 +194,8 @@ failure raises and the script exits non-zero:
     1e-5 of each band's peak); (d) the CLI on the L-level ML_CLI_N^3 =
     32^3 grid: mode 9, 2 iterations (the grid: and coupling depth: lines),
     a restart of one from the itime-1 snapshot (within 1e-4), mode 6, and
-    --amr-storage sparse refused before ingestion, naming its ROADMAP
-    item;
+    --amr-storage sparse with --chemistry noneq refused before ingestion,
+    naming its ROADMAP item;
 20. point sources and the non-equilibrium chemistry on L-level grids
     (core/rays_multilevel.py, MultiLevelModel.trace and make_noneq_step,
     plain PyTorch: every kernel's count is held across the phase): (a)
@@ -222,7 +222,31 @@ failure raises and the script exits non-zero:
     and the L-level grids, 2 iterations each through python -m, each in a
     process of its own beside (a) and (c), each restarted in this process
     from its itime-1 snapshot (within 1e-4; the noneq ones with their
-    species).
+    species);
+21. block-sparse L-level AMR (core/amr_sparse.py, core/sweep_sparse.py,
+    SparseMLModel, the CLI's sparse branch; plain PyTorch: every kernel's
+    count is held across the phase): (d) the CLI on the L-level
+    ML_CLI_N^3 = 32^3 grid under --amr-storage sparse: mode 9, 2
+    iterations (the block-sparse grid: line, the coupling depth:
+    line), its restart through python -m from the itime-1 snapshot in a
+    process of its own beside (a) (within 1e-4), mode 6, 2 iterations,
+    and modes 8 and 1 refused before ingestion, naming their ROADMAP
+    item; (a) the 24^3 galaxy with its refined centre and core in blocks
+    of 4 (W 20 < 24), angular level 1, f64: one mode-9 step on the card
+    windowed and one full-plane against the CPU's windowed step, and the
+    windowed one against the dense L-level card step on covered cells,
+    each level within 1e-10 of each field's peak; (b) the production cell
+    MAIN_N^3 = 128^3 with its refined centre and core x 192 f32, stored
+    block-sparse by the CLI's rule under --amr-storage auto: ingestion,
+    compute_window (W, the skip share), plan, validate_coupling_depth, the
+    equilibrium, one mode-9 step layer by layer
+    (profile_step.sparse_layers), peak memory, memory_bytes, the first
+    zone batch's first 8 covered base slabs traced (the card's busy
+    share), a mode-6 step; (c) phase 19's 64^3 cell in f32: its dense
+    state stored block-sparse, the windowed and the full-plane sparse
+    sweeps on its opacities within 1e-5 of each peak, and the windowed
+    sparse step against phase 19's dense L-level step on covered cells
+    within 1e-5 of each field's peak.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -3146,7 +3170,9 @@ def _phase_ml(tmp: str, smi: str) -> dict:
                batch_busy_share=busy / wall, launches=counted,
                launches64=launches64, write_snapshot_s=snap_s,
                mode6_s=step6_s, nf=(nf0, nf1))
-    del state, state1, s6, ml, ml6, m
+    # phase 21 (c) holds the block-sparse step to this dense one
+    out["dense_cell"] = (ml, state, state1)
+    del s6, ml6, m
 
     # (c) nesting limits on the card, f32: nothing refined (one level)
     # against the uniform step's sweep through the cluster kernel (#1) in
@@ -3198,8 +3224,8 @@ def _phase_ml(tmp: str, smi: str) -> dict:
 
     # (d) the CLI on the L-level 32^3 grid (its refined centre and core):
     # mode 9, 2 iterations, a restart of one from the itime-1 snapshot;
-    # mode 6, 1 iteration; modes 8, --chemistry noneq and
-    # --amr-storage sparse refused before ingestion
+    # mode 6, 1 iteration; --amr-storage sparse with --chemistry noneq
+    # refused before ingestion (phase 21 runs the block-sparse CLI)
     n_cli = out["cli_n"] = ML_CLI_N
     config = write_cli_inputs(os.path.join(tmp, "cli32"), n_cli,
                               refine_center=True, refine_core=True)
@@ -3247,16 +3273,18 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     try:
         with contextlib.redirect_stdout(buf):
             cli.main([config, "--snapshot-dir", d, "--iters", "1",
-                      "--amr-storage", "sparse"])
+                      "--amr-storage", "sparse", "--chemistry", "noneq"])
     except NotImplementedError as e:
         refusal = str(e)
     else:
-        raise AssertionError("--amr-storage sparse ran on the L-level grid")
-    print(f"[19 ml] CLI --amr-storage sparse on the L-level grid: refused in "
-          f"{time.perf_counter() - t0:.3f} s: {refusal}")
+        raise AssertionError("--amr-storage sparse --chemistry noneq ran "
+                             "on the L-level grid")
+    print(f"[19 ml] CLI --amr-storage sparse --chemistry noneq on the "
+          f"L-level grid: refused in {time.perf_counter() - t0:.3f} s: "
+          f"{refusal}")
     assert "grid:" not in buf.getvalue(), "refused after ingestion"
     assert not os.path.exists(os.path.join(d, "time"))
-    assert "ROADMAP, Block-sparse AMR" in refusal
+    assert refusal.endswith("ROADMAP, Block-sparse AMR (c)"), refusal
     assert _kernel_counts() == counts0, "the L-level CLI launched a kernel"
     phase_s = time.perf_counter() - t_phase
     print(f"[19 ml] phase 19: {phase_s:.1f} s; {smi}")
@@ -3688,6 +3716,297 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
     return out
 
 
+def phase_sparse(smi: str, dense_cell=None) -> dict:
+    """21: block-sparse L-level AMR (core/amr_sparse.py,
+    core/sweep_sparse.py, SparseMLModel, the CLI's sparse branch) on the
+    card, in modes 9 and 6.  Plain PyTorch: the path launches none of the
+    hand-written kernels (every count is held).  dense_cell: phase 19's
+    (MultiLevelModel, state, its step) at the 64^3 cell, for (c)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_sparse(tmp, smi, dense_cell)
+
+
+def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
+    """phase_sparse's checks, with `tmp` a directory of their own."""
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch import cli, profile_step
+    from radiativetransfer_tpu_torch.config import (
+        MODE_NO_STARS_THIN_UVB,
+        MODE_UVB_TRANSFER_ONLY,
+    )
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import (
+        amr_sparse,
+        step_amr,
+        sweep_sparse,
+    )
+    from radiativetransfer_tpu_torch.io import grid_io, snapshot
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    counts0 = _kernel_counts()
+    out = {}
+    names = ("HI", "HeI", "HeII", "Jmean")
+
+    def model(n, level, dtype, device, mode=MODE_UVB_TRANSFER_ONLY):
+        cfg = rt.RunConfig(mode=mode, current_redshift=6.55,
+                           n_angular_level=level, reionization_model=10,
+                           self_shielding_threshold_kpc=0.1)
+        return rt.RTModel.setup(cfg, rt.GridGeometry(n, n, n, 300.0 * KPC),
+                                dtype, device)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    def worst_covered(a, b):
+        """The largest |a - b| over b's peak, field by field (names) and
+        level by level, on the cells that exist at each level: a and b
+        dense MultiLevelStates, a's on b's device."""
+        cover = b.cover_masks()
+        return max(float((getattr(x, k).to(getattr(y, k)) - getattr(y, k))
+                         .abs()[..., c].max()
+                         / getattr(y, k).abs()[..., c].max())
+                   for x, y, c in zip(a.levels, b.levels, cover)
+                   for k in names)
+
+    # (d) the CLI on the L-level 32^3 grid under --amr-storage sparse:
+    # mode 9, 2 iterations here, its restart from the itime-1 snapshot
+    # through python -m beside (a)
+    n_cli = ML_CLI_N
+    config = write_cli_inputs(os.path.join(tmp, "cli32"), n_cli,
+                              refine_center=True, refine_core=True)
+    sparse = ("--amr-storage", "sparse")
+    d9 = os.path.join(tmp, "sparse9")
+    out9, call9 = _cli(config, d9, "--iters", "2", *sparse, tag="21 sparse")
+    log9 = _time_log(d9)
+    dts = _iteration_dts(out9, n_cli ** 3 * 192)
+    assert re.search(rf"^grid: {n_cli}\^3 \+ 2 refined levels, block-sparse "
+                     r"\(be=8\): \d+ leaves, \S+ GB \(dense would be \S+ "
+                     r"GB\)$", out9, re.M), out9
+    cd = re.search(r"^coupling depth: (\d) \(validated on the ingested "
+                   r"grid, residual < 1e-8\)$", out9, re.M)
+    assert cd, out9
+    assert list(log9) == [1, 2] and all(
+        0.0 < v < 1.0 for v in log9.values()), log9
+    print(f"[21 sparse] CLI mode 9 on the block-sparse {n_cli}^3 grid: "
+          f"call {call9:.3f} s, iterations' dt {_fmt(dts)} s, neutral "
+          f"fractions {list(log9.values())}")
+    dr = os.path.join(tmp, "restart")
+    os.makedirs(dr)
+    shutil.copy(snapshot.snapshot_name(1, d9), dr)
+    restart = _config_variant(config, os.path.join(tmp, "restart.cfg"),
+                              restart=1)
+    restarted = _CliProcess([restart, "--snapshot-dir", dr, "--iters", "1",
+                             *sparse, "--coupling-depth", cd.group(1)])
+
+    # (a) 24^3 with its refined centre and core in blocks of 4, level 1,
+    # f64: a mode-9 step on the card, windowed and full-plane, against the
+    # CPU's windowed step, and against the dense L-level card step
+    levels24 = grid_io.read_level_npz(os.path.join(
+        os.path.dirname(write_cli_inputs(os.path.join(tmp, "in24"), 24,
+                                         refine_center=True,
+                                         refine_core=True)),
+        "testgrid_velmet.npz"))
+    cpu = model(24, 1, f64, "cpu")
+    st = amr_sparse.sparse_from_level_lists(levels24, True, be=4,
+                                            dtype=f64, device="cpu")[0]
+    host_sm = step_amr.SparseMLModel.setup(cpu, 3)
+    arrays = host_sm.initialize_equilibrium(st).to_numpy()
+    host, cpu_s = timed(lambda: host_sm.make_step()(
+        amr_sparse.SparseMLState.from_numpy(arrays, dtype=f64,
+                                            device="cpu")))
+    assert host_sm._window[0] == 20
+    host = amr_sparse.dense_from_sparse(host)
+    m24 = model(24, 1, f64, DEVICE)
+    errs, card_s = {}, {}
+    for windowed in (True, False):
+        sm = step_amr.SparseMLModel.setup(m24, 3)
+        sm.window_enabled = windowed
+        st_c = amr_sparse.SparseMLState.from_numpy(arrays, dtype=f64,
+                                                   device=DEVICE)
+        card, card_s[windowed] = timed(lambda: sm.make_step()(st_c))
+        assert (sm._window is not None) == windowed
+        card = amr_sparse.dense_from_sparse(card)
+        errs[windowed] = worst_covered(card, host)
+        if windowed:
+            windowed_card = card
+    dense0 = amr_sparse.dense_from_sparse(st_c)
+    dense1, dense_s = timed(lambda: step_amr.MultiLevelModel.setup(
+        m24, 3).make_step()(dense0))
+    err_dense = worst_covered(windowed_card, dense1)
+    print(f"[21 sparse] 24^3 + refined parents per level "
+          f"{[int(r.sum()) for r in dense0.refined]} in blocks of 4 "
+          f"({[lv.n_blocks for lv in st_c.levels]} blocks, W 20), level 1, "
+          f"f64 mode 9 at depth {sm.n_coupling_iters}: card windowed "
+          f"{card_s[True]:.3f} s, full-plane {card_s[False]:.3f} s, CPU "
+          f"windowed {cpu_s:.3f} s, dense L-level card {dense_s:.3f} s; "
+          f"species and Jmean max diff on covered cells, card against CPU "
+          f"{errs[True]:.2e} (windowed), {errs[False]:.2e} (full-plane), "
+          f"windowed against the dense step {err_dense:.2e} of each "
+          f"level's peak (tol 1e-10)")
+    assert max(errs.values()) <= 1e-10 and err_dense <= 1e-10, (errs,
+                                                                err_dense)
+    assert _kernel_counts() == counts0, "the sparse step launched a kernel"
+    out["card_vs_cpu"] = errs
+    out["card_vs_dense"] = err_dense
+    del host, card, windowed_card, dense0, dense1, st_c, cpu, arrays
+    rc, stdout, stderr, restart_s = restarted.result()
+    for line in stdout.splitlines():
+        print(f"[21 sparse]   {line}")
+    assert rc == 0, stderr[-4000:]
+    assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
+            in stdout), stdout
+    nf_sub = _time_log(dr)[2]
+    rel = abs(nf_sub - log9[2]) / log9[2]
+    print(f"[21 sparse] restart: python -m ...cli {restart_s:.3f} s (beside "
+          f"(a)), itime 2 neutral fraction {nf_sub:.8f} against "
+          f"{log9[2]:.8f} in this process (rel {rel:.2e}, tol 1e-4)")
+    assert rel <= 1e-4, (nf_sub, log9[2])
+
+    # (b) the production cell: 128^3 with its refined centre and core x
+    # 192, f32, stored block-sparse under the CLI's default rule
+    n, level = MAIN_N, MAIN_LEVEL
+    state, storage, ingest_s = profile_step.sparse_galaxy(
+        n, os.path.join(tmp, f"in{n}"), device=DEVICE)
+    assert storage == "sparse", storage
+    m = model(n, level, f32, DEVICE)
+    sm, plan_s = timed(lambda: step_amr.SparseMLModel.setup(m, 3))
+    win, window_s = timed(lambda: sm._ensure_window(state))
+    skip = profile_step.sparse_skip_share(sm, state)
+    depth, depth_s = timed(lambda: sm.validate_coupling_depth(state))
+    state, eq_s = timed(lambda: sm.initialize_equilibrium(state))
+    mem = state.memory_bytes()
+    nf0 = sm.neutral_fraction(state)
+    print(f"[21 sparse] {n}^3 + 2 levels, the CLI's storage under "
+          f"--amr-storage auto: {storage} ({state.n_leaves()} leaves, "
+          f"blocks {[lv.n_blocks for lv in state.levels]} of 8^3, "
+          f"memory_bytes {mem / 1e9:.3f} GB): ingested "
+          f"(read_level_npz + sparse_from_level_lists onto the card) in "
+          f"{ingest_s:.3f} s, compute_window {window_s:.3f} s (W "
+          f"{None if win is None else win[0]}, skip share {skip:.4f}), plan "
+          f"{plan_s:.3f} s, validate_coupling_depth {depth_s:.3f} s: depth "
+          f"{depth}, equilibrium {eq_s:.3f} s; neutral fraction {nf0:.7f}")
+    assert win is not None and win[0] < n
+    torch.cuda.reset_peak_memory_stats()
+    (state1, rows), step_s = timed(lambda: profile_step.sparse_layers(
+        sm, state))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nf1 = sm.neutral_fraction(state1)
+    print(f"[21 sparse] {n}^3 + 2 levels x 192 f32 block-sparse mode-9 "
+          f"step, depth {depth}: {step_s:.3f} s, layers (device ms by CUDA "
+          "events / host ms to enqueue): " + ", ".join(f"{k} {ms:.3f} / {h:.3f}" for k, (ms, h, _)
+                                   in rows.items())
+          + f"; neutral fraction {nf0:.7f} -> {nf1:.7f}; peak device memory "
+          f"{peak:.3f} GiB (the dense L-level step 43.28 GiB, PERF.md); "
+          f"{smi}")
+    assert np.isfinite(nf1) and 0.0 < nf1 < nf0, (nf0, nf1)
+    assert all(bool(torch.isfinite(getattr(f, k)).all()) for f in
+               [state1.base] + [lv.fields for lv in state1.levels]
+               for k in names)
+    assert peak < 43.0, peak
+    inputs, batch = profile_step.sparse_first_batch(sm, state1)
+    wall, busy, launches8, slabs, _ = profile_step.sparse_slab_window(
+        sm, inputs, True, 8)
+    del inputs
+    print(f"[21 sparse] the first zone batch's sweep ({len(batch)} zones of "
+          f"{batch[0].ndir} directions), covered base slabs "
+          f"{slabs.start}-{slabs.stop - 1} at full width: wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {launches8} launches")
+    sm6 = step_amr.SparseMLModel.setup(
+        model(n, level, f32, DEVICE, mode=MODE_NO_STARS_THIN_UVB), 3)
+    assert sm6.plan is None
+    (s6, rows6), step6_s = timed(lambda: profile_step.sparse_layers(
+        sm6, state))
+    nf6 = sm6.neutral_fraction(s6)
+    print(f"[21 sparse] {n}^3 + 2 levels f32 block-sparse mode-6 step (the "
+          f"thin UVB, no sweep): {step6_s:.3f} s, layers (device ms / host "
+          "ms): " + ", ".join(f"{k} {ms:.3f} / {h:.3f}"
+                              for k, (ms, h, _) in rows6.items())
+          + f"; neutral fraction {nf6:.7f}")
+    assert np.isfinite(nf6) and 0.0 < nf6 < 1.0
+    assert _kernel_counts() == counts0, "the sparse step launched a kernel"
+    out.update(ingest_s=ingest_s, window=None if win is None else win[0],
+               skip_share=skip, depth=depth, depth_s=depth_s, plan_s=plan_s,
+               step_s=step_s, layers=rows, peak_gib=peak,
+               memory_bytes=mem, batch_busy_share=busy / wall,
+               launches8=launches8, mode6_s=step6_s)
+    del state, state1, s6, sm, sm6, m
+
+    # (c) phase 19's 64^3 cell, f32: the dense state block-sparse, the
+    # windowed and the full-plane sparse sweeps within 1e-5 of each peak,
+    # the windowed step against phase 19's dense step on covered cells
+    if dense_cell is not None:
+        ml, dstate, dstep = dense_cell
+        sp, conv_s = timed(lambda: amr_sparse.sparse_from_dense(dstate))
+        sm = step_amr.SparseMLModel.setup(ml.rt, 3)
+        sm.n_coupling_iters = ml.n_coupling_iters
+        s0 = sm._zero_rates(sp)
+        k0, lv_k = sm._kappas(s0)
+        win = sm._ensure_window(s0)
+        sweeps, sweep_s = [], []
+        for w in (win, None):
+            js, secs = timed(lambda: sweep_sparse.diffuse_sweep_sparse(
+                k0, lv_k, s0, sm.plan, ml.rt.uvb, ml.rt.geom.cell_size,
+                sm.n_coupling_iters, window=w))
+            sweeps.append(js)
+            sweep_s.append(secs)
+        (jw0, jwb), (jf0, jfb) = sweeps
+        err_w = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip([jw0, *jwb], [jf0, *jfb]))
+        sp1, sparse_s = timed(lambda: sm.make_step()(sp))
+        err_d = worst_covered(amr_sparse.dense_from_sparse(sp1), dstep)
+        print(f"[21 sparse] phase 19's {sp.n}^3 cell block-sparse "
+              f"(converted in {conv_s:.3f} s; W "
+              f"{None if win is None else win[0]}), f32 at depth "
+              f"{sm.n_coupling_iters}: the windowed sparse sweep "
+              f"{sweep_s[0]:.3f} s, the full-plane one {sweep_s[1]:.3f} s, "
+              f"Jmean max diff {err_w:.2e} "
+              f"of each level's peak (tol 1e-5); the windowed sparse step "
+              f"{sparse_s:.3f} s against phase 19's dense step: species "
+              f"and Jmean max diff on covered cells {err_d:.2e} of each "
+              f"level's peak (tol 1e-5)")
+        assert err_w <= 1e-5 and err_d <= 1e-5, (err_w, err_d)
+        out.update(sweep64_s=sweep_s, sweep64_err=err_w, step64_err=err_d,
+                   step64_s=sparse_s)
+        del sp, sp1, s0, k0, lv_k, sweeps, dense_cell, dstate, dstep
+
+    # (d) mode 6 through the CLI, 2 iterations; modes 8 and 1 refused
+    # before ingestion
+    d6 = os.path.join(tmp, "sparse6")
+    config6 = _config_variant(config, os.path.join(tmp, "mode6.cfg"), mode=6)
+    out6, call6 = _cli(config6, d6, "--iters", "2", *sparse, tag="21 sparse")
+    assert "coupling depth" not in out6 and list(_time_log(d6)) == [1, 2]
+    print(f"[21 sparse] CLI mode 6 on the block-sparse {n_cli}^3 grid: call "
+          f"{call6:.3f} s")
+    for mode in (8, 1):
+        d = os.path.join(tmp, f"refused{mode}")
+        cfg_m = _config_variant(config, os.path.join(tmp, f"m{mode}.cfg"),
+                                mode=mode)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main([cfg_m, "--snapshot-dir", d, "--iters", "1",
+                          *sparse])
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"mode {mode} ran on block-sparse storage")
+        assert "grid:" not in buf.getvalue(), "refused after ingestion"
+        assert refusal.endswith("ROADMAP, Block-sparse AMR (c)"), refusal
+        print(f"[21 sparse] CLI mode {mode} on block-sparse storage: refused "
+              f"before ingestion: {refusal}")
+    assert _kernel_counts() == counts0, "the sparse CLI launched a kernel"
+    phase_s = time.perf_counter() - t_phase
+    print(f"[21 sparse] phase 21: {phase_s:.1f} s; {smi}")
+    out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s,
+               cli_call6_s=call6, phase_s=phase_s)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -3718,6 +4037,7 @@ def main() -> None:
     amr_out = timed_phase(18, phase_amr, smi)
     ml_out = timed_phase(19, phase_ml, smi)
     timed_phase(20, phase_ml_sources, smi, ml_out["depth"])
+    timed_phase(21, phase_sparse, smi, ml_out.pop("dense_cell"))
     print("[main] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; the script so far {time.perf_counter() - t_start:.1f} s")

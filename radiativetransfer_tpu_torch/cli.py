@@ -40,7 +40,14 @@ the point sources traced through every level (core/rays_multilevel.py),
 its sweep's coupling depth validated on the ingested grid unless
 `--coupling-depth` fixes it, where the JAX CLI would keep it dense: always
 under `--amr-storage dense`, under `auto` (the default) while the dense
-levels' 17 fields take at most 4e9 bytes.  `--chemistry noneq` on a nested
+levels' 17 fields take at most 4e9 bytes.  Above that, or under
+`--amr-storage sparse`, such a grid runs as block-sparse L-level AMR
+(core/amr_sparse.py, core/step_amr.py::SparseMLModel) in modes 9 and 6,
+the JAX CLI's storage: ingested at O(leaves) in blocks of `--block-edge`
+cells a side, its coupling depth validated the same way, its sweep
+confined to each slab's refinement window unless `--sweep-window off`
+(core/sweep_sparse.py), its snapshots leaf streams with the block
+origins.  `--chemistry noneq` on a nested
 grid runs MultiLevelModel.make_noneq_step, a two-level grid as
 MultiLevelModel(2) at the default coupling depth, as the JAX CLI does, and
 writes L-level snapshots with each level's species (`species{l}_*`).  The
@@ -49,10 +56,10 @@ the JAX CLI's do; its snapshots are cellArray leaf streams
 (io/snapshot.py::write_snapshot_amr, write_snapshot_ml).
 
 Not ported yet, and refused before any work with NotImplementedError
-naming their ROADMAP entries: the block-sparse storage (`--amr-storage
-sparse`, or `auto` above 4e9 bytes), a mesh on a nested grid, `.h4`
-grids, `--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`,
-point sources on a mesh and the multi-process flags.
+naming their ROADMAP entries: point sources (modes 8 and 1) and
+`--chemistry noneq` on block-sparse storage, a mesh on a nested grid,
+`.h4` grids, `--ckpt-format orbax`, `--debug-checkify`,
+`--tracer-compact`, point sources on a mesh and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ from .config import (
     load_config,
 )
 from .constants import KPC, MYR
-from .core import amr, chemistry_noneq, step_amr
+from .core import amr, amr_sparse, chemistry_noneq, step_amr
 from .core import step as step_mod
 from .core.rays import cosmic_spectrum, escape_fractions
 from .io import diagnostics, grid_io, snapshot, sources_io
@@ -168,19 +175,26 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--amr-storage", choices=("auto", "dense", "sparse"),
                     default="auto",
                     help="storage of a grid of more than two levels: dense "
-                         "per-level volumes, block-sparse (not ported yet, "
-                         "raises), or auto (block-sparse when the dense "
-                         "footprint would exceed 4e9 bytes)")
+                         "per-level volumes, block-sparse (memory "
+                         "proportional to the leaves; modes 9 and 6), or "
+                         "auto (block-sparse when the dense footprint would "
+                         "exceed 4e9 bytes)")
     ap.add_argument("--coupling-depth", type=int, default=0,
                     help="L-level sweep Gauss-Seidel coupling passes per "
                          "slab (0 = validate on the ingested grid at "
                          "startup and adopt the smallest converged depth)")
-    # the block-sparse knobs: accepted for the JAX CLI's command lines;
-    # the storage they apply to raises before they matter
-    ap.add_argument("--block-edge", type=int, default=8)
+    ap.add_argument("--block-edge", type=int, default=8,
+                    help="block-sparse storage block edge (level cells per "
+                         "side)")
     ap.add_argument("--sweep-window", choices=("auto", "off"),
-                    default="auto")
-    ap.add_argument("--split-compile", action="store_true")
+                    default="auto",
+                    help="block-sparse sweep: confine the coupled fine-level "
+                         "stack to each slab's refinement window (auto; the "
+                         "full-plane stack where refinement spans the grid) "
+                         "or not (off); the result is the same")
+    ap.add_argument("--split-compile", action="store_true",
+                    help="the JAX CLI's per-piece compiles: accepted, "
+                         "changes nothing here")
     return ap
 
 
@@ -227,13 +241,15 @@ def _dense_bytes(levels, depth: int, x64: bool) -> int:
                for ell in range(depth))
 
 
-def _nesting(levels, args, mesh) -> str:
+def _nesting(levels, args, mesh, stellar: bool = False) -> str:
     """How the grid runs, as the JAX CLI decides it: "uniform" (one data
     level), "amr" (two-level AMR: two data levels, or more under
-    --amr-depth 2) or "ml" (L-level dense AMR: more than two data levels
-    under --amr-depth > 2 while the dense storage is chosen).
-    NotImplementedError naming the ROADMAP item, before any work, for a
-    nested grid the port does not run yet."""
+    --amr-depth 2), "ml" (L-level dense AMR: more than two data levels
+    under --amr-depth > 2 while the dense storage is chosen) or "sparse"
+    (the same grid stored block-sparse).  NotImplementedError naming the
+    ROADMAP item, before any work, for what the port does not run yet on
+    that grid: point sources (`stellar`, modes 8 and 1) or --chemistry
+    noneq on block-sparse storage, a mesh on a nested grid."""
     n_data_levels = sum(1 for lv in levels if lv.ncell > 0)
     if n_data_levels <= 1:
         return "uniform"
@@ -241,14 +257,24 @@ def _nesting(levels, args, mesh) -> str:
     if n_data_levels > 2 and args.amr_depth > 2:
         dense_bytes = _dense_bytes(levels, min(n_data_levels,
                                                args.amr_depth), args.x64)
+        kind = "ml"
         if args.amr_storage == "sparse" or (args.amr_storage == "auto"
                                             and dense_bytes > 4.0e9):
-            raise NotImplementedError(
-                f"the block-sparse storage of a grid of {n_data_levels} "
-                f"data levels (--amr-storage {args.amr_storage}, dense "
-                f"{dense_bytes / 1e9:.1f} GB) is not ported yet: ROADMAP, "
-                f"Block-sparse AMR")
-        kind = "ml"
+            kind = "sparse"
+            what = ("point sources (modes 8 and 1) are" if stellar else
+                    "--chemistry noneq is" if args.chemistry == "noneq"
+                    else None)
+            if what:
+                raise NotImplementedError(
+                    f"{what} not ported yet on the block-sparse storage of a "
+                    f"grid of {n_data_levels} data levels (--amr-storage "
+                    f"{args.amr_storage}, dense {dense_bytes / 1e9:.1f} GB): "
+                    f"ROADMAP, Block-sparse AMR (c)")
+    if mesh is not None and kind == "sparse":
+        raise NotImplementedError(
+            "a mesh on a block-sparse AMR grid (shard_sparse_state, "
+            "diffuse_sweep_sparse_zones) is not ported yet: ROADMAP, "
+            "Distribution")
     if mesh is not None:
         grid, shard = (("an L-level", "shard_multilevel_state")
                        if kind == "ml" else ("a two-level", "shard_amr_state"))
@@ -323,8 +349,9 @@ def main(argv=None):
         for i, lv in enumerate(levels):
             print(f"level = {i + 1}  cells = {lv.ncell}")
         return
-    nesting = _nesting(levels, args, mesh)
-    # the nested state: an AMRState ("amr") or a MultiLevelState ("ml")
+    nesting = _nesting(levels, args, mesh, cfg.run_stellar_transfer)
+    # the nested state: an AMRState ("amr"), a MultiLevelState ("ml") or a
+    # SparseMLState ("sparse")
     nested = None
     if nesting == "amr":
         nested, geom = amr.amr_from_levels(levels, cfg.read_metals,
@@ -340,6 +367,16 @@ def main(argv=None):
         counts = [int(r.sum()) for r in nested.refined]
         print(f"grid: {geom.nx}^3 + {nested.n_levels - 1} refined levels "
               f"(refined parents per level: {counts})")
+    elif nesting == "sparse":
+        nested, geom = amr_sparse.sparse_from_level_lists(
+            levels, cfg.read_metals, be=args.block_edge,
+            max_depth=args.amr_depth, dtype=dtype, device=device)
+        state = nested.base
+        dense_bytes = _dense_bytes(levels, nested.n_levels, args.x64)
+        print(f"grid: {geom.nx}^3 + {nested.n_levels - 1} refined levels, "
+              f"block-sparse (be={args.block_edge}): {nested.n_leaves()} "
+              f"leaves, {nested.memory_bytes() / 1e9:.2f} GB (dense would "
+              f"be {dense_bytes / 1e9:.1f} GB)")
     else:
         state, geom = grid_io.build_uniform_state(levels, cfg.read_metals,
                                                   dtype=dtype, device=device)
@@ -347,7 +384,7 @@ def main(argv=None):
     # the coupling depth is validated on grids ingested as L-level; a
     # two-level grid's noneq run goes through MultiLevelModel(2) at the
     # default depth, as the JAX CLI's does
-    validate_depth = nesting == "ml"
+    validate_depth = nesting in ("ml", "sparse")
     if nesting == "amr" and noneq:
         nested = amr.MultiLevelState(levels=(nested.base, nested.fine),
                                      refined=(nested.refined,))
@@ -391,6 +428,7 @@ def main(argv=None):
             metal_bucket_edges=metal_edges,
             refined=(None if nested is None else
                      (nested.refined if nesting == "amr"
+                      else nested.refined0 if nesting == "sparse"
                       else nested.refined[0]).detach().cpu().numpy()))
         print(f"nStars/specificAge/non-degenerate = {len(stars.age)} "
               f"{n_young} {batch.n_sources}")
@@ -429,6 +467,11 @@ def main(argv=None):
         step = (amodel.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                        evolve_energy=args.evolve_energy)
                 if noneq else amodel.make_step(stellar_ctx))
+    elif nesting == "sparse":
+        amodel = step_amr.SparseMLModel.setup(model, nested.n_levels)
+        amodel.window_enabled = args.sweep_window != "off"
+        step = amodel.make_step(stellar_ctx,
+                                split_compile=args.split_compile)
     elif noneq:
         step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                      evolve_energy=args.evolve_energy,
@@ -440,24 +483,27 @@ def main(argv=None):
                    os.path.join(args.snapshot_dir, "rates.out"),
                    os.path.join(args.snapshot_dir, "cool_rates.out"))
         print("wrote rates.out, cool_rates.out")
+    if cfg.run_uvb_transfer and validate_depth:
+        if args.coupling_depth:
+            amodel.n_coupling_iters = args.coupling_depth
+            print(f"coupling depth: {args.coupling_depth} (fixed)")
+        else:
+            d = amodel.validate_coupling_depth(nested)
+            print(f"coupling depth: {d} (validated on the ingested "
+                  f"grid, residual < 1e-8)")
     if nesting == "amr":
         nested = amr.sync_restriction(dataclasses.replace(
             nested, base=model.initialize_equilibrium(nested.base),
             fine=model.initialize_equilibrium(nested.fine)))
         nf0 = amodel.neutral_fraction(nested)
     elif nesting == "ml":
-        if cfg.run_uvb_transfer and validate_depth:
-            if args.coupling_depth:
-                amodel.n_coupling_iters = args.coupling_depth
-                print(f"coupling depth: {args.coupling_depth} (fixed)")
-            else:
-                d = amodel.validate_coupling_depth(nested)
-                print(f"coupling depth: {d} (validated on the ingested "
-                      f"grid, residual < 1e-8)")
         nested = amr.sync_restriction_multi(amr.MultiLevelState(
             levels=tuple(model.initialize_equilibrium(lv)
                          for lv in nested.levels),
             refined=nested.refined))
+        nf0 = amodel.neutral_fraction(nested)
+    elif nesting == "sparse":
+        nested = amodel.initialize_equilibrium(nested)
         nf0 = amodel.neutral_fraction(nested)
     else:
         state = model.initialize_equilibrium(state)
@@ -473,6 +519,8 @@ def main(argv=None):
             nested, itime = snapshot.read_snapshot_amr(snap, nested)
         elif snap and nesting == "ml":
             nested, itime = snapshot.read_snapshot_ml(snap, nested)
+        elif snap and nesting == "sparse":
+            nested, itime = snapshot.read_snapshot_sparse(snap, nested)
         elif snap:
             state, itime = snapshot.read_snapshot(snap, state)
         if snap:
@@ -530,7 +578,8 @@ def main(argv=None):
                 _check_finite(
                     (state,) if nested is None else
                     (nested.base, nested.fine) if nesting == "amr"
-                    else nested.levels, itime)
+                    else (nested.base, *(lv.fields for lv in nested.levels))
+                    if nesting == "sparse" else nested.levels, itime)
             nf = (model.neutral_fraction(state) if nested is None
                   else amodel.neutral_fraction(nested))
             tlog.append(itime, nf)
@@ -552,6 +601,10 @@ def main(argv=None):
             print(msg)
             if nesting == "amr":
                 snapshot.write_snapshot_amr(
+                    snapshot.snapshot_name(itime, args.snapshot_dir),
+                    nested, itime, geom.physical_box_size)
+            elif nesting == "sparse":
+                snapshot.write_snapshot_sparse(
                     snapshot.snapshot_name(itime, args.snapshot_dir),
                     nested, itime, geom.physical_box_size)
             elif nesting == "ml":

@@ -11,8 +11,8 @@ access) become restrict / prolong operators and masked shifts.
 Every level is allocated densely over the whole domain (8x the level
 below): at a 128^3 base the fine level's ~20 float32 fields take ~1.3 GB
 of the card, at a 64^3 base with two refined levels the three take ~1.4
-GB.  The block-sparse form (core/amr_sparse.py) is not ported yet:
-ROADMAP, Block-sparse AMR.
+GB.  The block-sparse form (core/amr_sparse.py) stores the refined
+levels at memory proportional to their leaves.
 """
 
 from __future__ import annotations

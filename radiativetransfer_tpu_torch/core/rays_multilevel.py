@@ -24,7 +24,8 @@ int32 / int is float32 even in float64 runs: exact at power-of-two grids),
 and the quadrature_noneq mode's spectrum-exhaustion envelope bounding the
 k27..k31 weights too, as the port's and the JAX package's uniform tracers
 do.  The block-sparse addressing, its host-driven phase loop and
-trace_point_sources_sparse are not ported yet (ROADMAP, Block-sparse AMR).
+trace_point_sources_sparse are not ported yet (ROADMAP, Block-sparse AMR
+(c)): the block-sparse state itself is (core/amr_sparse.py).
 
 No hand kernel here: the JAX L-level tracer is a plain jax.lax.while_loop
 with no Pallas kernel.

@@ -10,21 +10,25 @@ modes 9 (UVB only), 8 (point sources and the UVB), 1 (point sources and
 the thin UVB) and 6 (the thin UVB, no stars) on one device, and the
 L-level model also the non-equilibrium 9-species chemistry
 (make_noneq_step, which the CLI runs on two-level grids too, as
-MultiLevelModel(2)).  Not ported yet, and raising NotImplementedError
-naming their ROADMAP items: the device mesh (shard_amr_state,
-shard_multilevel_state, the distributed tracers) and the block-sparse
-model.
+MultiLevelModel(2)).  SparseMLModel runs modes 9 and 6 on block-sparse
+storage (core/amr_sparse.py, core/sweep_sparse.py).  Not ported yet, and
+raising NotImplementedError naming their ROADMAP items: the device mesh
+(shard_amr_state, shard_multilevel_state, the distributed tracers) and
+the block-sparse tracer and noneq step (Block-sparse AMR (c)).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 
+import numpy as np
 import torch
 
 from . import (
     amr,
+    amr_sparse,
     chemistry,
     chemistry_noneq,
     opacity,
@@ -33,6 +37,7 @@ from . import (
     rays_multilevel,
     sweep_amr,
     sweep_multilevel,
+    sweep_sparse,
 )
 from .state import GridGeometry
 
@@ -402,4 +407,205 @@ class MultiLevelModel:
             return sum(float(torch.sum(torch.where(
                 m, getattr(lv, name).double(), 0.0))) * 8.0 ** -ell
                 for ell, (lv, m) in enumerate(zip(state.levels, leafs)))
+        return total("HI") / total("nh")
+
+
+@dataclasses.dataclass
+class SparseMLModel:
+    """L-level model on block-sparse storage (core/amr_sparse.py): the
+    iteration of MultiLevelModel -- zero rates, opacities and the
+    block-sparse sweep (core/sweep_sparse.py), chemistry on each level
+    with the padding blocks re-zeroed, restriction sync -- at memory
+    proportional to the leaves, the reference octree's
+    (definitionsModule.f90:163-180).  Modes 9 and 6 on one device; point
+    sources and the noneq chemistry raise NotImplementedError (ROADMAP,
+    Block-sparse AMR (c)), a mesh too (ROADMAP, Distribution)."""
+    rt: "object"                      # core.step.RTModel
+    n_levels: int
+    plan: sweep_multilevel.MLSweepPlan | None
+    n_coupling_iters: int = sweep_multilevel.N_COUPLING_ITERS
+    # the windowed sweep (the CLI's --sweep-window auto); False runs the
+    # full-plane stack
+    window_enabled: bool = True
+    # the sweep's refinement window (sweep_sparse.compute_window) and the
+    # digest of the refined0 it was computed from
+    _window: "object" = "unset"
+    _window_key: "object" = None
+
+    chemistry = MultiLevelModel.chemistry
+    level_geom = MultiLevelModel.level_geom
+
+    @classmethod
+    def setup(cls, rt_model, n_levels: int) -> "SparseMLModel":
+        """The L-level sweep plan (every level's templates, on the host)
+        when the run sweeps the UVB."""
+        plan = None
+        if rt_model.config.run_uvb_transfer:
+            plan = sweep_multilevel.build_ml_sweep_plan(
+                rt_model.config.n_angular_level, rt_model.geom.nx, n_levels)
+        return cls(rt=rt_model, n_levels=n_levels, plan=plan)
+
+    @staticmethod
+    def _check_supported(stellar=None, mesh=None) -> None:
+        if stellar is not None:
+            raise NotImplementedError(
+                "point sources on block-sparse AMR (the sparse tracer, "
+                "trace_point_sources_sparse) are not ported yet: ROADMAP, "
+                "Block-sparse AMR (c)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a block-sparse state on a mesh (shard_sparse_state, "
+                "diffuse_sweep_sparse_zones) is not ported yet: ROADMAP, "
+                "Distribution")
+
+    def _ensure_window(self, state: amr_sparse.SparseMLState):
+        """The sweep's refinement window of the state (None with
+        window_enabled False, or where compute_window finds none), cached
+        by a digest of its refined0: a state of another refinement
+        recomputes it."""
+        if not self.window_enabled:
+            self._window, self._window_key = None, "disabled"
+            return None
+        r0 = state.refined0.detach().cpu().numpy()
+        key = hashlib.sha1(np.packbits(r0.astype(np.uint8))).digest()
+        if isinstance(self._window, str) or key != self._window_key:
+            self._window = sweep_sparse.compute_window(state)
+            self._window_key = key
+        return self._window
+
+    def _kappas(self, state: amr_sparse.SparseMLState):
+        """(base opacity (3, n, n, n), [block opacity (3, nb, be, be, be)
+        of each refined level])."""
+        coef = self.rt.opacity_coef
+        return (opacity.compute_opacities(state.base.HI, state.base.HeI,
+                                          state.base.HeII, coef),
+                [opacity.compute_opacities(lv.fields.HI, lv.fields.HeI,
+                                           lv.fields.HeII, coef)
+                 for lv in state.levels])
+
+    @staticmethod
+    def _zero_rates(state: amr_sparse.SparseMLState):
+        return dataclasses.replace(
+            state, base=state.base.zero_rates(),
+            levels=tuple(dataclasses.replace(lv, fields=lv.fields.zero_rates())
+                         for lv in state.levels))
+
+    def _apply_sweep(self, state: amr_sparse.SparseMLState):
+        """Every level's opacities and the block-sparse sweep, into
+        Jmean."""
+        rt = self.rt
+        k0, lv_k = self._kappas(state)
+        j0, jbs = sweep_sparse.diffuse_sweep_sparse(
+            k0, lv_k, state, self.plan, rt.uvb, rt.geom.cell_size,
+            n_coupling_iters=self.n_coupling_iters,
+            window=self._ensure_window(state))
+        return dataclasses.replace(
+            state, base=dataclasses.replace(state.base, Jmean=j0),
+            levels=tuple(dataclasses.replace(lv, fields=dataclasses.replace(
+                lv.fields, Jmean=j)) for lv, j in zip(state.levels, jbs)))
+
+    def initialize_equilibrium(self, state: amr_sparse.SparseMLState):
+        """Each level in its own initial equilibrium (RTModel's), the
+        padding blocks re-zeroed after it, the restriction synced: the
+        CLI's start on block-sparse storage."""
+        rt = self.rt
+        return amr_sparse.sync_restriction_sparse(dataclasses.replace(
+            state, base=rt.initialize_equilibrium(state.base),
+            levels=tuple(dataclasses.replace(
+                lv, fields=amr_sparse.zero_pad_blocks(
+                    rt.initialize_equilibrium(lv.fields),
+                    lv.pad_mask(rt.geom.nx * 2 ** ell)))
+                for ell, lv in enumerate(state.levels, start=1))))
+
+    def _chemistry_and_sync(self, state: amr_sparse.SparseMLState):
+        """Chemistry on every level, each refined level's padding blocks
+        (origin out of range) re-zeroed after it -- chemistry on their zero
+        fields is garbage, and absent tiles gather them -- then the
+        restriction sync."""
+        levels = []
+        for ell, lv in enumerate(state.levels, start=1):
+            f = self.chemistry(lv.fields, self.level_geom(ell))
+            pad = lv.pad_mask(self.rt.geom.nx * 2 ** ell)
+            levels.append(dataclasses.replace(
+                lv, fields=amr_sparse.zero_pad_blocks(f, pad)))
+        state = dataclasses.replace(
+            state, base=self.chemistry(state.base, self.rt.geom),
+            levels=tuple(levels))
+        return amr_sparse.sync_restriction_sparse(state)
+
+    def _sweep_and_chemistry(self, state: amr_sparse.SparseMLState):
+        if self.rt.config.run_uvb_transfer:
+            state = self._apply_sweep(state)
+        return self._chemistry_and_sync(state)
+
+    def step(self, state: amr_sparse.SparseMLState, stellar=None,
+             mesh=None):
+        """One full iteration: (state, None) -- no point sources on this
+        storage yet."""
+        self._check_supported(stellar, mesh)
+        return self._sweep_and_chemistry(self._zero_rates(state)), None
+
+    def make_step(self, stellar=None, split_compile: bool = False,
+                  mesh=None):
+        """The iteration step, a plain eager function state -> state.
+        split_compile (the JAX package's per-piece compiles for its remote
+        TPU worker) is accepted and changes nothing here."""
+        self._check_supported(stellar, mesh)
+        return lambda state: self.step(state)[0]
+
+    def make_noneq_step(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the non-equilibrium chemistry on block-sparse AMR "
+            "(SparseMLModel.make_noneq_step) is not ported yet: ROADMAP, "
+            "Block-sparse AMR (c)")
+
+    def validate_coupling_depth(self, state: amr_sparse.SparseMLState,
+                                tol: float = 1e-8, max_iters: int = 6) -> int:
+        """The smallest coupling depth whose one-more-pass leaf Jmean
+        residual is below tol, measured with the block-sparse sweep itself
+        (in the run's window) on a 12-direction level-1 plan, and
+        adopted."""
+        rt = self.rt
+        plan1 = sweep_multilevel.build_ml_sweep_plan(1, rt.geom.nx,
+                                                     self.n_levels)
+        k0, lv_k = self._kappas(state)
+        win = self._ensure_window(state)
+
+        def sweep(iters):
+            return sweep_sparse.diffuse_sweep_sparse(
+                k0, lv_k, state, plan1, rt.uvb, rt.geom.cell_size,
+                n_coupling_iters=iters, window=win)
+
+        def leaf_max_diff(a, b):
+            (j0a, jba), (j0b, jbb) = a, b
+            scale = max(float(j0a.abs().max()), 1e-300)
+            res = float(torch.where(~state.refined0[None],
+                                    (j0a - j0b).abs(), 0.0).max()) / scale
+            for lv, x, y in zip(state.levels, jba, jbb):
+                leaf = lv.cover & ~lv.refined
+                d = float(torch.where(leaf[None], (x - y).abs(), 0.0).max())
+                res = max(res, d / max(float(x.abs().max()), scale))
+            return res
+
+        prev = sweep(1)
+        for iters in range(1, max_iters + 1):
+            nxt = sweep(iters + 1)
+            if leaf_max_diff(prev, nxt) < tol:
+                self.n_coupling_iters = iters
+                return iters
+            prev = nxt
+        self.n_coupling_iters = max_iters
+        return max_iters
+
+    def neutral_fraction(self, state: amr_sparse.SparseMLState) -> float:
+        """Leaf-volume-weighted neutral hydrogen fraction, each level
+        summed in float64 on the state's device."""
+        def total(name):
+            out = float(torch.where(state.refined0, 0.0, getattr(
+                state.base, name).double()).sum())
+            for ell, lv in enumerate(state.levels, start=1):
+                leaf = lv.cover & ~lv.refined
+                out += float(torch.where(leaf, getattr(
+                    lv.fields, name).double(), 0.0).sum()) * 8.0 ** -ell
+            return out
         return total("HI") / total("nh")

@@ -184,20 +184,27 @@ def _segment_factors(kappa_slab, sp):
                                                        "len3")]
 
 
-def _segment_outputs(i_top_in, factors, sp, side_j, side_k):
+def _segment_outputs(i_top_in, factors, sp, side_j, side_k,
+                     want_segs: bool = False):
     """All 3 chained segment outputs for one slab plane.
 
     factors: _segment_factors of the slab.  side_j / side_k: callables
     mapping a segment-output plane to the upwind side-input plane (closures
-    encode level coupling and boundaries).
+    encode level coupling and boundaries), or a pair of them, the first
+    for segment 2's input and the second for segment 3's (the windowed
+    block-sparse sweep's per-segment boundary lines, core/sweep_sparse.py).
+    want_segs also returns the chained intermediates that the side
+    closures consume, "seg1" and "seg2", for that sweep's window merge.
     """
+    sj2, sj3 = side_j if isinstance(side_j, tuple) else (side_j, side_j)
+    sk2, sk3 = side_k if isinstance(side_k, tuple) else (side_k, side_k)
     (a1, e1), (a2, e2), (a3, e3) = factors
     i_out1, lm1 = i_top_in * a1, i_top_in * e1
 
-    i_in2 = torch.where(sp["is2_xz"], side_j(i_out1), side_k(i_out1))
+    i_in2 = torch.where(sp["is2_xz"], sj2(i_out1), sk2(i_out1))
     i_out2, lm2 = i_in2 * a2, i_in2 * e2
 
-    i_in3 = torch.where(sp["is3_xz"], side_j(i_out2), side_k(i_out2))
+    i_in3 = torch.where(sp["is3_xz"], sj3(i_out2), sk3(i_out2))
     i_out3, lm3 = i_in3 * a3, i_in3 * e3
 
     act2 = sp["act2"]
@@ -218,9 +225,12 @@ def _segment_outputs(i_top_in, factors, sp, side_j, side_k):
         return torch.where(is_xy, i_out1, torch.where(
             is_xz, out_xz, torch.where(is_yz, out_yz, fallback)))
 
-    return {"top": top, "j_slab": j_slab,
-            "exit_jface": by_tag(sp["top_xz"]),
-            "exit_kface": by_tag(sp["top_yz"])}
+    out = {"top": top, "j_slab": j_slab,
+           "exit_jface": by_tag(sp["top_xz"]),
+           "exit_kface": by_tag(sp["top_yz"])}
+    if want_segs:
+        out["seg1"], out["seg2"] = i_out1, i_out2
+    return out
 
 
 def _slab(tables: dict, i: int) -> dict:

@@ -117,8 +117,34 @@ def _shift_mask(m, pad_val: bool, dim: int):
     return torch.cat([pad, m.narrow(dim, 0, m.shape[dim] - 1)], dim=dim)
 
 
+def _side_fns(shift, pads, nb_cov, coarse, nb_ref, leaf):
+    """A level's side-input function: the shifted plane with `pads` as the
+    upwind boundary line, where the neighbor is not covered at this level
+    the coarser level's face exit (`coarse`), where it is refined the
+    finer level's (`leaf`).  With a pair of pads (and then a pair of leaf
+    planes, or None), a pair of functions, for segments 2 and 3."""
+    def make(pad, leaf_p):
+        def side(x):
+            v = shift(x, pad)
+            if coarse is not None:
+                v = torch.where(nb_cov, v, coarse)
+            if leaf_p is not None:
+                v = torch.where(nb_ref, leaf_p, v)
+            return v
+        return side
+    if isinstance(pads, tuple):
+        leafs = leaf if leaf is not None else (None, None)
+        return tuple(make(p, lf) for p, lf in zip(pads, leafs))
+    return make(pads, leaf)
+
+
+def _per_pad(fn, pads):
+    """fn of each pad of a pair, or of the one pad."""
+    return tuple(fn(p) for p in pads) if isinstance(pads, tuple) else fn(pads)
+
+
 def _slab_gauss_seidel(carry, slab, n_passes: int, uvb_j, uvb_k, sel,
-                       ones):
+                       ones, level0_segs: bool = False):
     """Gauss-Seidel coupling passes for ONE base slab of an L-level stack;
     returns est, est[l][s] the segment outputs of level l's sub-slab s.
 
@@ -134,11 +160,23 @@ def _slab_gauss_seidel(carry, slab, n_passes: int, uvb_j, uvb_k, sel,
     the per-direction child of a finer plane (_sel_child); ones: the
     child index 1 for every direction.
 
+    uvb_j[0] / uvb_k[0] may be a pair of boundary lines, the first for
+    segment 2's side input and the second for segment 3's: the windowed
+    block-sparse sweep (core/sweep_sparse.py) passes there the plain
+    full-plane pass's intermediates at its window's upwind edge, the JAX
+    package's (pad_seg2, pad_seg3) form.  level0_segs keeps level 0's
+    chained intermediates ("seg1", "seg2") in est[0][0].
+
     Pass 1 runs with no finer estimate; later passes read the previous
     pass's finer-level planes and the current pass's coarser ones, as the
     JAX package's _slab_gauss_seidel does.  A level's coarser and finer
     side planes are made once a pass, before its segments.
     """
+    def first(pads):
+        # the coarse pad line feeds only first-row cells, which a window
+        # keeps uncovered: either line of a pair does
+        return pads[0] if isinstance(pads, tuple) else pads
+
     L = len(slab)
     est = None
     for _ in range(n_passes):
@@ -177,43 +215,34 @@ def _slab_gauss_seidel(carry, slab, n_passes: int, uvb_j, uvb_k, sel,
                 if ell > 0:
                     c_est = new[ell - 1][s // 2]
                     coarse_j = _prolong_plane(
-                        _shift_j(c_est["exit_jface"], uvb_j[ell - 1]))
+                        _shift_j(c_est["exit_jface"], first(uvb_j[ell - 1])))
                     coarse_k = _prolong_plane(
-                        _shift_k(c_est["exit_kface"], uvb_k[ell - 1]))
+                        _shift_k(c_est["exit_kface"], first(uvb_k[ell - 1])))
                 if est is not None and ell < L - 1:
                     f0, f1 = est[ell + 1][2 * s], est[ell + 1][2 * s + 1]
                     # xz rays pick the sub-slab by z0 and the k-child by
                     # x0 (j-child 1, the face-adjacent row); yz rays the
                     # sub-slab by z0 and the j-child by y0
                     ck = sp["ck_xz"]
-                    leaf_j = _shift_j(torch.where(
-                        sp["sub_xz"], sel(f1["exit_jface"], ones, ck),
-                        sel(f0["exit_jface"], ones, ck)), uvb_j[ell])
+                    sel_j = torch.where(sp["sub_xz"],
+                                        sel(f1["exit_jface"], ones, ck),
+                                        sel(f0["exit_jface"], ones, ck))
+                    leaf_j = _per_pad(lambda p, x=sel_j: _shift_j(x, p),
+                                      uvb_j[ell])
                     cj = sp["cj_yz"]
-                    leaf_k = _shift_k(torch.where(
-                        sp["sub_yz"], sel(f1["exit_kface"], cj, ones),
-                        sel(f0["exit_kface"], cj, ones)), uvb_k[ell])
+                    sel_k = torch.where(sp["sub_yz"],
+                                        sel(f1["exit_kface"], cj, ones),
+                                        sel(f0["exit_kface"], cj, ones))
+                    leaf_k = _per_pad(lambda p, x=sel_k: _shift_k(x, p),
+                                      uvb_k[ell])
 
-                def side(x, shift, uvb_l, nb_cov, coarse, nb_ref, leaf):
-                    v = shift(x, uvb_l)
-                    if coarse is not None:
-                        v = torch.where(nb_cov, v, coarse)
-                    if leaf is not None:
-                        v = torch.where(nb_ref, leaf, v)
-                    return v
-
-                def side_j(x, sub=sub, ell=ell, coarse=coarse_j,
-                           leaf=leaf_j):
-                    return side(x, _shift_j, uvb_j[ell], sub["nb_cov_j"],
-                                coarse, sub["nb_ref_j"], leaf)
-
-                def side_k(x, sub=sub, ell=ell, coarse=coarse_k,
-                           leaf=leaf_k):
-                    return side(x, _shift_k, uvb_k[ell], sub["nb_cov_k"],
-                                coarse, sub["nb_ref_k"], leaf)
-
-                new[ell][s] = _segment_outputs(xy_in, sub["att"], sp,
-                                               side_j, side_k)
+                side_j = _side_fns(_shift_j, uvb_j[ell], sub["nb_cov_j"],
+                                   coarse_j, sub["nb_ref_j"], leaf_j)
+                side_k = _side_fns(_shift_k, uvb_k[ell], sub["nb_cov_k"],
+                                   coarse_k, sub["nb_ref_k"], leaf_k)
+                new[ell][s] = _segment_outputs(
+                    xy_in, sub["att"], sp, side_j, side_k,
+                    want_segs=level0_segs and ell == 0)
         est = new
     return est
 
@@ -252,11 +281,12 @@ def _zone_bytes(shape0, n_levels: int, ndir: int, itemsize: int) -> int:
 
 
 def _zones_per_batch(shape0, n_levels: int, ndir: int, dtype,
-                     device) -> int:
+                     device, zone_bytes=None) -> int:
     """How many zones of ndir directions one batch carries: those that fit
     in half of the device's free memory (on a CUDA device: what CUDA
     reports free and what PyTorch's allocator holds unused), or in 2
-    GiB."""
+    GiB.  zone_bytes(ndir, itemsize): a zone's bytes, _zone_bytes' dense
+    count when None."""
     if torch.device(device).type == "cuda":
         free = (torch.cuda.mem_get_info(device)[0]
                 + torch.cuda.memory_reserved(device)
@@ -264,8 +294,9 @@ def _zones_per_batch(shape0, n_levels: int, ndir: int, dtype,
         budget = free // 2
     else:
         budget = 2 ** 31
-    per_zone = _zone_bytes(shape0, n_levels, ndir,
-                           torch.finfo(dtype).bits // 8)
+    itemsize = torch.finfo(dtype).bits // 8
+    per_zone = (_zone_bytes(shape0, n_levels, ndir, itemsize)
+                if zone_bytes is None else zone_bytes(ndir, itemsize))
     return max(1, budget // per_zone)
 
 
@@ -288,19 +319,20 @@ def _rotate_in(vols, izones, to_sweep):
     return out
 
 
-def zone_batches(plan: MLSweepPlan, shape0, dtype, device):
+def zone_batches(plan: MLSweepPlan, shape0, dtype, device,
+                 zone_bytes=None):
     """The plan's zones in the batches diffuse_sweep_multilevel sweeps
     them in, each a list of MLZoneBatch: the groups of equal direction
     count in the order their counts first appear, each cut into batches of
-    _zones_per_batch zones (sized as the group is reached), or of one zone
-    on a non-cubic grid."""
+    _zones_per_batch zones (sized as the group is reached, by zone_bytes
+    when given), or of one zone on a non-cubic grid."""
     groups: dict[int, list[MLZoneBatch]] = {}
     for zone in plan.zones:
         groups.setdefault(zone.ndir, []).append(zone)
     cubic = len(set(shape0)) == 1
     for ndir, zones in groups.items():
-        size = (_zones_per_batch(shape0, plan.n_levels, ndir, dtype, device)
-                if cubic else 1)
+        size = (_zones_per_batch(shape0, plan.n_levels, ndir, dtype, device,
+                                 zone_bytes) if cubic else 1)
         for b in range(0, len(zones), size):
             yield zones[b:b + size]
 

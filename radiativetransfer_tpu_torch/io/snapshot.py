@@ -18,13 +18,15 @@ the state's device.  A non-equilibrium run adds its 9-species state
 (`species_extra`, `read_species`; a nested run one set a level, under
 `species{l}_*`) under keys that the field readers do not read, so an
 equilibrium run restarts from it too.  L-level states (write_snapshot_ml)
-flatten every level's leaves the same way.  The block-sparse form is not
-ported yet and raises.
+flatten every level's leaves the same way, and block-sparse ones
+(write_snapshot_sparse) too, their block structure recorded as each
+level's block origins.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import re
 
@@ -124,14 +126,6 @@ def read_snapshot(path: str, state: FieldState) -> tuple[FieldState, int]:
     HI, HeI, HeII = _clamp_species(state, HI, HeI, HeII)
     return dataclasses.replace(state, HI=HI, HeI=HeI, HeII=HeII,
                                tgas=tgas, vel=vel), itime
-
-
-def _not_ported(what: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet: ROADMAP, {item}")
-    fn.__name__ = what
-    fn.__doc__ = f"{what}: not ported yet (ROADMAP, {item})."
-    return fn
 
 
 def write_snapshot_amr(path: str, state, itime: int,
@@ -295,10 +289,167 @@ def read_snapshot_ml(path: str, state) -> tuple["object", int]:
     return amr_mod.sync_restriction_multi(state), itime
 
 
-# the storage forms of the JAX package's io/snapshot.py:320-555
-write_snapshot_sparse = _not_ported("write_snapshot_sparse",
-                                    "Block-sparse AMR")
-read_snapshot_sparse = _not_ported("read_snapshot_sparse", "Block-sparse AMR")
+def _sparse_leaf_maps(state) -> list[np.ndarray]:
+    """The dense uint8 refinement bitmaps that the SFC codec enumerates,
+    rebuilt on the host from block storage (the deepest one needed lives
+    at level L-2)."""
+    from ..core import amr_sparse
+    refined = [state.refined0.detach().cpu().numpy().astype(np.uint8)]
+    for lv in state.levels[:-1]:
+        refined.append(amr_sparse.unblockify_like(
+            lv, lv.refined, fill=False).astype(np.uint8))
+    return refined
+
+
+def _sparse_block_index(state, level: np.ndarray, src: np.ndarray) -> list:
+    """Per level, (the leaves' positions in SFC order, their flat indices
+    into the level's storage: the dense base, or the blocks); a leaf in
+    an absent block raises ValueError."""
+    n = state.n
+    out = []
+    for ell in range(state.n_levels):
+        sel = np.nonzero(level == ell)[0]
+        s = src[sel]
+        if ell == 0:
+            out.append((sel, s))
+            continue
+        lv = state.levels[ell - 1]
+        be = lv.be
+        n_l = n * 2 ** ell
+        i, rem = np.divmod(s, n_l * n_l)
+        j, k = np.divmod(rem, n_l)
+        t = lv.slot.detach().cpu().numpy()[i // be, j // be, k // be]
+        if np.any(t < 0):
+            raise ValueError("SFC leaf maps to an absent block "
+                             "(inconsistent sparse structure)")
+        off = ((i % be) * be + j % be) * be + k % be
+        out.append((sel, t.astype(np.int64) * be ** 3 + off))
+    return out
+
+
+def _real_origins(state, ell: int) -> np.ndarray:
+    """Level ell's block origins, the padding blocks' left out."""
+    o = state.levels[ell - 1].origin.detach().cpu().numpy().astype(np.int32)
+    return o[o[:, 0] < state.n * 2 ** ell]
+
+
+def _bitmap_digest(bitmap: np.ndarray) -> np.ndarray:
+    """Stable 20-byte digest of a refinement bitmap (sha1 of packed bits)."""
+    packed = np.packbits(np.asarray(bitmap, np.uint8).reshape(-1))
+    return np.frombuffer(hashlib.sha1(packed.tobytes()).digest(), np.uint8)
+
+
+def write_snapshot_sparse(path: str, state, itime: int,
+                          physical_box_size: float,
+                          extra: dict | None = None) -> None:
+    """Write a block-sparse SparseMLState in depth-first cellArray leaf
+    order at O(leaves) file size (writeIonization at any octree depth,
+    equiSources.f90:4797-4912), with the JAX package's keys: the depth
+    `n_levels`, `storage` "sparse", each leaf's `level`, the leaf streams in
+    float32, each refined level's real block origins `origin_{l}` (not
+    dense bitmaps) and each bitmap's digest `refined_digest_{l}`; `extra`
+    is written between the two."""
+    n = state.n
+    refined = _sparse_leaf_maps(state)
+    enum = sfc.enumerate_leaves(n, n, n, refined)
+    level = enum["level"]
+    gather = _sparse_block_index(state, level, enum["src"])
+    fields = [state.base] + [lv.fields for lv in state.levels]
+    leaves = None
+    for (sel, idx), f in zip(gather, fields):
+        host = _stack_host(f)
+        host = host.reshape(len(host), -1)
+        if leaves is None:
+            leaves = np.zeros((len(host), level.shape[0]), np.float32)
+        leaves[:, sel] = host[:, idx]
+    data = {
+        "base_grid_size": np.array(state.base.shape, np.int32),
+        "itime": np.int32(itime),
+        "physical_box_size": np.float64(physical_box_size),
+        "n_levels": np.int32(state.n_levels),
+        "storage": np.str_("sparse"),
+        "level": level.astype(np.int32),
+    }
+    data.update({key: leaves[i] for i, (key, _) in enumerate(_FIELDS)})
+    if state.base.vel is not None:
+        data["velx"], data["vely"], data["velz"] = leaves[len(_FIELDS):]
+    for ell in range(1, state.n_levels):
+        # real blocks only: padding blocks are a runtime matter
+        data[f"origin_{ell}"] = _real_origins(state, ell)
+    if extra:
+        data.update(extra)
+    # a bitmap change confined inside existing tiles can keep the block set
+    # AND the leaf count while changing the SFC enumeration: the digests
+    # let the restart reject it (equiSources.f90:1124-1127)
+    for ell, r in enumerate(refined):
+        data[f"refined_digest_{ell}"] = _bitmap_digest(r)
+    np.savez_compressed(path, **data)
+
+
+def read_snapshot_sparse(path: str, state) -> tuple["object", int]:
+    """Re-inflate a block-sparse snapshot onto an existing SparseMLState
+    (restart): the structure is rebuilt from the input grid, as the
+    reference does, and checked against the file's depth, block origins,
+    bitmap digests and leaf count (equiSources.f90:1124-1127; a mismatch
+    raises ValueError); the leaf values go into the blocks with the
+    reference's species clamps on each level, then the restriction
+    syncs the parents."""
+    from ..core import amr_sparse
+    n = state.n
+    with np.load(path) as f:
+        itime = int(f["itime"])
+        if int(f["n_levels"]) != state.n_levels:
+            raise ValueError("snapshot depth differs from the state")
+        for ell in range(1, state.n_levels):
+            if not np.array_equal(f[f"origin_{ell}"],
+                                  _real_origins(state, ell)):
+                raise ValueError(
+                    "snapshot block structure differs from the state "
+                    "(structure is rebuilt from the input grid, "
+                    "equiSources.f90:1124-1127)")
+        refined = _sparse_leaf_maps(state)
+        for ell, r in enumerate(refined):
+            key = f"refined_digest_{ell}"
+            if key in f and not np.array_equal(f[key], _bitmap_digest(r)):
+                raise ValueError(
+                    f"snapshot refinement bitmap differs from the state at "
+                    f"level {ell}: the SFC leaf enumeration would put values "
+                    f"into the wrong cells (structure is rebuilt from the "
+                    f"input grid, equiSources.f90:1124-1127)")
+        enum = sfc.enumerate_leaves(n, n, n, refined)
+        level = enum["level"]
+        if level.shape[0] != f["HI"].shape[0]:
+            raise ValueError("snapshot leaf count differs from the state")
+        gather = _sparse_block_index(state, level, enum["src"])
+        keys = ["HI", "HeI", "HeII", "temperature"]
+        with_vel = "velx" in f and state.base.vel is not None
+        if with_vel:
+            keys += ["velx", "vely", "velz"]
+        vals = {k: f[k].astype(np.float64) for k in keys}
+
+    def level_fields(st, sel, idx):
+        dtype, device = st.HI.dtype, st.HI.device
+
+        def put(cur, key):
+            a = cur.detach().cpu().numpy().astype(np.float64).reshape(-1)
+            a[idx] = vals[key][sel]
+            return torch.as_tensor(a.reshape(cur.shape), dtype=dtype,
+                                   device=device)
+        HI, HeI, HeII = _clamp_species(st, put(st.HI, "HI"),
+                                       put(st.HeI, "HeI"),
+                                       put(st.HeII, "HeII"))
+        vel = (torch.stack([put(st.vel[i], "vel" + c)
+                            for i, c in enumerate("xyz")])
+               if with_vel else st.vel)
+        return dataclasses.replace(st, HI=HI, HeI=HeI, HeII=HeII,
+                                   tgas=put(st.tgas, "temperature"), vel=vel)
+
+    base = level_fields(state.base, *gather[0])
+    levels = tuple(dataclasses.replace(lv, fields=level_fields(lv.fields,
+                                                                *g))
+                   for lv, g in zip(state.levels, gather[1:]))
+    state = dataclasses.replace(state, base=base, levels=levels)
+    return amr_sparse.sync_restriction_sparse(state), itime
 
 
 # the non-equilibrium prognostic state: chemistry_noneq.SpeciesState's fields

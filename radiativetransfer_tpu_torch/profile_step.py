@@ -1,7 +1,7 @@
 """Profile steps of the port on one CUDA device, layer by layer.
 
     python3 -m radiativetransfer_tpu_torch.profile_step [n] [level] [mode] \
-        [ranks] [noneq] [amr]
+        [ranks] [noneq] [amr] [sparse]
 
 Mode 9 (the default) builds the synthetic galaxy of chip_smoke.py (n^3,
 default 128, angular level default 3) and runs initialize_equilibrium.
@@ -37,6 +37,24 @@ profiler windows; the tracer in a profiler window (its device-busy share
 and events a march step); the first zone batch's sweep over its first 8
 base slabs traced at full width (its launches and device-busy share); and
 the peak device memory.
+amr L >= 3 with sparse 1 (modes 9 and 6, one rank, equilibrium chemistry)
+runs the block-sparse L-level step (core/step_amr.py::SparseMLModel) on
+make_test_data's galaxy with its refined centre and core, written by
+chip_smoke.write_cli_inputs and ingested as the CLI ingests it
+(sparse_from_level_lists, blocks of 8; the CLI's storage rule printed): it
+times the ingestion, compute_window, the plan, validate_coupling_depth and
+the equilibrium, prints W and the share of base slabs that take the skip
+branch, runs a warm-up step and one step layer by layer (opacity, the
+sparse sweep's device and host ms, chemistry on each level,
+sync_restriction_sparse), the peak device memory and memory_bytes, times
+the full-plane sparse sweep from the same state (the window's speed-up),
+traces
+the first zone batch's first 8 covered base slabs at full width (its
+device-busy share), counts the launches per covered and per skipped base
+slab from two agreeing windows each (4 and 8 slabs; up to 64^3), and
+times write_snapshot_sparse (s and MB).  sparse 2 (mode 9) holds one
+block-sparse step to one dense L-level step from the same ingested galaxy
+(main_sparse_vs_dense).
 Otherwise it runs one warm-up step, times each layer of a step with CUDA
 events (the tracer in mode 8, opacity, sweep, chemistry; the tracer also
 per march step; noneq: tracer, opacity, sweep, _assemble_photo_rates and
@@ -70,6 +88,7 @@ from .config import (
 from .constants import KPC, MH, MYR, PSI
 from .core import (
     amr,
+    amr_sparse,
     chemistry,
     chemistry_noneq,
     opacity,
@@ -77,8 +96,9 @@ from .core import (
     rays_multilevel,
     sweep_amr,
     sweep_multilevel,
+    sweep_sparse,
 )
-from .core.step_amr import AMRModel, MultiLevelModel
+from .core.step_amr import AMRModel, MultiLevelModel, SparseMLModel
 from .geometry import octants
 from .parallel.mesh import make_grid_mesh
 from .roofline_sweep import nvidia_smi
@@ -495,6 +515,132 @@ def ml_batch_window(amodel, state, slabs: int):
     return wall, _busy_us(events) / 1e6, launches, len(zones)
 
 
+def sparse_layer_names(n_levels: int) -> tuple:
+    """The layers of sparse_layers."""
+    return ("opacity", "sweep", *(f"chemistry_{ell}"
+                                  for ell in range(n_levels)),
+            "sync_restriction_sparse")
+
+
+def sparse_layers(amodel, state, count=()):
+    """One block-sparse step from `state`, layer by layer, as
+    SparseMLModel's step runs it: (the state after the step, {layer:
+    (device ms, host ms, launches)}) for opacity on every level and the
+    sparse sweep in the model's window (where the mode sweeps), chemistry
+    on each level with its padding blocks re-zeroed (chemistry_0, ...) and
+    sync_restriction_sparse; `count` as ml_layers takes it."""
+    rt = amodel.rt
+    rows, layer = _layer_rows(count)
+    s0 = amodel._zero_rates(state)
+    if amodel.plan is not None:
+        k0, lv_k = layer("opacity", lambda: amodel._kappas(s0))
+        win = amodel._ensure_window(s0)
+        j0, jbs = layer("sweep", lambda: sweep_sparse.diffuse_sweep_sparse(
+            k0, lv_k, s0, amodel.plan, rt.uvb, rt.geom.cell_size,
+            amodel.n_coupling_iters, window=win))
+        s0 = dataclasses.replace(
+            s0, base=dataclasses.replace(s0.base, Jmean=j0),
+            levels=tuple(dataclasses.replace(lv, fields=dataclasses.replace(
+                lv.fields, Jmean=j)) for lv, j in zip(s0.levels, jbs)))
+    base = layer("chemistry_0", lambda: amodel.chemistry(s0.base, rt.geom))
+    levels = []
+    for ell, lv in enumerate(s0.levels, start=1):
+        f = layer(f"chemistry_{ell}", lambda lv=lv, ell=ell:
+                  amr_sparse.zero_pad_blocks(
+                      amodel.chemistry(lv.fields, amodel.level_geom(ell)),
+                      lv.pad_mask(rt.geom.nx * 2 ** ell)))
+        levels.append(dataclasses.replace(lv, fields=f))
+    s2 = layer("sync_restriction_sparse",
+               lambda: amr_sparse.sync_restriction_sparse(dataclasses.replace(
+                   s0, base=base, levels=tuple(levels))))
+    return s2, {k: tuple(v) for k, v in rows.items()}
+
+
+def sparse_first_batch(amodel, state):
+    """(the inputs of the sparse sweep's first zone batch
+    (sweep_sparse.batch_inputs) on the state's opacities in the model's
+    window, its zones)."""
+    rt = amodel.rt
+    k0, lv_k = amodel._kappas(state)
+    win = amodel._ensure_window(state)
+    n = state.n
+    batch = next(sweep_multilevel.zone_batches(
+        amodel.plan, (n, n, n), k0.dtype, k0.device,
+        sweep_sparse._sparse_zone_bytes(state, None if win is None
+                                        else win[0])))
+    ctx = sweep_sparse.build_ctx(k0, lv_k, state)
+    return sweep_sparse.batch_inputs(batch, ctx, win, rt.geom.cell_size), \
+        batch
+
+
+def sparse_skip_share(amodel, state) -> float:
+    """The share of base slabs that take the skip branch, over the
+    sweep's zone batches."""
+    n = state.n
+    k0 = state.base.rho
+    win = amodel._ensure_window(state)
+    r0 = state.refined0.detach().cpu().numpy().astype(bool)
+    skipped = total = 0
+    for batch in sweep_multilevel.zone_batches(
+            amodel.plan, (n, n, n), k0.dtype, k0.device,
+            sweep_sparse._sparse_zone_bytes(state, None if win is None
+                                            else win[0])):
+        has = np.stack([sweep_sparse._has_fine(octants.rotate_to_sweep(
+            r0, z.izone)) for z in batch]).any(axis=0)
+        skipped += int((~has).sum())
+        total += n
+    return skipped / total
+
+
+def sparse_slab_window(amodel, inputs, covered: bool, slabs: int):
+    """The sweep of one zone batch (sparse_first_batch's inputs) over the
+    first `slabs` consecutive base slabs that are covered (need the fine
+    levels) or skipped, from the UVB at the first, at the grid's full
+    width, in a profiler window of its own: (host wall s, device-busy s,
+    kernel launches, the slabs, {kernel name: (device ms, launches)})."""
+    rt = amodel.rt
+    has = inputs[4]
+    n = len(has)
+    starts = [i for i in range(n - slabs + 1)
+              if all(has[i:i + slabs] == covered)]
+    if not starts:
+        raise ValueError(f"no {slabs} consecutive "
+                         f"{'covered' if covered else 'skipped'} slabs")
+    slab_range = range(starts[0], starts[0] + slabs)
+
+    def body():
+        t0 = time.perf_counter()
+        sweep_sparse.sweep_zone_sparse(*inputs, rt.uvb, amodel.plan.weight,
+                                       amodel.n_coupling_iters,
+                                       slabs=slab_range)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, events = _traced(body)
+    launches = sum(1 for name, _, _ in events
+                   if not name.startswith(("Memcpy", "Memset")))
+    by_name = {}
+    for name, start, end in events:
+        ms, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e3, k + 1)
+    return wall, _busy_us(events) / 1e6, launches, slab_range, by_name
+
+
+def sparse_slab_launches(amodel, state, covered: bool, k: int = 4) -> float:
+    """Launches per covered (or skipped) base slab of the first zone
+    batch's sweep: the launches of 2k and of k such slabs, each from two
+    profiler windows that must agree, their difference over k."""
+    inputs, _ = sparse_first_batch(amodel, state)
+    counts = {}
+    for m in (k, 2 * k):
+        c = [sparse_slab_window(amodel, inputs, covered, m)[2]
+             for _ in range(2)]
+        if c[0] != c[1] or c[0] == 0:
+            raise RuntimeError(f"two traces of {m} slabs count {c} kernels")
+        counts[m] = c[0]
+    return (counts[2 * k] - counts[k]) / k
+
+
 def noneq_layers(model, state, species, ctx=None, mesh=None,
                  dt: float = MYR, n_substeps: int = 200) -> dict:
     """One non-equilibrium step, layer by layer, from `state` and
@@ -761,11 +907,199 @@ def main_amr(n: int, level: int, mode: int, smi: str) -> None:
               f"{kernels:.0f} device events; card {smi}")
 
 
+def sparse_galaxy(n: int, directory: str, be: int = 8,
+                  device="cuda"):
+    """((make_test_data's galaxy at n^3 with its refined centre and core,
+    as chip_smoke.write_cli_inputs writes it, ingested block-sparse as the
+    CLI ingests it: f32, blocks of `be`), the CLI's storage under its
+    default --amr-storage auto, ingestion seconds)."""
+    import chip_smoke
+
+    from . import cli
+    from .io import grid_io
+    if not os.path.exists(os.path.join(directory, "inputParameters")):
+        chip_smoke.write_cli_inputs(directory, n, refine_center=True,
+                                    refine_core=True)
+    levels = grid_io.read_level_npz(os.path.join(directory,
+                                                 "testgrid_velmet.npz"))
+    storage = cli._nesting(levels, cli._parser().parse_args(["cfg"]), None)
+    t0 = time.perf_counter()
+    state, _ = amr_sparse.sparse_from_level_lists(levels, True, be=be,
+                                                  device=device)
+    torch.cuda.synchronize()
+    return state, storage, time.perf_counter() - t0
+
+
+def main_sparse(n: int, level: int, mode: int, smi: str) -> None:
+    from .io import snapshot
+    cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
+                    reionization_model=10, self_shielding_threshold_kpc=0.1)
+    model = RTModel.setup(cfg, GridGeometry(n, n, n, 300.0 * KPC),
+                          torch.float32, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        state, storage, ingest_s = sparse_galaxy(n, tmp)
+        L = state.n_levels
+        t0 = time.perf_counter()
+        amodel = SparseMLModel.setup(model, L)
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        win = amodel._ensure_window(state)
+        window_s = time.perf_counter() - t0
+        print(f"block-sparse {n}^3 + {L - 1} levels (the CLI's storage "
+              f"under --amr-storage auto: {storage}): {state.n_leaves()} "
+              f"leaves, blocks {[lv.n_blocks for lv in state.levels]} of "
+              f"{state.be}^3, memory_bytes {state.memory_bytes() / 1e9:.3f} "
+              f"GB; ingestion {ingest_s:.3f} s, compute_window "
+              f"{window_s:.3f} s (W {None if win is None else win[0]}), "
+              f"plan setup {plan_s:.3f} s; card {smi}")
+        if amodel.plan is not None:
+            (depth, val_ms, val_host, _) = _timed(
+                lambda: amodel.validate_coupling_depth(state))
+            print(f"validate_coupling_depth: depth {depth}, {val_ms:.3f} ms "
+                  f"(host {val_host:.3f} ms); skip share "
+                  f"{sparse_skip_share(amodel, state):.4f}; card {smi}")
+        t0 = time.perf_counter()
+        state = amodel.initialize_equilibrium(state)
+        torch.cuda.synchronize()
+        eq_s = time.perf_counter() - t0
+        nf0 = amodel.neutral_fraction(state)
+        state = amodel.make_step()(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, rows = sparse_layers(amodel, state)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        print(f"block-sparse mode {mode} at {n}^3 x {cfg.n_directions} dirs "
+              f"f32, coupling depth {amodel.n_coupling_iters}: equilibrium "
+              f"{eq_s:.3f} s; one step {step_s:.3f} s, layers (device ms / "
+              f"host ms): " + ", ".join(f"{k} {ms:.3f} / {host:.3f}"
+                                        for k, (ms, host, _) in rows.items())
+              + f"; neutral fraction {nf0:.7f} -> "
+              f"{amodel.neutral_fraction(state):.7f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; card "
+              f"{smi}")
+        if amodel.plan is not None:
+            k0, lv_k = amodel._kappas(state)
+            _, full_ms, full_host, _ = _timed(
+                lambda: sweep_sparse.diffuse_sweep_sparse(
+                    k0, lv_k, state, amodel.plan, model.uvb,
+                    model.geom.cell_size, amodel.n_coupling_iters,
+                    window=None))
+            del k0, lv_k
+            print(f"the full-plane sparse sweep (--sweep-window off): "
+                  f"{full_ms:.3f} ms (host {full_host:.3f} ms), the "
+                  f"window's speed-up {full_ms / rows['sweep'][0]:.2f}x; "
+                  f"card {smi}")
+            inputs, batch = sparse_first_batch(amodel, state)
+            wall, busy, launches, slabs, by_name = sparse_slab_window(
+                amodel, inputs, True, 8)
+            print(f"the first zone batch's sweep ({len(batch)} zones of "
+                  f"{batch[0].ndir} directions), covered base slabs "
+                  f"{slabs.start}-{slabs.stop - 1}: wall {wall * 1e3:.3f} "
+                  f"ms, device busy {busy * 1e3:.3f} ms "
+                  f"({100 * busy / wall:.1f}%), {launches} launches; card "
+                  f"{smi}")
+            for name, (ms, k) in sorted(by_name.items(),
+                                        key=lambda x: -x[1][0])[:10]:
+                print(f"  {ms:10.3f} ms {k:7d}x  {name[:100]}")
+            del inputs
+            if n <= 64:
+                per = [sparse_slab_launches(amodel, state, c)
+                       for c in (True, False)]
+                print(f"launches a base slab (4 and 8 slabs, two agreeing "
+                      f"windows each): covered {per[0]:.1f}, skipped "
+                      f"{per[1]:.1f}; card {smi}")
+        path = os.path.join(tmp, "cellArray0001.npz")
+        t0 = time.perf_counter()
+        snapshot.write_snapshot_sparse(path, state, 1,
+                                       model.geom.physical_box_size)
+        print(f"write_snapshot_sparse: {time.perf_counter() - t0:.3f} s "
+              f"(host; {os.path.getsize(path) / 1e6:.1f} MB compressed, "
+              f"{state.n_leaves()} leaves)")
+
+
+def main_sparse_vs_dense(n: int, level: int, smi: str) -> None:
+    """The galaxy of sparse_galaxy ingested twice, block-sparse and dense
+    (amr.multilevel_from_levels), each level in its own equilibrium, one
+    mode-9 step of SparseMLModel and one of MultiLevelModel at the depth
+    validated on the sparse state: their seconds and peaks, and the
+    largest difference of the species and Jmean over each level's peak on
+    the cells that exist at that level."""
+    from .io import grid_io
+    cfg = RunConfig(mode=MODE_UVB_TRANSFER_ONLY, current_redshift=6.55,
+                    n_angular_level=level, reionization_model=10,
+                    self_shielding_threshold_kpc=0.1)
+    model = RTModel.setup(cfg, GridGeometry(n, n, n, 300.0 * KPC),
+                          torch.float32, "cuda")
+    names = ("HI", "HeI", "HeII", "Jmean")
+    with tempfile.TemporaryDirectory() as tmp:
+        sp, storage, ingest_s = sparse_galaxy(n, tmp)
+        levels = grid_io.read_level_npz(os.path.join(tmp,
+                                                     "testgrid_velmet.npz"))
+    sm = SparseMLModel.setup(model, sp.n_levels)
+    depth = sm.validate_coupling_depth(sp)
+    sp = sm.initialize_equilibrium(sp)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sp1 = sm.make_step()(sp)
+    torch.cuda.synchronize()
+    sparse_s = time.perf_counter() - t0
+    sparse_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del sp
+    t0 = time.perf_counter()
+    dense, _ = amr.multilevel_from_levels(levels, True, torch.float32,
+                                          device="cuda")
+    dense = amr.sync_restriction_multi(amr.MultiLevelState(
+        levels=tuple(model.initialize_equilibrium(lv)
+                     for lv in dense.levels), refined=dense.refined))
+    torch.cuda.synchronize()
+    dense_ingest_s = time.perf_counter() - t0
+    ml = MultiLevelModel.setup(model, dense.n_levels)
+    ml.n_coupling_iters = depth
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = ml.make_step()(dense)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    worst = 0.0
+    for ell, fd in enumerate(dense.levels):
+        fs = sp1.base if ell == 0 else sp1.levels[ell - 1].fields
+        for k in names:
+            a, b = getattr(fs, k), getattr(fd, k)
+            if ell:
+                lv = sp1.levels[ell - 1]
+                b = amr_sparse.blockify_like(lv, b)
+                a, b = a[..., lv.cover], b[..., lv.cover]
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    print(f"{n}^3 + {dense.n_levels - 1} levels x {cfg.n_directions} dirs "
+          f"f32 mode 9 at depth {depth} (validated on the block-sparse "
+          f"state; the CLI's storage under --amr-storage auto: {storage}): "
+          f"block-sparse step {sparse_s:.3f} s, peak {sparse_peak:.3f} GiB "
+          f"(ingestion {ingest_s:.3f} s); dense L-level step {dense_s:.3f} "
+          f"s, peak {dense_peak:.3f} GiB (ingestion and equilibrium "
+          f"{dense_ingest_s:.3f} s); species and Jmean max diff on the "
+          f"cells of each level {worst:.3e} of each level's peak; card "
+          f"{smi}")
+
+
 def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
-         noneq: int = 0, nested: int = 0) -> None:
+         noneq: int = 0, nested: int = 0, sparse: int = 0) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
+    if sparse:
+        if nested < 3 or ranks or noneq or mode not in (
+                MODE_UVB_TRANSFER_ONLY, MODE_NO_STARS_THIN_UVB):
+            raise SystemExit("the block-sparse profile runs modes 9 and 6 "
+                             "on one rank, equilibrium chemistry, the "
+                             "galaxy's 3 levels (amr 3)")
+        if sparse == 2:
+            main_sparse_vs_dense(n, level, smi)
+        else:
+            main_sparse(n, level, mode, smi)
+        return
     if nested >= 2:
         if ranks or mode not in (
                 MODE_UVB_TRANSFER_ONLY, MODE_NO_STARS_THIN_UVB,

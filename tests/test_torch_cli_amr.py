@@ -264,21 +264,24 @@ def test_three_levels_under_amr_depth_2_run_two_level(tmp_path):
      r"--debug-checkify is not ported yet: ROADMAP, core/debug\.py$"),
     (("--ckpt-format", "orbax"), 9, False, r"--ckpt-format orbax is not "
      r"ported yet: ROADMAP, Remaining I/O \(io/checkpoint\.py\)$"),
-    (("--amr-storage", "sparse"), 9, True, r"the block-sparse storage of a "
-     r"grid of 3 data levels \(--amr-storage sparse, dense 0\.0 GB\) is "
-     r"not ported yet: ROADMAP, Block-sparse AMR$"),
+    (("--amr-storage", "sparse", "--chemistry", "noneq"), 9, True,
+     r"--chemistry noneq is not ported yet on the block-sparse storage of a "
+     r"grid of 3 data levels \(--amr-storage sparse, dense 0\.0 GB\): "
+     r"ROADMAP, Block-sparse AMR \(c\)$"),
 ])
 def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
                                         core, match):
     """Each raises NotImplementedError naming the ROADMAP item that refuses
     the run, before the grid is ingested and before any step."""
-    from radiativetransfer_tpu_torch.core import amr
+    from radiativetransfer_tpu_torch.core import amr, amr_sparse
     config = _inputs(tmp_path, n=8, core=core, mode=mode)
 
     def no_ingestion(*args, **kwargs):
         raise AssertionError("the grid was ingested")
     monkeypatch.setattr(amr, "amr_from_levels", no_ingestion)
     monkeypatch.setattr(amr, "multilevel_from_levels", no_ingestion)
+    monkeypatch.setattr(amr_sparse, "sparse_from_level_lists",
+                        no_ingestion)
     with pytest.raises(NotImplementedError, match=match):
         _run("torch", config, tmp_path, "--iters", "1", *flags)
     assert not (tmp_path / "time").exists()

@@ -224,15 +224,15 @@ def test_storage_choice_follows_the_jax_formula():
     # the limit, 5.08e9 in f64, over it
     deep = levels(80 ** 3, 8, 8)
     assert tcli._nesting(deep, args(), None) == "ml"
+    assert tcli._nesting(deep, args(flags=["--x64"]), None) == "sparse"
     with pytest.raises(NotImplementedError, match=r"--amr-storage auto, "
-                       r"dense 5\.1 GB\) is not ported yet: ROADMAP, "
-                       r"Block-sparse AMR$"):
-        tcli._nesting(deep, args(flags=["--x64"]), None)
+                       r"dense 5\.1 GB\): ROADMAP, Block-sparse AMR \(c\)$"):
+        tcli._nesting(deep, args(flags=["--x64"]), None, stellar=True)
     assert tcli._nesting(deep, args(flags=["--x64", "--amr-storage",
                                            "dense"]), None) == "ml"
-    with pytest.raises(NotImplementedError, match="Block-sparse AMR$"):
-        tcli._nesting(levels(8, 8, 8), args(flags=["--amr-storage",
-                                                   "sparse"]), None)
+    assert tcli._nesting(levels(8, 8, 8), args(flags=["--amr-storage",
+                                                      "sparse"]),
+                         None) == "sparse"
     assert tcli._nesting(deep, args(flags=["--amr-depth", "2"]),
                          None) == "amr"
     assert tcli._nesting(levels(8, 8), args(), None) == "amr"
@@ -247,8 +247,8 @@ _MESH = (r"a mesh on an L-level AMR grid \(shard_multilevel_state\) is not "
     (("--mesh-shape", "2"), 8, _MESH),
     (("--mesh-shape", "2"), 1, _MESH),
     (("--chemistry", "noneq", "--mesh-shape", "2"), 9, _MESH),
-    (("--amr-storage", "sparse"), 9, r"block-sparse storage .* is not "
-     r"ported yet: ROADMAP, Block-sparse AMR$"),
+    (("--amr-storage", "sparse"), 8, r"block-sparse storage .* GB\): "
+     r"ROADMAP, Block-sparse AMR \(c\)$"),
     (("--mesh-shape", "4"), 9, r"a mesh on an L-level AMR grid "
      r"\(shard_multilevel_state\) is not ported yet: ROADMAP, "
      r"Distribution$"),
@@ -260,11 +260,13 @@ def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
                                         match):
     """Each raises NotImplementedError naming the ROADMAP item that refuses
     the run, before the grid is ingested and before any step."""
-    from radiativetransfer_tpu_torch.core import amr
+    from radiativetransfer_tpu_torch.core import amr, amr_sparse
 
     def no_ingestion(*args, **kwargs):
         raise AssertionError("the grid was ingested")
     monkeypatch.setattr(amr, "multilevel_from_levels", no_ingestion)
+    monkeypatch.setattr(amr_sparse, "sparse_from_level_lists",
+                        no_ingestion)
     monkeypatch.setattr(amr, "amr_from_levels", no_ingestion)
     config = _inputs(tmp_path, n=8, mode=mode)
     with pytest.raises(NotImplementedError, match=match):
