@@ -123,7 +123,7 @@ failure raises and the script exits non-zero:
     fraction within 1e-4), the step layer by layer (tracer, opacity,
     sweep, _assemble_photo_rates, evolve_noneq: device ms, host ms,
     launches; profile_step.noneq_layers), one profiled step's device-busy
-    share, peak memory, write_snapshot with the species; one noneq mode-8
+    share, peak memory; one noneq mode-8
     step with phase 9's sources (k27..k31 finite and non-negative, k31 >
     0 somewhere, the species' nH the state's within 1e-5); then the CLI
     from write_cli_inputs' files: noneq mode 9, 3 iterations, a restart
@@ -136,28 +136,28 @@ failure raises and the script exits non-zero:
     core/rays_amr.py, the L-level march at L = 2, plain PyTorch: no
     hand-written kernel runs on them, and every kernel's count is held
     across the phase but for check (c)):
-    (a) 3 f64 mode-9 steps and one f64 mode-8 step with 3 sources at 24^3
+    (a) one f64 mode-9 step and one f64 mode-8 step with 3 sources at 16^3
     with its refined centre, level 2, on the card against the CPU's (every
     species within 1e-9 of its peak on both levels, the ray diagnostics
     within 1e-9 of theirs); (b) the full-width cell, make_test_data.py's
     galaxy at 128^3 with its central half refined (262,144 parents, a
     dense 256^3 fine level) and its 12 sources, prepared as the CLI does,
     x 192 f32: the inputs written and ingested (amr_from_levels), the
-    plan's setup, one mode-8 step layer by layer (profile_step.amr_layers:
-    the tracer with its march steps, opacity and chemistry on each level,
-    the sweep, sync_restriction; CUDA events and host ms), peak memory,
-    the neutral fraction below its start, one zone's first 32 and 16 base
-    slabs traced at the full width (launches, the device-busy share), the
-    sweep's bytes floor, write_snapshot_amr timed, one mode-1 step (the
-    tracer and both chemistries, no sweep), the f32 trace against the f64
-    trace of the same state with float32's kills (both levels' six
-    channels within 5e-5 of each peak, the escape fractions within 1e-5)
-    and the fine deposits below float32's smallest normal value counted; (c) 64^3 with nothing
-    refined: the two-level step against the uniform step through the
-    cluster kernel in the exact logmean form (base Jmean and the neutral
-    fraction within 1e-4); (d) the CLI on the two-level 32^3 grid with its
-    central half refined (cut from 128^3: (b) times the full width, (d)
-    covers the CLI's branch): mode 9, 2 iterations, a restart of one
+    plan's setup, one mode-1 step layer by layer (profile_step.amr_layers:
+    the tracer with its march steps, chemistry on each level,
+    sync_restriction; CUDA events and host ms), peak memory, the neutral
+    fraction below its start, the tracer in a profiler window, one zone's
+    first 32 and 16 base slabs of the two-level sweep traced at the full
+    width (launches, the device-busy share), the sweep's bytes floor, the
+    f32 trace against the f64 trace of the same state with float32's kills
+    (both levels' six channels within 5e-5 of each peak, the escape
+    fractions within 1e-5) and the fine deposits below float32's smallest
+    normal value counted; (c) 64^3 with nothing refined: the two-level
+    step against the uniform step through the cluster kernel in the exact
+    logmean form (base Jmean and the neutral fraction within 1e-4); (d)
+    the CLI on the two-level 32^3 grid with its central half refined x
+    192 (cut from 128^3: (b) times the full width, (d) covers the CLI's
+    branch): mode 9, 2 iterations, a restart of one
     through python -m from the itime-1 snapshot beside mode 8 (within
     1e-4), mode 8
     with the 12 sources, 1 iteration (the `weight` file,
@@ -174,14 +174,14 @@ failure raises and the script exits non-zero:
 19. L-level dense AMR (core/step_amr.py::MultiLevelModel and its sweep
     core/sweep_multilevel.py, plain PyTorch: no hand-written kernel runs
     on them, and every kernel's count is held across the phase but for
-    check (c)): (a) one f64 mode-9 step at 24^3 with its refined centre
+    check (c)): (a) one f64 mode-9 step at 16^3 with its refined centre
     and core (3 levels), level 1, on the card against the CPU's (species
     and Jmean within 1e-10 of each level's peak); (b) the full-width cell,
     make_test_data.py's galaxy at ML_N^3 = 64^3 with its refined centre
     and core (dense 128^3 and 256^3 levels, the largest 3-level grid the
     JAX CLI keeps dense by default) x 192 f32: ingestion, plan setup, the
-    coupling depth validated on the ingested grid (timed), a warm-up step
-    and one mode-9 step layer by layer (profile_step.ml_layers: opacity,
+    coupling depth validated on the ingested grid (timed), one mode-9
+    step from the equilibrium layer by layer (profile_step.ml_layers: opacity,
     the sweep, chemistry on each level, sync_restriction_multi; CUDA
     events and host ms), peak memory, the neutral fraction below its
     start, the first zone batch's first 8 base slabs traced (launches,
@@ -189,32 +189,33 @@ failure raises and the script exits non-zero:
     the sweep's launches from two agreeing profiler windows at 4^3 and
     8^3 bases, whence the full width's (derived); (c) one level (nothing
     refined) at 64^3: the L-level sweep against the uniform step's
-    through the cluster kernel in the exact logmean form, and the 64^3
-    grid cut to two levels against the two-level sweep (leaf Jmean within
-    1e-5 of each band's peak); (d) the CLI on the L-level ML_CLI_N^3 =
-    32^3 grid: mode 9, 2 iterations (the grid: and coupling depth: lines),
-    a restart of one from the itime-1 snapshot (within 1e-4), mode 6, and
-    --amr-storage sparse with --chemistry noneq refused before ingestion,
-    naming its ROADMAP item;
+    through the cluster kernel in the exact logmean form, and the galaxy
+    at 16^3 cut to two levels against the two-level sweep (leaf Jmean
+    within 1e-5 of each band's peak); (d) the CLI on the L-level
+    ML_CLI_N^3 = 32^3 grid x 192: mode 9, 2 iterations (the grid: and
+    coupling depth: lines), a restart of one
+    from the itime-1 snapshot (within 1e-4), and mode 6;
 20. point sources and the non-equilibrium chemistry on L-level grids
     (core/rays_multilevel.py, MultiLevelModel.trace and make_noneq_step,
     plain PyTorch: every kernel's count is held across the phase): (a)
-    phase 19's 24^3 grid, 3 levels, 3 of its sources at maxPixelLevel 4,
-    f64, 2 coupling passes: one mode-8 step, one noneq mode-9 step and
-    one noneq mode-8 step (5 substeps) on the card against the CPU's,
+    the galaxy at 16^3 with its refined centre and core, 3 levels, 3 of
+    its sources at maxPixelLevel 4, f64, 2 coupling passes: one mode-8
+    step, one noneq mode-9 step and one noneq mode-8 step (5 substeps) on
+    the card against the CPU's,
     each level within 1e-9 of each field's peak; (b) phase 19's
     full-width cell at phase 19's coupling depth with the galaxy's 12
     sources, maxPixelLevel 6, f32: one mode-8 step layer by
     layer (profile_step.ml_layers: the tracer with its march steps, CUDA
     events and host ms), the tracer in a profiler window (the card's busy
-    share), peak memory, one mode-1 step, one noneq mode-9 step layer by
-    layer (profile_step.ml_noneq_layers: evolve_noneq on each level), the
+    share), peak memory, one mode-1 step, one noneq mode-9 step (0.1 Myr
+    in 20 substeps) layer by layer (profile_step.ml_noneq_layers:
+    evolve_noneq on each level), the
     f32 trace against the f64 trace of the same state with float32's
     kills (every level's six channels within 5e-5 of each peak, the
     escape fractions within 1e-5; the deposits below float32's smallest
     normal value and those the f32 trace lost counted), the tracer's
     launches a march step from two agreeing profiler windows at an 8^3
-    base; (c) L = 2 on the card, f64, phase 19's 24^3 grid cut to two
+    base; (c) L = 2 on the card, f64, (a)'s 16^3 grid cut to two
     levels: one mode-8 step of MultiLevelModel(2) against one of AMRModel,
     each level's fields and rates and the ray diagnostics within 1e-9 of
     their peaks; (d) the CLI at ML_CLI_N^3 = 32^3, angular level 1: mode
@@ -224,29 +225,52 @@ failure raises and the script exits non-zero:
     from its itime-1 snapshot (within 1e-4; the noneq ones with their
     species);
 21. block-sparse L-level AMR (core/amr_sparse.py, core/sweep_sparse.py,
-    SparseMLModel, the CLI's sparse branch; plain PyTorch: every kernel's
-    count is held across the phase): (d) the CLI on the L-level
-    ML_CLI_N^3 = 32^3 grid under --amr-storage sparse: mode 9, 2
-    iterations (the block-sparse grid: line, the coupling depth:
-    line), its restart through python -m from the itime-1 snapshot in a
-    process of its own beside (a) (within 1e-4), mode 6, 2 iterations,
-    and modes 8 and 1 refused before ingestion, naming their ROADMAP
-    item; (a) the 24^3 galaxy with its refined centre and core in blocks
-    of 4 (W 20 < 24), angular level 1, f64: one mode-9 step on the card
-    windowed and one full-plane against the CPU's windowed step, and the
-    windowed one against the dense L-level card step on covered cells,
-    each level within 1e-10 of each field's peak; (b) the production cell
-    MAIN_N^3 = 128^3 with its refined centre and core x 192 f32, stored
-    block-sparse by the CLI's rule under --amr-storage auto: ingestion,
-    compute_window (W, the skip share), plan, validate_coupling_depth, the
-    equilibrium, one mode-9 step layer by layer
-    (profile_step.sparse_layers), peak memory, memory_bytes, the first
-    zone batch's first 8 covered base slabs traced (the card's busy
-    share), a mode-6 step; (c) phase 19's 64^3 cell in f32: its dense
-    state stored block-sparse, the windowed and the full-plane sparse
-    sweeps on its opacities within 1e-5 of each peak, and the windowed
-    sparse step against phase 19's dense L-level step on covered cells
-    within 1e-5 of each field's peak.
+    the block-sparse tracer of core/rays_multilevel.py, SparseMLModel with
+    its stellar and noneq steps, the CLI's sparse branch; plain PyTorch:
+    every kernel's count is held across the phase): (d) the CLI on the
+    L-level ML_CLI_N^3 = 32^3 grid x 192 under --amr-storage sparse: mode
+    9, 2 iterations (the block-sparse grid: line, the
+    coupling depth: line), its restart through python -m from the itime-1
+    snapshot in a process of its own beside (a) (within 1e-4); modes 8
+    and 1 with the 12 sources (fesc, cosmicSpectrum.npz) and --chemistry noneq
+    mode 9, 2 iterations each through python -m in processes of their
+    own beside (a), the noneq run's species in its snapshots (level 0
+    dense, the refined levels in blocks) and its restart in this process
+    from the itime-1 snapshot (within 1e-4); mode 6, 2 iterations; (a)
+    the 24^3 galaxy with its refined centre and core in blocks of 4 (W 20
+    < 24), angular level 1, f64: one mode-9 step on the card windowed and
+    one full-plane against the CPU's windowed step, and the windowed one
+    against the dense L-level card step on covered cells, each level
+    within 1e-10 of each field's peak; with 3 of its sources at
+    maxPixelLevel 4, the block-sparse trace, a mode-8 step and a noneq
+    mode-9 step (5 substeps) on the card against the CPU's, each level's
+    channels, fields and species and the ray diagnostics within 1e-9 of
+    their peaks; (b) the production cell MAIN_N^3 = 128^3 with its
+    refined centre and core x 192 f32, stored block-sparse by the CLI's
+    rule under --amr-storage auto: ingestion, compute_window (W, the skip
+    share), plan, validate_coupling_depth, the equilibrium; with the
+    galaxy's 12 sources at maxPixelLevel 6, one mode-8 step layer by
+    layer (profile_step.sparse_layers: the tracer's device and host ms
+    and march steps, then mode 9's layers: opacity, the sweep, chemistry
+    on each level, sync_restriction_sparse, whose seconds, the mode-8
+    step's less the tracer's host ms, stand for a mode-9 step's, derived),
+    peak memory, memory_bytes,
+    the first zone batch's first 8 covered base slabs traced (the card's
+    busy share), a mode-6 step, the tracer's peak memory (held under half
+    the dense form's finest int32 leaf-level volume and packed fields)
+    and its busy share in a profiler window, one mode-1 step, one noneq
+    mode-9 step layer by layer (profile_step.sparse_noneq_layers:
+    evolve_noneq on each level), the
+    f32 trace against the f64 trace with float32's kills (5e-5 of each
+    channel's peak, escape fractions 1e-5), and the tracer's launches a
+    march step from two agreeing profiler windows at an 8^3 base; (c)
+    phase 19's 64^3 cell in f32: its dense state stored block-sparse, the
+    windowed sparse step against phase 19's dense L-level step on covered
+    cells within 1e-5 of each field's peak; with the 12 sources, the
+    block-sparse trace against the dense L-level one
+    and a noneq mode-1 step (20 substeps) on either storage, every
+    channel, field and species on covered cells within 1e-5 of its
+    peak.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -2169,16 +2193,8 @@ def phase_noneq(smi: str) -> dict:
           + "; ".join(f"{name[:48]} {ms:.2f} ms x{c}"
                       for name, ms, c in top[:4]))
     assert kernels > 0 and busy > 0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "cellArray0001.npz")
-        _, snap_s = timed(lambda: snapshot.write_snapshot(
-            path, st, 1, model.geom.physical_box_size,
-            extra=snapshot.species_extra(sp)))
-        snap_mb = os.path.getsize(path) / 1e6
-    print(f"[17 noneq] write_snapshot at {n}^3 with the species: {snap_s:.3f}"
-          f" s (host; {snap_mb:.1f} MB compressed)")
     out.update(dts9=dts, peak9_gib=peak9, layers=rows, busy_share=busy / wall,
-               profiled_wall_s=wall, write_snapshot_s=snap_s)
+               profiled_wall_s=wall)
     del st, sp, state, species, model, step
 
     # mode 8 with phase 9's sources, one step
@@ -2427,7 +2443,7 @@ def uniform_tracer_flush(tmp: str, n: int = MAIN_N) -> dict:
     cells = {
         "bench_step": (state_b, lambda d: bench_cell(d)),
         "cli_galaxy": (state_g, lambda d: (geom_g, _cli_stellar(
-            config, levels, state_g.abun2, None, geom_g, d, DEVICE))),
+            config, levels, state_g, geom_g, d, DEVICE))),
     }
     for name, (state, build) in cells.items():
         traces = {}
@@ -2469,40 +2485,21 @@ def uniform_tracer_flush(tmp: str, n: int = MAIN_N) -> dict:
     return out
 
 
-def _cli_stellar(config: str, levels, abun2, refined, geom, dtype, device,
-                 noneq: bool = False):
+def _cli_stellar(config: str, levels, state, geom, dtype, device,
+                 noneq: bool = False, first: int | None = None,
+                 max_pixel_level: int = 6):
     """The StellarContext cli.main builds for the point sources of
-    `config` (write_cli_inputs' 12) on the base level's abun2 (a tensor)
-    of the grid ingested from `levels`: read_star_file, load_population
-    (blackbodies: the inputs carry no Starburst99 SEDs), the metallicity
-    buckets, prepare_sources on the (base) refined map (None for a uniform
-    grid; a star in a refined parent at its fine leaf's centre) and
-    StellarContext.build at 10 Myr, maxPixelLevel 6 (noneq: with the
-    k27..k31 weights, as --chemistry noneq builds it)."""
-    from radiativetransfer_tpu_torch.config import load_config
-    from radiativetransfer_tpu_torch.constants import MYR
-    from radiativetransfer_tpu_torch.core.step import StellarContext
-    from radiativetransfer_tpu_torch.io import grid_io, sources_io
-    from radiativetransfer_tpu_torch.tables import stellar
-    cfg = load_config(config)
-    lo, hi, _ = grid_io.grid_bounds(levels)
-    stars = sources_io.read_star_file(os.path.join(cfg.sph_dir, cfg.sources),
-                                      lo, hi)
-    pop, _ = stellar.load_population(
-        cfg.synthesis_dir, len(stars.age),
-        int(np.sum(stars.age <= cfg.upper_age_limit)),
-        cfg.mass_stellar_particle)
-    edges, coefs = (stellar.metal_bucket_plan(pop) if cfg.read_metals
-                    else (None, None))
-    batch, _, n_young = sources_io.prepare_sources(
-        stars, geom.nx, cfg.upper_age_limit,
-        abun2=abun2.cpu().numpy(), metal_bucket_edges=edges,
-        refined=None if refined is None else refined.cpu().numpy())
-    return StellarContext.build(
-        pop, batch, geom, 10.0 * MYR, metal_coefs=coefs or [(0, 0.0)],
-        n_stars_specific_age=n_young,
-        dust_approximation=cfg.dust_approximation, noneq=noneq, dtype=dtype,
-        device=device)
+    `config` (write_cli_inputs' 12, the first `first` kept where given) on
+    the grid `state` ingested from `levels` (profile_step.galaxy_sources:
+    cli.read_stars, blackbodies -- the inputs carry no Starburst99 SEDs
+    -- and StellarContext.build at 10 Myr, maxPixelLevel
+    `max_pixel_level`; noneq: with the k27..k31 weights, as --chemistry
+    noneq builds it)."""
+    from radiativetransfer_tpu_torch import profile_step
+    return profile_step.galaxy_sources(
+        os.path.dirname(config), state, geom, noneq=noneq,
+        max_pixel_level=max_pixel_level, dtype=dtype, device=device,
+        first=first, levels=levels)
 
 
 def phase_amr(smi: str) -> dict:
@@ -2579,43 +2576,39 @@ def _phase_amr(tmp: str, smi: str) -> dict:
                    for k in names)
 
     counts0 = _kernel_counts()
-    inputs24, inputs32, inputs = (os.path.join(tmp, f"inputs{k}")
-                                  for k in (24, 32, 128))
+    inputs16, inputs32, inputs = (os.path.join(tmp, f"inputs{k}")
+                                  for k in (16, 32, 128))
     species = ("HI", "HeI", "HeII")
     channels = [f.name for f in dataclasses.fields(rays.RateFields)]
     diag_names = [f.name for f in dataclasses.fields(rays.RayDiagnostics)]
 
-    # (a) 24^3 with its refined centre, level 2, f64: 3 mode-9 steps and
-    # one mode-8 step with 3 sources (maxPixelLevel 4: at 6 the CPU's
-    # trace takes ~100 s) on the card against the same steps on the CPU,
-    # from the CPU's equilibrium
-    cpu = model(24, 2, f64, "cpu")
-    write_cli_inputs(inputs24, 24, refine_center=True)
-    arrays = equilibrium(cpu, ingest(inputs24, f64, "cpu")[0][0]).to_numpy()
+    # (a) 16^3 with its refined centre, level 2, f64 (at 24^3 the CPU's
+    # steps took 19 s): one mode-9 step and one mode-8 step with 3 sources
+    # (maxPixelLevel 4: at 6 the CPU's trace takes ~100 s) on the card
+    # against the same steps on the CPU, from the CPU's equilibrium
+    n_a = 16
+    cpu = model(n_a, 2, f64, "cpu")
+    write_cli_inputs(inputs16, n_a, refine_center=True)
+    arrays = equilibrium(cpu, ingest(inputs16, f64, "cpu")[0][0]).to_numpy()
     # inside the refined centre, in the coarse cell beside it, far out
-    src24 = rays.SourceBatch(
-        position=np.array([[12.25, 11.75, 12.5], [5.5, 12.5, 12.5],
-                           [3.5, 20.5, 4.5]]) / 24,
+    src_a = rays.SourceBatch(
+        position=np.array([[8.25, 7.75, 8.5], [3.5, 8.5, 8.5],
+                           [2.5, 13.5, 3.5]]) / n_a,
         weight=np.ones(3), table_idx=np.zeros(3, np.int32))
     runs, runs8 = {}, {}
     threads = torch.get_num_threads()
     for device in ("cpu", DEVICE):
         am = step_amr.AMRModel.setup(
-            cpu if device == "cpu" else model(24, 2, f64, DEVICE))
+            cpu if device == "cpu" else model(n_a, 2, f64, DEVICE))
         st = amr.AMRState.from_numpy(arrays, dtype=f64, device=device)
-        step = am.make_step()
-
-        def three(st=st, step=step):
-            for _ in range(3):
-                st = step(st)
-            return st
         # the eager CPU steps' small ops run fastest on one thread
         torch.set_num_threads(1 if device == "cpu" else threads)
-        st3, dt = timed(three)
-        runs[device] = (st3, dt, am.neutral_fraction(st3))
-        am8 = step_amr.AMRModel.setup(model(24, 2, f64, device, mode=mode8))
+        st1, dt = timed(lambda: am.make_step()(st))
+        runs[device] = (st1, dt, am.neutral_fraction(st1))
+        am8 = step_amr.AMRModel.setup(model(n_a, 2, f64, device,
+                                            mode=mode8))
         ctx = StellarContext.build(
-            stellar.blackbody_population(q_ionizing=1.0e51), src24,
+            stellar.blackbody_population(q_ionizing=1.0e51), src_a,
             am8.rt.geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
             max_pixel_level=4, dtype=f64, device=device)
         (st8, diag8), dt8 = timed(lambda: am8.make_step(ctx)(st))
@@ -2629,8 +2622,9 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     err8 = max(worst(getattr(c8, lv), getattr(h8, lv), species)
                for lv in ("base", "fine"))
     err8_diag = worst(cd8, hd8, diag_names)
-    print(f"[18 amr] 24^3 + {int(host.refined.sum())} refined "
-          f"parents, level 2, f64 mode 9, 3 steps: card {runs[DEVICE][1]:.3f}"
+    print(f"[18 amr] {n_a}^3 + {int(host.refined.sum())} refined "
+          f"parents, level 2, f64 mode 9, one step: card "
+          f"{runs[DEVICE][1]:.3f}"
           f" s, CPU {runs['cpu'][1]:.3f} s; neutral fraction "
           f"{runs[DEVICE][2]:.10f} (CPU {runs['cpu'][2]:.10f}); species max "
           f"diff {err9:.2e} of each peak (tol 1e-9); mode 8, 3 sources, "
@@ -2645,8 +2639,10 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     del runs, runs8, arrays, cpu, card, host, c8, h8, cd8, hd8
 
     # (b) the full-width cell, f32: make_test_data's galaxy at 128^3 with
-    # its refined centre and its 12 sources, 192 directions; one mode-8
-    # step layer by layer, one mode-1 step, the trace against float64's
+    # its refined centre and its 12 sources, 192 directions; one mode-1
+    # step layer by layer (the tracer and both chemistries; the two-level
+    # sweep, ~29 s of a mode-8 step here, is traced by zone below and
+    # counted at 32^3 in (e)), the trace against float64's
     n, level = MAIN_N, MAIN_LEVEL
     config, write_s = timed(lambda: write_cli_inputs(inputs, n,
                                                      refine_center=True))
@@ -2655,8 +2651,7 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     am, plan_s = timed(lambda: step_amr.AMRModel.setup(m))
     state, eq_s = timed(lambda: equilibrium(m, state))
     ctx, src_s = timed(lambda: _cli_stellar(
-        config, levels, state.base.abun2, state.refined, m.geom, f32,
-        DEVICE))
+        config, levels, state, m.geom, f32, DEVICE))
     n_ref = int(state.refined.sum())
     nf0 = am.neutral_fraction(state)
     print(f"[18 amr] {n}^3 + {n_ref} refined parents ({8 * n_ref} fine "
@@ -2667,14 +2662,17 @@ def _phase_amr(tmp: str, smi: str) -> dict:
           f"levels {eq_s:.3f} s, the {ctx.sources.n_sources} sources "
           f"prepared as the CLI does (StellarContext.build) {src_s:.3f} s "
           f"(host); neutral fraction {nf0:.7f}")
+    am1 = step_amr.AMRModel.setup(model(n, level, f32, DEVICE, mode=mode1))
+    assert am1.plan is None
     torch.cuda.reset_peak_memory_stats()
     (state1, rows, march), step_s = timed(lambda: profile_step.amr_layers(
-        am, state, count=(), stellar=ctx))
+        am1, state, count=(), stellar=ctx))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    nf1 = am.neutral_fraction(state1)
-    print(f"[18 amr] {n}^3 x 192 f32 two-level mode-8 step, "
-          f"{ctx.sources.n_sources} sources: {step_s:.3f} s, layers "
-          "(device ms by CUDA events / host ms to enqueue): " + ", ".join(
+    nf1 = am1.neutral_fraction(state1)
+    print(f"[18 amr] {n}^3 f32 two-level mode-1 step (the tracer, both "
+          f"levels' chemistry, no sweep), {ctx.sources.n_sources} sources: "
+          f"{step_s:.3f} s, layers (device ms by CUDA events / host ms to "
+          "enqueue): " + ", ".join(
               f"{k} {ms:.3f} / {host:.3f}" for k, (ms, host, _) in
               rows.items())
           + f"; the tracer {march} march steps "
@@ -2684,7 +2682,8 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     assert np.isfinite(nf1) and 0.0 < nf1 < nf0, (nf0, nf1)
     assert all(bool(torch.isfinite(getattr(s, k)).all())
                for s in (state1.base, state1.fine)
-               for k in ("HI", "HeI", "HeII", "Jmean", "krate24"))
+               for k in ("HI", "HeI", "HeII", "krate24"))
+    del state1, am1
     # the tracer alone in a profiler window: its launches and the card's
     # busy share of its wall time
     tr_wall, tr_busy, tr_events, _ = profile_step.profiled(
@@ -2697,8 +2696,8 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     # in profiler windows of their own (a window of the whole zone, 60,333
     # launches, takes seconds to read)
     zone_wall, zone_busy, zone_32 = profile_step.amr_zone_window(
-        am, state1, slabs=32)
-    zone_16 = profile_step.amr_zone_launches(am, state1, slabs=16)
+        am, state, slabs=32)
+    zone_16 = profile_step.amr_zone_launches(am, state, slabs=16)
     zones = len(am.plan.zones)
     # the sweep's compulsory bytes: both levels' opacities and the refined
     # map read once, both levels' Jmean written once
@@ -2713,26 +2712,6 @@ def _phase_amr(tmp: str, smi: str) -> dict:
           f"{floor_mb:.1f} MB, "
           f"{1e9 * floor_mb / probes_cuda.HBM_BYTES_PER_S:.4f} ms at "
           f"{probes_cuda.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
-    path = os.path.join(tmp, "cellArray0001.npz")
-    _, snap_s = timed(lambda: snapshot.write_snapshot_amr(
-        path, state1, 1, m.geom.physical_box_size))
-    snap_mb = os.path.getsize(path) / 1e6
-    print(f"[18 amr] write_snapshot_amr at {n}^3 + {n_ref} parents "
-          f"({state1.n_leaves()} leaves): {snap_s:.3f} s (host; "
-          f"{snap_mb:.1f} MB compressed)")
-    del state1
-    # mode 1 at the full width: the tracer and both chemistries, no sweep
-    am1 = step_amr.AMRModel.setup(model(n, level, f32, DEVICE, mode=mode1))
-    assert am1.plan is None
-    (s1, diag1), step1_s = timed(lambda: am1.make_step(ctx)(state))
-    nf_m1 = am1.neutral_fraction(s1)
-    fesc1 = rays.escape_fractions(diag1, ctx.sources.weight)
-    print(f"[18 amr] {n}^3 f32 two-level mode-1 step (the tracer, both "
-          f"levels' chemistry, no sweep): {step1_s:.3f} s; neutral fraction "
-          f"{nf0:.7f} -> {nf_m1:.7f}; escape fractions at the outer radius "
-          f"{_fmt(fesc1[:, -1])}")
-    assert 0.0 < nf_m1 < nf0 and bool(np.isfinite(fesc1).all())
-    del s1, am1
     # the float32 trace against float64's of the same state with the same
     # (float32's) kills, within 5e-5 of each channel's peak: float32's
     # positions in box units leave a fine segment's length ~1.5e-5 off
@@ -2743,8 +2722,7 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     # smallest normal value, which the rays_amr scale keeps from the card's
     # flush
     kills = (rays.default_tau_kill(f32), rays.default_rel_kill(f32))
-    ctx64 = _cli_stellar(config, levels, state.base.abun2, state.refined,
-                         m.geom, f64, DEVICE)
+    ctx64 = _cli_stellar(config, levels, state, m.geom, f64, DEVICE)
     (t32, t64), trace_s = zip(*(timed(lambda c=c, d=d: (
         rays_amr.trace_point_sources_amr(
             state, m.geom, c.sources, c.tables,
@@ -2775,11 +2753,11 @@ def _phase_amr(tmp: str, smi: str) -> dict:
     assert max(err_levels) <= 5e-5 and fesc_err <= 1e-5, (err_levels,
                                                             fesc_err)
     assert _kernel_counts() == counts0, "the two-level step launched a kernel"
-    out.update(step_s=step_s, layers=rows, march=march, peak_gib=peak,
+    out.update(mode1_s=step_s, layers=rows, march=march, peak_gib=peak,
                tracer_busy_share=tr_busy / tr_wall,
-               plan_s=plan_s, ingest_s=ingest_s, write_snapshot_s=snap_s,
+               plan_s=plan_s, ingest_s=ingest_s,
                zone_busy_share=zone_busy / zone_wall, nf=(nf0, nf1),
-               mode1_s=step1_s, trace_err=(*err_levels, fesc_err),
+               trace_err=(*err_levels, fesc_err),
                subnormal=(sub64, sub32, lost))
     del state, am, m, ctx, ctx64, t32, t64, fine32, fine64, levels
 
@@ -2812,12 +2790,11 @@ def _phase_amr(tmp: str, smi: str) -> dict:
 
     # (d) the CLI on a two-level grid: mode 9, 2 iterations, a restart of
     # one through python -m from the itime-1 snapshot; mode 8 with the 12
-    # sources, 1 iteration (with 2 phase 18 took 251.2 s, over its 220 s
-    # budget); --chemistry noneq on it: phase 20 (d).  The
-    # grid is 32^3 with its central half refined: the branch, the snapshot
-    # and the restart are the same at any width, (b) times the full width,
-    # and the iterations are launch-bound (~25 s at 128^3, ~14 s at 64^3),
-    # so a wider grid puts the phase over its budget
+    # sources, 1 iteration; --chemistry noneq on it: phase 20 (d).  The
+    # grid is 32^3 with its central half refined, 192 directions: the
+    # branch, the snapshot and the restart are the same at any width, (b)
+    # times the full width, and the two-level sweep's iterations are
+    # launch-bound (~6 s each at 32^3, ~25 s at 128^3)
     n_cli = out["cli_n"] = ML_CLI_N
     config32 = write_cli_inputs(inputs32, n_cli, refine_center=True)
     d9 = os.path.join(tmp, "amr9")
@@ -3032,22 +3009,25 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     counts0 = _kernel_counts()
     species = ("HI", "HeI", "HeII")
 
-    # (a) 24^3 with its refined centre and core (3 levels), angular level
-    # 1, f64: one mode-9 step on the card against the same step on the
-    # CPU, from the CPU's equilibrium, each level within 1e-10 of its peak
-    cpu = model(24, 1, f64, "cpu")
-    arrays = equilibrium(cpu, ingest(24, f64, "cpu")[0][0]).to_numpy()
+    # (a) 16^3 with its refined centre and core (3 levels; at 24^3 the
+    # CPU's step took 7-14 s), angular level 1, f64: one mode-9 step on the
+    # card against the same step on the CPU, from the CPU's equilibrium,
+    # each level within 1e-10 of its peak
+    n_a = 16
+    cpu = model(n_a, 1, f64, "cpu")
+    arrays = equilibrium(cpu, ingest(n_a, f64, "cpu")[0][0]).to_numpy()
     runs = {}
     for device in ("cpu", DEVICE):
         ml = step_amr.MultiLevelModel.setup(
-            cpu if device == "cpu" else model(24, 1, f64, DEVICE), 3)
+            cpu if device == "cpu" else model(n_a, 1, f64, DEVICE), 3)
         st = amr.MultiLevelState.from_numpy(arrays, dtype=f64, device=device)
         st1, dt = timed(lambda: ml.make_step()(st))
         runs[device] = (st1, dt, ml.neutral_fraction(st1))
     card, host = runs[DEVICE][0], runs["cpu"][0]
     err_a = worst(card, host, species + ("Jmean",))
     parents = [int(r.sum()) for r in host.refined]
-    print(f"[19 ml] 24^3 + refined parents per level {parents}, 3 levels, "
+    print(f"[19 ml] {n_a}^3 + refined parents per level {parents}, 3 "
+          f"levels, "
           f"level 1, f64 mode 9, one step at the default coupling depth "
           f"{step_amr.MultiLevelModel.n_coupling_iters}: card "
           f"{runs[DEVICE][1]:.3f} s, CPU {runs['cpu'][1]:.3f} s; neutral "
@@ -3062,9 +3042,9 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     # (b) the full-width cell, f32: make_test_data's galaxy at 64^3 with its
     # refined centre and core (a dense 128^3 and a dense 256^3 level), 192
     # directions: ingestion, plan setup, the coupling depth validated on
-    # the ingested grid, a warm-up step, then one mode-9 step layer by
-    # layer, the first zone batch's first 8 base slabs traced (launches,
-    # the card's busy share), write_snapshot_ml; modes 6 the same
+    # the ingested grid, then one mode-9 step layer by layer, the first
+    # zone batch's first 8 base slabs traced (launches, the card's busy
+    # share), write_snapshot_ml; modes 6 the same
     n, level = ML_N, MAIN_LEVEL
     (state, levels), ingest_s = ingest(n, f32, DEVICE)
     footprint = cli._dense_bytes(levels, 3, False)
@@ -3084,15 +3064,14 @@ def _phase_ml(tmp: str, smi: str) -> dict:
           f"equilibrium of the 3 levels {eq_s:.3f} s; neutral fraction "
           f"{nf0:.7f}")
     assert footprint <= 4.0e9
-    step9 = ml.make_step()
-    (state, warm_s) = timed(lambda: step9(state))
     torch.cuda.reset_peak_memory_stats()
     (state1, rows, _), step_s = timed(lambda: profile_step.ml_layers(
         ml, state))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     nf1 = ml.neutral_fraction(state1)
     print(f"[19 ml] {n}^3 + 2 levels x 192 f32 mode-9 step, coupling depth "
-          f"{depth}: warm-up step {warm_s:.3f} s, the step {step_s:.3f} s, "
+          f"{depth}, from the equilibrium (no warm-up step: one took the "
+          f"step's own time): {step_s:.3f} s, "
           "layers (device ms by CUDA events / host ms to enqueue): "
           + ", ".join(f"{k} {ms:.3f} / {h:.3f}" for k, (ms, h, _) in
                       rows.items())
@@ -3176,8 +3155,9 @@ def _phase_ml(tmp: str, smi: str) -> dict:
 
     # (c) nesting limits on the card, f32: nothing refined (one level)
     # against the uniform step's sweep through the cluster kernel (#1) in
-    # the exact logmean form; the 64^3 grid cut to two levels against the
-    # two-level sweep, both within 1e-5 of each peak
+    # the exact logmean form; the galaxy at 16^3 cut to two levels against
+    # the two-level sweep (host-bound: at 32^3 the two took 13 s), both
+    # within 1e-5 of each peak
     m = model(n, level, f32, DEVICE, sweep_logmean="exact")
     base = m.initialize_equilibrium(galaxy_state(n, 300.0, DEVICE))
     kappa = opacity.compute_opacities(base.HI, base.HeI, base.HeII,
@@ -3198,21 +3178,23 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     assert err_one <= 1e-5, err_one
     assert uniform_launches == (1, 0), uniform_launches
     out["uniform_check_launches"] = sweep_cluster.LAUNCHES
-    two, _ = ingest(n, f32, DEVICE, max_depth=2)[0]
+    n2 = 16
+    m = model(n2, level, f32, DEVICE, sweep_logmean="exact")
+    two, _ = ingest(n2, f32, DEVICE, max_depth=2)[0]
     kc, kf = (opacity.compute_opacities(lv.HI, lv.HeI, lv.HeII,
                                         m.opacity_coef) for lv in two.levels)
-    plan2 = sweep_multilevel.build_ml_sweep_plan(level, n, 2)
+    plan2 = sweep_multilevel.build_ml_sweep_plan(level, n2, 2)
     js2, two_s = timed(lambda: sweep_multilevel.diffuse_sweep_multilevel(
         [kc, kf], list(two.refined), plan2, m.uvb, m.geom.cell_size))
     (jc, jf), amr_s = timed(lambda: sweep_amr.diffuse_sweep_amr(
-        kc, kf, two.refined[0], sweep_amr.build_amr_sweep_plan(level, n),
+        kc, kf, two.refined[0], sweep_amr.build_amr_sweep_plan(level, n2),
         m.uvb, m.geom.cell_size))
     leaf = two.leaf_masks()
     err_two = max(float((a[b][mk] - r[b][mk]).abs().max()
                         / r[b][mk].abs().max())
                   for a, r, mk in ((js2[0], jc, leaf[0]),
                                    (js2[1], jf, leaf[1])) for b in range(3))
-    print(f"[19 ml] {n}^3 cut to two levels ({int(two.refined[0].sum())} "
+    print(f"[19 ml] {n2}^3 cut to two levels ({int(two.refined[0].sum())} "
           f"parents) x 192 f32: the L-level sweep ({two_s:.3f} s, "
           f"{sweep_multilevel.N_COUPLING_ITERS} passes) against the "
           f"two-level sweep ({amr_s:.3f} s, {sweep_amr.N_COUPLING_ITERS} "
@@ -3222,10 +3204,10 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     del base, kappa, j_uni, j_one, two, kc, kf, js2, jc, jf, m
     counts0 = _kernel_counts()
 
-    # (d) the CLI on the L-level 32^3 grid (its refined centre and core):
-    # mode 9, 2 iterations, a restart of one from the itime-1 snapshot;
-    # mode 6, 1 iteration; --amr-storage sparse with --chemistry noneq
-    # refused before ingestion (phase 21 runs the block-sparse CLI)
+    # (d) the CLI on the L-level 32^3 grid (its refined centre and core),
+    # 192 directions: mode 9, 2 iterations, a restart of one from the
+    # itime-1 snapshot; mode 6, 1 iteration (phase 21 runs the
+    # block-sparse CLI)
     n_cli = out["cli_n"] = ML_CLI_N
     config = write_cli_inputs(os.path.join(tmp, "cli32"), n_cli,
                               refine_center=True, refine_core=True)
@@ -3250,8 +3232,8 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     restart = _config_variant(config, os.path.join(tmp, "restart.cfg"),
                               restart=1)
     # in this process (phases 16-18 restart through python -m)
-    out_r, restart_s = _cli(restart, dr, "--iters", "1", "--coupling-depth",
-                            cd.group(1), tag="19 ml")
+    out_r, restart_s = _cli(restart, dr, "--iters", "1",
+                            "--coupling-depth", cd.group(1), tag="19 ml")
     assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
             in out_r), out_r
     assert f"coupling depth: {cd.group(1)} (fixed)" in out_r
@@ -3267,24 +3249,6 @@ def _phase_ml(tmp: str, smi: str) -> dict:
     assert "coupling depth" not in out6 and list(_time_log(d6)) == [1]
     print(f"[19 ml] CLI mode 6 on the L-level {n_cli}^3 grid: call "
           f"{call6:.3f} s")
-    d = os.path.join(tmp, "refused")
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(buf):
-            cli.main([config, "--snapshot-dir", d, "--iters", "1",
-                      "--amr-storage", "sparse", "--chemistry", "noneq"])
-    except NotImplementedError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError("--amr-storage sparse --chemistry noneq ran "
-                             "on the L-level grid")
-    print(f"[19 ml] CLI --amr-storage sparse --chemistry noneq on the "
-          f"L-level grid: refused in {time.perf_counter() - t0:.3f} s: "
-          f"{refusal}")
-    assert "grid:" not in buf.getvalue(), "refused after ingestion"
-    assert not os.path.exists(os.path.join(d, "time"))
-    assert refusal.endswith("ROADMAP, Block-sparse AMR (c)"), refusal
     assert _kernel_counts() == counts0, "the L-level CLI launched a kernel"
     phase_s = time.perf_counter() - t_phase
     print(f"[19 ml] phase 19: {phase_s:.1f} s; {smi}")
@@ -3381,21 +3345,6 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
             levels, True, dtype, device=device,
             max_depth=max_depth)[0], levels, config
 
-    def sources(config, levels, state, geom, dtype, device, noneq=False,
-                first=None, max_pixel_level=6):
-        """The CLI's StellarContext of the grid (_cli_stellar), its first
-        `first` sources kept."""
-        ctx = _cli_stellar(config, levels, state.levels[0].abun2,
-                           state.refined[0], geom, dtype, device,
-                           noneq=noneq)
-        if first is not None:
-            b = ctx.sources
-            ctx = dataclasses.replace(ctx, sources=rays.SourceBatch(
-                position=b.position[:first], weight=b.weight[:first],
-                table_idx=b.table_idx[:first]),
-                n_stars_specific_age=int(b.weight[:first].sum()))
-        return dataclasses.replace(ctx, max_pixel_level=max_pixel_level)
-
     def worst(a, b, names):
         """The largest |a - b| over each field's peak in b, field by field
         and level by level of two MultiLevelStates, b's on its device
@@ -3445,29 +3394,30 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
         cli_procs[name] = _CliProcess([config, "--snapshot-dir", d, "--iters",
                                        "2", "--angular-level", "1", *flags])
 
-    # (a) 24^3 with its refined centre and core (3 levels), angular level
-    # 1, f64, 3 of the galaxy's sources at maxPixelLevel 4: one mode-8
-    # step, one noneq mode-9 step and one noneq mode-8 step (5 substeps:
-    # the CPU's network at 96^3 takes ~1 s a substep; 2 coupling passes,
-    # the full-width cell's depth) on the card against the CPU's, from the
+    # (a) the galaxy at N_A^3 = 16^3 with its refined centre and core (3
+    # levels; at 24^3 the CPU's sweep took ~10 s), angular level 1, f64, 3
+    # of its sources at maxPixelLevel 4: one mode-8 step, one noneq mode-9
+    # step and one noneq mode-8 step (5 substeps; 2 coupling passes, the
+    # full-width cell's depth) on the card against the CPU's, from the
     # CPU's equilibrium.  The three steps sweep the same opacities (a
     # step's tracer changes no species): the CPU sweeps them once
-    st24, lv24, cfg24 = ingest(24, f64, "cpu")
-    cpu9, cpu8 = model(24, 1, f64, "cpu"), model(24, 1, f64, "cpu", mode8)
-    st24 = equilibrium(cpu9, st24)
-    arrays = st24.to_numpy()
+    n_a = 16
+    st_a, lv_a, cfg_a = ingest(n_a, f64, "cpu")
+    cpu9, cpu8 = model(n_a, 1, f64, "cpu"), model(n_a, 1, f64, "cpu", mode8)
+    st_a = equilibrium(cpu9, st_a)
+    arrays = st_a.to_numpy()
     runs = {}
     for device in ("cpu", DEVICE):
         m9, m8 = ((cpu9, cpu8) if device == "cpu" else
-                  (model(24, 1, f64, DEVICE), model(24, 1, f64, DEVICE,
-                                                     mode8)))
+                  (model(n_a, 1, f64, DEVICE), model(n_a, 1, f64, DEVICE,
+                                                       mode8)))
         ml9, ml8 = (step_amr.MultiLevelModel.setup(m, 3) for m in (m9, m8))
         ml9.n_coupling_iters = ml8.n_coupling_iters = 2
         st = amr.MultiLevelState.from_numpy(arrays, dtype=f64, device=device)
         if device == "cpu":
             ml9._sweep = ml8._sweep = _sweep_once(ml9._sweep)
-        ctx, ctxn = (sources(cfg24, lv24, st, m8.geom, f64, device,
-                             noneq=noneq, first=3, max_pixel_level=4)
+        ctx, ctxn = (_cli_stellar(cfg_a, lv_a, st, m8.geom, f64, device,
+                                  noneq=noneq, first=3, max_pixel_level=4)
                      for noneq in (False, True))
         sp = tuple(chemistry_noneq.species_from_field_state(lv)
                    for lv in st.levels)
@@ -3486,8 +3436,8 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
             max(worst(card[2], host[2], fields),
                 max(_species_worst(a, b) for a, b in zip(card_sp[1],
                                                          host_sp[1])))]
-    parents = [int(r.sum()) for r in st24.refined]
-    print(f"[20 mlsrc] 24^3 + refined parents per level {parents}, 3 "
+    parents = [int(r.sum()) for r in st_a.refined]
+    print(f"[20 mlsrc] {n_a}^3 + refined parents per level {parents}, 3 "
           f"levels, level 1, f64, 3 sources at maxPixelLevel 4: card / CPU "
           f"seconds: mode 8 {t_card[0]:.3f} / {t_host[0]:.3f}, noneq mode 9 "
           f"{t_card[1]:.3f} / {t_host[1]:.3f}, noneq mode 8 {t_card[2]:.3f} "
@@ -3499,15 +3449,15 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
     out["card_vs_cpu"] = errs
     del runs, card, host, card_sp, host_sp, cpu9, cpu8, arrays
 
-    # (c) L = 2 on the card, f64: the 24^3 grid cut to two levels, one
+    # (c) L = 2 on the card, f64: the N_A^3 grid cut to two levels, one
     # mode-8 step of the two-level model (AMRModel: the CLI's equilibrium
     # route) against one of MultiLevelModel(2) (its noneq route) from the
     # same state; both trace through the L-level march
-    two, lv2, cfg2 = ingest(24, f64, DEVICE, max_depth=2)
-    m2 = model(24, 1, f64, DEVICE, mode8)
+    two, lv2, cfg2 = ingest(n_a, f64, DEVICE, max_depth=2)
+    m2 = model(n_a, 1, f64, DEVICE, mode8)
     two = equilibrium(m2, two)
-    ctx2 = sources(cfg2, lv2, two, m2.geom, f64, DEVICE, first=3,
-                   max_pixel_level=4)
+    ctx2 = _cli_stellar(cfg2, lv2, two, m2.geom, f64, DEVICE, first=3,
+                        max_pixel_level=4)
     am2 = step_amr.AMRModel.setup(m2)
     (s_ml, diag_m), ml_s = timed(lambda: step_amr.MultiLevelModel.setup(
         m2, 2).make_step(ctx2)(two))
@@ -3519,14 +3469,15 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
         float((getattr(diag_m, f.name) - getattr(diag_2, f.name)).abs().max()
               / getattr(diag_2, f.name).abs().max())
         for f in dataclasses.fields(diag_2)))
-    print(f"[20 mlsrc] L = 2 (24^3 + {int(two.refined[0].sum())} parents), "
+    print(f"[20 mlsrc] L = 2 ({n_a}^3 + {int(two.refined[0].sum())} "
+          f"parents), "
           f"f64, 3 sources, mode 8: MultiLevelModel(2)'s step "
           f"({ml_s:.3f} s) against AMRModel's ({amr_s:.3f} s): max diff "
           f"{err_c:.2e} of each level's fields, rates and diagnostics over "
           f"their peaks (tol 1e-9)")
     assert err_c <= 1e-9, err_c
     out["two_level_err"] = err_c
-    del two, s_ml, s_amr, m2, am2, ctx2, st24
+    del two, s_ml, s_amr, m2, am2, ctx2, st_a
 
     # (d), its restarts: each run's output, then its restart in this
     # process from its itime-1 snapshot, its itime 2 within 1e-4 of the
@@ -3581,8 +3532,8 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
         depth, depth_s = timed(lambda: ml8.validate_coupling_depth(state))
     ml8.n_coupling_iters = depth
     state, eq_s = timed(lambda: equilibrium(m8, state))
-    ctx, src_s = timed(lambda: sources(config, levels, state, m8.geom, f32,
-                                       DEVICE))
+    ctx, src_s = timed(lambda: _cli_stellar(config, levels, state, m8.geom,
+                                            f32, DEVICE))
     nf0 = ml8.neutral_fraction(state)
     print(f"[20 mlsrc] {n}^3 + refined parents per level "
           f"{[int(r.sum()) for r in state.refined]}: ingested in "
@@ -3632,12 +3583,13 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
                     for lv in state.levels)
     torch.cuda.reset_peak_memory_stats()
     (s9, sp9, rows9, _), step9_s = timed(lambda: profile_step.ml_noneq_layers(
-        ml9, state, species))
+        ml9, state, species, dt=0.1 * MYR, n_substeps=20))
     peak9 = torch.cuda.max_memory_allocated() / 2 ** 30
     nf9 = ml9.neutral_fraction(s9)
     print(f"[20 mlsrc] {n}^3 + 2 levels x 192 f32 L-level noneq mode-9 step "
-          f"(1 Myr, 200 substeps): {step9_s:.3f} s, layers (device ms / host "
-          "ms): " + ", ".join(f"{k} {ms:.3f} / {h:.3f}"
+          f"(0.1 Myr, 20 substeps; 1 Myr in 200 took the network 10 s): "
+          f"{step9_s:.3f} s, layers (device ms / host ms): "
+          + ", ".join(f"{k} {ms:.3f} / {h:.3f}"
                               for k, (ms, h, _) in rows9.items())
           + f"; neutral fraction {nf0:.7f} -> {nf9:.7f}; peak device memory "
           f"{peak9:.3f} GiB")
@@ -3654,7 +3606,7 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
     # lost, counted
     kills = dict(tau_kill=rays.default_tau_kill(f32),
                  rel_kill=rays.default_rel_kill(f32))
-    ctx64 = sources(config, levels, state, m8.geom, f64, DEVICE)
+    ctx64 = _cli_stellar(config, levels, state, m8.geom, f64, DEVICE)
     (t32, t64), trace_s = zip(*(timed(
         lambda c=c, d=d: rays_multilevel.trace_point_sources_ml(
             state, m8.geom, c.sources, c.tables,
@@ -3694,7 +3646,7 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
     ml8s = step_amr.MultiLevelModel.setup(m8s, 3)
     _, rows_s, march_s = profile_step.ml_layers(
         ml8s, equilibrium(m8s, st8), count=("tracer",),
-        stellar=sources(cfg8, lv8, st8, m8s.geom, f32, DEVICE))
+        stellar=_cli_stellar(cfg8, lv8, st8, m8s.geom, f32, DEVICE))
     per_step = rows_s["tracer"][2] / march_s
     print(f"[20 mlsrc] the L-level tracer at an 8^3 base (3 levels, 12 "
           f"sources, maxPixelLevel 6): {rows_s['tracer'][2]} launches in "
@@ -3716,12 +3668,37 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
     return out
 
 
+def _sparse_sweep_once(sweep):
+    """A SparseMLModel._apply_sweep that runs `sweep` on its first state
+    and puts that Jmean into every later one, whose species must be the
+    first's (so its opacities and Jmean are too)."""
+    first = []
+
+    def fields(state):
+        return [state.base] + [lv.fields for lv in state.levels]
+
+    def swept(state):
+        species = [(f.HI, f.HeI, f.HeII) for f in fields(state)]
+        if not first:
+            first.append((species, [f.Jmean for f in fields(sweep(state))]))
+        assert all(torch.equal(a, b) for x, y in zip(species, first[0][0])
+                   for a, b in zip(x, y)), "another state's sweep"
+        js = first[0][1]
+        return dataclasses.replace(
+            state, base=dataclasses.replace(state.base, Jmean=js[0]),
+            levels=tuple(dataclasses.replace(lv, fields=dataclasses.replace(
+                lv.fields, Jmean=j)) for lv, j in zip(state.levels, js[1:])))
+    return swept
+
+
 def phase_sparse(smi: str, dense_cell=None) -> dict:
     """21: block-sparse L-level AMR (core/amr_sparse.py,
-    core/sweep_sparse.py, SparseMLModel, the CLI's sparse branch) on the
-    card, in modes 9 and 6.  Plain PyTorch: the path launches none of the
-    hand-written kernels (every count is held).  dense_cell: phase 19's
-    (MultiLevelModel, state, its step) at the 64^3 cell, for (c)."""
+    core/sweep_sparse.py, the block-sparse tracer of
+    core/rays_multilevel.py, SparseMLModel with its stellar and noneq
+    steps, the CLI's sparse branch) on the card, in modes 9, 8, 6 and 1
+    and with the noneq chemistry.  Plain PyTorch: the path launches none
+    of the hand-written kernels (every count is held).  dense_cell: phase
+    19's (MultiLevelModel, state, its step) at the 64^3 cell, for (c)."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         return _phase_sparse(tmp, smi, dense_cell)
@@ -3730,20 +3707,27 @@ def phase_sparse(smi: str, dense_cell=None) -> dict:
 def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
     """phase_sparse's checks, with `tmp` a directory of their own."""
     import radiativetransfer_tpu_torch as rt
-    from radiativetransfer_tpu_torch import cli, profile_step
+    from radiativetransfer_tpu_torch import profile_step
     from radiativetransfer_tpu_torch.config import (
+        MODE_BOTH_STELLAR_UVB_TRANSFER,
         MODE_NO_STARS_THIN_UVB,
+        MODE_STELLAR_TRANSFER_THIN_UVB,
         MODE_UVB_TRANSFER_ONLY,
     )
-    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.constants import KPC, MYR
     from radiativetransfer_tpu_torch.core import (
         amr_sparse,
+        chemistry_noneq,
+        rays,
+        rays_multilevel,
         step_amr,
-        sweep_sparse,
     )
     from radiativetransfer_tpu_torch.io import grid_io, snapshot
     t_phase = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
+    mode8, mode1 = (MODE_BOTH_STELLAR_UVB_TRANSFER,
+                    MODE_STELLAR_TRANSFER_THIN_UVB)
+    channels = tuple(f.name for f in dataclasses.fields(rays.RateFields))
     counts0 = _kernel_counts()
     out = {}
     names = ("HI", "HeI", "HeII", "Jmean")
@@ -3772,9 +3756,40 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
                    for x, y, c in zip(a.levels, b.levels, cover)
                    for k in names)
 
-    # (d) the CLI on the L-level 32^3 grid under --amr-storage sparse:
-    # mode 9, 2 iterations here, its restart from the itime-1 snapshot
-    # through python -m beside (a)
+    def rel(x, y):
+        """|x - y|'s largest over y's peak (x's largest where y is 0), x
+        moved to y's device and dtype."""
+        d = float((x.to(y) - y).abs().max())
+        peak = float(y.abs().max())
+        return d / peak if peak else float(x.abs().max())
+
+    def sparse_worst(a, b, keys, species=()):
+        """The largest rel of the fields `keys` of two SparseMLStates and
+        of their species tuples (every species), level by level, on every
+        block cell (the padding blocks are 0 in both)."""
+        fa = [a.base] + [lv.fields for lv in a.levels]
+        fb = [b.base] + [lv.fields for lv in b.levels]
+        err = max(rel(getattr(x, k), getattr(y, k)) for x, y in zip(fa, fb)
+                  for k in keys)
+        for x, y in zip(*species) if species else ():
+            err = max(err, _species_worst(x, y))
+        return err
+
+    def rf_worst(a, b, keys=channels):
+        """The same over per-level rate fields, channel by channel."""
+        return max(rel(getattr(x, k), getattr(y, k))
+                   for x, y in zip(a, b) for k in keys)
+
+    def diag_worst(a, b):
+        return max(rel(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(b))
+
+    # (d) the CLI on the L-level 32^3 grid under --amr-storage sparse, 192
+    # directions: mode 9, 2 iterations here, its restart from the itime-1 snapshot through python -m beside
+    # (a); modes 8 and 1 (the 12 sources) and --chemistry noneq mode 9, 2
+    # iterations each through python -m in a process of its own beside
+    # (a), the noneq run restarted in this process from its itime-1
+    # snapshot after (a)
     n_cli = ML_CLI_N
     config = write_cli_inputs(os.path.join(tmp, "cli32"), n_cli,
                               refine_center=True, refine_core=True)
@@ -3801,19 +3816,39 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
                               restart=1)
     restarted = _CliProcess([restart, "--snapshot-dir", dr, "--iters", "1",
                              *sparse, "--coupling-depth", cd.group(1)])
+    cli_cases = {
+        "mode 8": (_config_variant(config, os.path.join(tmp, "m8.cfg"),
+                                   mode=8), ()),
+        "mode 1": (_config_variant(config, os.path.join(tmp, "m1.cfg"),
+                                   mode=1), ()),
+        "noneq mode 9": (config, ("--chemistry", "noneq"))}
+    cli_procs = {}
+    for name, (cfg_m, flags) in cli_cases.items():
+        d = os.path.join(tmp, re.sub(r"\W+", "_", name))
+        os.makedirs(d)
+        cli_procs[name] = _CliProcess([cfg_m, "--snapshot-dir", d, "--iters",
+                                       "2", *sparse, *flags])
 
     # (a) 24^3 with its refined centre and core in blocks of 4, level 1,
     # f64: a mode-9 step on the card, windowed and full-plane, against the
-    # CPU's windowed step, and against the dense L-level card step
+    # CPU's windowed step, and against the dense L-level card step; the
+    # block-sparse trace (3 of the galaxy's sources at maxPixelLevel 4), a
+    # mode-8 step and a noneq mode-9 step (5 substeps) on the card against
+    # the CPU's (the CPU sweeps once for its three steps: a step's tracer
+    # changes no species)
+    config24 = write_cli_inputs(os.path.join(tmp, "in24"), 24,
+                                refine_center=True, refine_core=True)
     levels24 = grid_io.read_level_npz(os.path.join(
-        os.path.dirname(write_cli_inputs(os.path.join(tmp, "in24"), 24,
-                                         refine_center=True,
-                                         refine_core=True)),
-        "testgrid_velmet.npz"))
+        os.path.dirname(config24), "testgrid_velmet.npz"))
+    # the eager CPU steps' small ops run fastest on one thread (and the
+    # CLI processes of (d) share the host)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     cpu = model(24, 1, f64, "cpu")
     st = amr_sparse.sparse_from_level_lists(levels24, True, be=4,
                                             dtype=f64, device="cpu")[0]
     host_sm = step_amr.SparseMLModel.setup(cpu, 3)
+    host_sm._apply_sweep = _sparse_sweep_once(host_sm._apply_sweep)
     arrays = host_sm.initialize_equilibrium(st).to_numpy()
     host, cpu_s = timed(lambda: host_sm.make_step()(
         amr_sparse.SparseMLState.from_numpy(arrays, dtype=f64,
@@ -3849,10 +3884,49 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
           f"level's peak (tol 1e-10)")
     assert max(errs.values()) <= 1e-10 and err_dense <= 1e-10, (errs,
                                                                 err_dense)
-    assert _kernel_counts() == counts0, "the sparse step launched a kernel"
     out["card_vs_cpu"] = errs
     out["card_vs_dense"] = err_dense
-    del host, card, windowed_card, dense0, dense1, st_c, cpu, arrays
+    del host, card, windowed_card, dense0, dense1, st_c
+    runs = {}
+    for device in ("cpu", DEVICE):
+        m9, m8 = ((cpu, model(24, 1, f64, "cpu", mode8)) if device == "cpu"
+                  else (m24, model(24, 1, f64, DEVICE, mode8)))
+        sm9, sm8 = (step_amr.SparseMLModel.setup(m, 3) for m in (m9, m8))
+        if device == "cpu":
+            sm9._apply_sweep = sm8._apply_sweep = host_sm._apply_sweep
+        st = amr_sparse.SparseMLState.from_numpy(arrays, dtype=f64,
+                                                 device=device)
+        ctx = _cli_stellar(config24, levels24, st, m8.geom, f64, device,
+                           first=3, max_pixel_level=4)
+        (_, rfs, diag), t_tr = timed(lambda: sm8.trace(sm8._zero_rates(st),
+                                                       ctx))
+        (s8, diag8), t8 = timed(lambda: sm8.make_step(ctx)(st))
+        (s9n, sp9n), t9n = timed(lambda: sm9.make_noneq_step(
+            MYR, n_substeps=5)(st, sm9.initial_species(st)))
+        runs[device] = ((rfs, diag), (s8, diag8), (s9n, sp9n),
+                        (t_tr, t8, t9n))
+    torch.set_num_threads(threads)
+    card, host = runs[DEVICE], runs["cpu"]
+    fields = names + ("tgas", "krate24", "crate24")
+    errs_a = [max(rf_worst(card[0][0], host[0][0]),
+                  diag_worst(card[0][1], host[0][1])),
+              max(sparse_worst(card[1][0], host[1][0], fields),
+                  diag_worst(card[1][1], host[1][1])),
+              sparse_worst(card[2][0], host[2][0], names,
+                           (card[2][1], host[2][1]))]
+    print(f"[21 sparse] 24^3 in blocks of 4, f64, 3 sources at "
+          f"maxPixelLevel 4: card / CPU seconds: the block-sparse trace "
+          f"{card[3][0]:.3f} / {host[3][0]:.3f}, mode-8 step "
+          f"{card[3][1]:.3f} / {host[3][1]:.3f}, noneq mode-9 step "
+          f"{card[3][2]:.3f} / {host[3][2]:.3f} (5 substeps); max diff over "
+          f"each channel's, field's and species' peak on every level: "
+          f"{errs_a[0]:.2e} (the trace and its diagnostics), {errs_a[1]:.2e}"
+          f" (mode 8), {errs_a[2]:.2e} (noneq) (tol 1e-9)")
+    assert max(errs_a) <= 1e-9, errs_a
+    assert all(float(rf.krate24.max()) > 0.0 for rf in card[0][0])
+    out["card_vs_cpu_sources"] = errs_a
+    assert _kernel_counts() == counts0, "the sparse step launched a kernel"
+    del runs, card, host, cpu, host_sm, arrays, st
     rc, stdout, stderr, restart_s = restarted.result()
     for line in stdout.splitlines():
         print(f"[21 sparse]   {line}")
@@ -3860,17 +3934,68 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
     assert (f"restarted from {snapshot.snapshot_name(1, dr)} at itime=1"
             in stdout), stdout
     nf_sub = _time_log(dr)[2]
-    rel = abs(nf_sub - log9[2]) / log9[2]
+    rel9 = abs(nf_sub - log9[2]) / log9[2]
     print(f"[21 sparse] restart: python -m ...cli {restart_s:.3f} s (beside "
           f"(a)), itime 2 neutral fraction {nf_sub:.8f} against "
-          f"{log9[2]:.8f} in this process (rel {rel:.2e}, tol 1e-4)")
-    assert rel <= 1e-4, (nf_sub, log9[2])
+          f"{log9[2]:.8f} in this process (rel {rel9:.2e}, tol 1e-4)")
+    assert rel9 <= 1e-4, (nf_sub, log9[2])
+    # (d), the runs started before (a), and the noneq run's restart here
+    cli_runs = {}
+    for name, (cfg_m, flags) in cli_cases.items():
+        d = os.path.join(tmp, re.sub(r"\W+", "_", name))
+        rc, run_out, err, call_s = cli_procs[name].result()
+        for line in run_out.splitlines():
+            print(f"[21 sparse]   {line}")
+        assert rc == 0, err[-4000:]
+        log = _time_log(d)
+        assert list(log) == [1, 2] and all(0.0 < v < 1.0
+                                           for v in log.values()), log
+        fesc = re.findall(r"fesc=(\S+)", run_out)
+        assert len(fesc) == (0 if flags else 2), run_out
+        assert os.path.exists(os.path.join(d, "cosmicSpectrum.npz")) == (
+            not flags)
+        dts_m = _iteration_dts(run_out, n_cli ** 3 * 192)
+        line = (f"[21 sparse] CLI {name} on the block-sparse {n_cli}^3 grid: "
+                f"python -m ...cli {call_s:.3f} s (beside (a)), iterations' "
+                f"dt {_fmt(dts_m)} s, neutral fractions {list(log.values())}"
+                + (f", fesc {fesc[-1]}" if fesc else ""))
+        if flags:
+            assert ("non-equilibrium chemistry (block-sparse, 3 levels): dt "
+                    "= 1.0 Myr, evolve_energy = False") in run_out, run_out
+            with np.load(snapshot.snapshot_name(2, d)) as f:
+                nb = len(f["origin_2"]) + 1
+                assert f["species0_H2I"].shape == (n_cli,) * 3
+                assert f["species2_H2I"].shape == (nb, 8, 8, 8)
+            cdn = re.search(r"^coupling depth: (\d) ", run_out, re.M)
+            drn = d + "_restart"
+            os.makedirs(drn)
+            shutil.copy(snapshot.snapshot_name(1, d), drn)
+            restart_n = _config_variant(cfg_m, d + "_restart.cfg",
+                                        restart=1)
+            out_r, restart_n_s = _cli(restart_n, drn, "--iters", "1",
+                                      *sparse, *flags, "--coupling-depth",
+                                      cdn.group(1), tag="21 sparse")
+            assert (f"restarted from {snapshot.snapshot_name(1, drn)} at "
+                    f"itime=1") in out_r, out_r
+            assert "restored 9-species noneq state from snapshot" in out_r
+            nf_r = _time_log(drn)[2]
+            rel_n = abs(nf_r - log[2]) / log[2]
+            line += (f"; restart in this process {restart_n_s:.3f} s, "
+                     f"itime 2 {nf_r:.8f} against {log[2]:.8f} (rel "
+                     f"{rel_n:.2e}, tol 1e-4)")
+            assert rel_n <= 1e-4, (nf_r, log[2])
+        print(line)
+        cli_runs[name] = (dts_m, call_s)
+    assert _kernel_counts() == counts0, "the sparse CLI launched a kernel"
 
     # (b) the production cell: 128^3 with its refined centre and core x
-    # 192, f32, stored block-sparse under the CLI's default rule
+    # 192, f32, stored block-sparse under the CLI's default rule: mode 9,
+    # and with the galaxy's 12 sources at maxPixelLevel 6 as the CLI
+    # prepares them, modes 8 and 1 and a noneq mode-9 step
     n, level = MAIN_N, MAIN_LEVEL
-    state, storage, ingest_s = profile_step.sparse_galaxy(
-        n, os.path.join(tmp, f"in{n}"), device=DEVICE)
+    inputs = os.path.join(tmp, f"in{n}")
+    state, storage, ingest_s = profile_step.sparse_galaxy(n, inputs,
+                                                          device=DEVICE)
     assert storage == "sparse", storage
     m = model(n, level, f32, DEVICE)
     sm, plan_s = timed(lambda: step_amr.SparseMLModel.setup(m, 3))
@@ -3890,27 +4015,48 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
           f"{plan_s:.3f} s, validate_coupling_depth {depth_s:.3f} s: depth "
           f"{depth}, equilibrium {eq_s:.3f} s; neutral fraction {nf0:.7f}")
     assert win is not None and win[0] < n
+    # one mode-8 step with the galaxy's 12 sources at maxPixelLevel 6 as
+    # the CLI prepares them, layer by layer: the tracer (its device and
+    # host ms, march steps) and then mode 9's layers on the traced state
+    # (the sweep reads the species alone; a separate mode-9 step would
+    # sweep the same opacities once more)
+    ctx, src_s = timed(lambda: profile_step.galaxy_sources(
+        inputs, state, m.geom, device=DEVICE))
+    sm8 = dataclasses.replace(sm, rt=model(n, level, f32, DEVICE, mode8))
     torch.cuda.reset_peak_memory_stats()
-    (state1, rows), step_s = timed(lambda: profile_step.sparse_layers(
-        sm, state))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    nf1 = sm.neutral_fraction(state1)
-    print(f"[21 sparse] {n}^3 + 2 levels x 192 f32 block-sparse mode-9 "
-          f"step, depth {depth}: {step_s:.3f} s, layers (device ms by CUDA "
-          "events / host ms to enqueue): " + ", ".join(f"{k} {ms:.3f} / {h:.3f}" for k, (ms, h, _)
-                                   in rows.items())
-          + f"; neutral fraction {nf0:.7f} -> {nf1:.7f}; peak device memory "
-          f"{peak:.3f} GiB (the dense L-level step 43.28 GiB, PERF.md); "
-          f"{smi}")
-    assert np.isfinite(nf1) and 0.0 < nf1 < nf0, (nf0, nf1)
+    (s8, rows8, march), step8_s = timed(lambda: profile_step.sparse_layers(
+        sm8, state, stellar=ctx))
+    peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+    nf8 = sm8.neutral_fraction(s8)
+    tr_ms = rows8["tracer"][0]
+    rows = {k: v for k, v in rows8.items() if k != "tracer"}
+    # derived, not a measured mode-9 step: the mode-8 step's seconds
+    # less its tracer's host ms
+    mode9_layers_s = step8_s - rows8["tracer"][1] / 1e3
+    print(f"[21 sparse] {n}^3 + 2 levels x 192 f32 block-sparse mode-8 "
+          f"step, depth {depth}, {ctx.sources.n_sources} sources (prepared "
+          f"as the CLI does in {src_s:.3f} s), maxPixelLevel "
+          f"{ctx.max_pixel_level}: {step8_s:.3f} s, layers (device ms by "
+          "CUDA events / host ms to enqueue): " + ", ".join(
+              f"{k} {ms:.3f} / {h:.3f}" for k, (ms, h, _) in rows8.items())
+          + f"; the tracer {march} march steps ({tr_ms / march:.3f} ms a "
+          f"step); mode 9's layers (all but the tracer; derived) "
+          f"{mode9_layers_s:.3f} s; "
+          f"neutral fraction {nf0:.7f} -> {nf8:.7f}; peak device memory "
+          f"{peak8:.3f} GiB (the dense L-level mode-9 step 43.28 GiB, "
+          f"PERF.md); {smi}")
+    assert np.isfinite(nf8) and 0.0 < nf8 < nf0, (nf0, nf8)
     assert all(bool(torch.isfinite(getattr(f, k)).all()) for f in
-               [state1.base] + [lv.fields for lv in state1.levels]
-               for k in names)
-    assert peak < 43.0, peak
-    inputs, batch = profile_step.sparse_first_batch(sm, state1)
+               [s8.base] + [lv.fields for lv in s8.levels]
+               for k in names + ("krate24",))
+    assert all(float(f.krate24.max()) > 0.0 for f in
+               [s8.base] + [lv.fields for lv in s8.levels])
+    assert peak8 < 43.0, peak8
+    del s8
+    inputs_b, batch = profile_step.sparse_first_batch(sm, state)
     wall, busy, launches8, slabs, _ = profile_step.sparse_slab_window(
-        sm, inputs, True, 8)
-    del inputs
+        sm, inputs_b, True, 8)
+    del inputs_b
     print(f"[21 sparse] the first zone batch's sweep ({len(batch)} zones of "
           f"{batch[0].ndir} directions), covered base slabs "
           f"{slabs.start}-{slabs.stop - 1} at full width: wall "
@@ -3919,7 +4065,7 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
     sm6 = step_amr.SparseMLModel.setup(
         model(n, level, f32, DEVICE, mode=MODE_NO_STARS_THIN_UVB), 3)
     assert sm6.plan is None
-    (s6, rows6), step6_s = timed(lambda: profile_step.sparse_layers(
+    (s6, rows6, _), step6_s = timed(lambda: profile_step.sparse_layers(
         sm6, state))
     nf6 = sm6.neutral_fraction(s6)
     print(f"[21 sparse] {n}^3 + 2 levels f32 block-sparse mode-6 step (the "
@@ -3928,82 +4074,217 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
                               for k, (ms, h, _) in rows6.items())
           + f"; neutral fraction {nf6:.7f}")
     assert np.isfinite(nf6) and 0.0 < nf6 < 1.0
+    del s6, sm6
+    # the tracer alone: its peak memory above the state's (the dense
+    # form's finest int32 leaf-level volume and packed fields, which it
+    # does not build, are the yardstick; most of it is the quadrature
+    # deposit's (rays, frequencies) temporaries, which any form needs),
+    # then in a profiler window
+    s0 = sm8._zero_rates(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    box = [None]
+    tr_wall, tr_busy, tr_events, _ = profile_step.profiled(
+        lambda _: sm8.trace(s0, ctx), box, steps=1)
+    trace_peak = torch.cuda.max_memory_allocated() - base_bytes
+    _, rfs32, diag32 = box[0]
+    trace_s = tr_wall
+    dense_bytes = (n * 4) ** 3 * 4 + sum((n * 2 ** ell) ** 3
+                                         for ell in range(3)) * 5 * 4
+    del s0, box
+    print(f"[21 sparse] the {n}^3 block-sparse tracer in a profiler window: "
+          f"wall {tr_wall * 1e3:.3f} ms, device busy {tr_busy * 1e3:.3f} ms "
+          f"({100 * tr_busy / tr_wall:.1f}%), {tr_events:.0f} device events "
+          f"({tr_events / march:.1f} a march step); peak device memory "
+          f"{trace_peak / 2 ** 30:.3f} GiB above the state's, against "
+          f"{dense_bytes / 2 ** 30:.3f} GiB for the dense form's {4 * n}^3 "
+          f"int32 leaf-level volume and packed fields alone")
+    assert trace_peak < dense_bytes / 2, (trace_peak, dense_bytes)
+    sm1 = dataclasses.replace(sm, rt=model(n, level, f32, DEVICE, mode1),
+                              plan=None)
+    (s1, diag1), step1_s = timed(lambda: sm1.make_step(ctx)(state))
+    nf1 = sm1.neutral_fraction(s1)
+    fesc1 = rays.escape_fractions(diag1, ctx.sources.weight)
+    print(f"[21 sparse] {n}^3 f32 block-sparse mode-1 step (the tracer, "
+          f"three chemistries, no sweep): {step1_s:.3f} s; neutral fraction "
+          f"{nf0:.7f} -> {nf1:.7f}; escape fractions at the outer radius "
+          f"{_fmt(fesc1[:, -1])}; {smi}")
+    assert 0.0 < nf1 < nf0 and bool(np.isfinite(fesc1).all())
+    del s1, sm1
+    # a noneq mode-9 step, layer by layer
+    species = sm.initial_species(state)
+    torch.cuda.reset_peak_memory_stats()
+    (s9, sp9, rows9, _), step9_s = timed(
+        lambda: profile_step.sparse_noneq_layers(sm, state, species))
+    peak9 = torch.cuda.max_memory_allocated() / 2 ** 30
+    nf9 = sm.neutral_fraction(s9)
+    print(f"[21 sparse] {n}^3 + 2 levels x 192 f32 block-sparse noneq mode-9 "
+          f"step (1 Myr, 200 substeps): {step9_s:.3f} s, layers (device ms "
+          "/ host ms): " + ", ".join(f"{k} {ms:.3f} / {h:.3f}"
+                                     for k, (ms, h, _) in rows9.items())
+          + f"; neutral fraction {nf0:.7f} -> {nf9:.7f}; peak device memory "
+          f"{peak9:.3f} GiB; {smi}")
+    assert np.isfinite(nf9) and 0.0 < nf9 < 1.0
+    assert all(bool(torch.isfinite(getattr(sp, k)).all())
+               for sp in sp9 for k in ("HI", "H2I", "de", "eint"))
+    del s9, sp9, species
+    # the float32 trace above (float32's default kills) against float64's
+    # of the same state with the same kills: every level's six channels
+    # within 5e-5 of each peak, the escape fractions within 1e-5
+    ctx64 = profile_step.galaxy_sources(inputs, state, m.geom, dtype=f64,
+                                        device=DEVICE)
+    t64, trace64_s = timed(
+        lambda: rays_multilevel.trace_point_sources_sparse(
+            state, m.geom, ctx64.sources, ctx64.tables,
+            dust_approximation=ctx64.dust_approximation,
+            max_pixel_level=ctx64.max_pixel_level, dtype=f64,
+            tau_kill=rays.default_tau_kill(f32),
+            rel_kill=rays.default_rel_kill(f32)))
+    err_levels = [rf_worst((a,), (b,)) for a, b in zip(rfs32, t64[0])]
+    fesc32, fesc64 = (rays.escape_fractions(d, ctx.sources.weight)
+                      for d in (diag32, t64[1]))
+    fesc_err = float(np.abs(fesc32 - fesc64).max())
+    print(f"[21 sparse] the {n}^3 block-sparse f32 trace ({trace_s:.3f} s) "
+          f"against the f64 trace ({trace64_s:.3f} s), both with tau_kill "
+          f"{rays.default_tau_kill(f32)} and rel_kill "
+          f"{rays.default_rel_kill(f32)}: channels max diff by level "
+          f"{_fmt(err_levels)} of each channel's peak (tol 5e-5), escape "
+          f"fractions {fesc_err:.2e} (tol 1e-5)")
+    assert max(err_levels) <= 5e-5 and fesc_err <= 1e-5, (err_levels,
+                                                           fesc_err)
+    del t64, ctx64, rfs32, diag32
+    # the tracer's launches a march step, from two agreeing profiler
+    # windows of a whole trace at an 8^3 base with its 12 sources
+    launches_tr, march_s = profile_step.sparse_tracer_launches(8)
+    per_step = launches_tr / march_s
+    print(f"[21 sparse] the block-sparse tracer at an 8^3 base (3 levels, 12 "
+          f"sources, maxPixelLevel 6): {launches_tr} launches in two "
+          f"agreeing traces of {march_s} march steps, {per_step:.1f} a "
+          f"march step")
+    assert march_s > 0 and launches_tr > march_s
     assert _kernel_counts() == counts0, "the sparse step launched a kernel"
     out.update(ingest_s=ingest_s, window=None if win is None else win[0],
                skip_share=skip, depth=depth, depth_s=depth_s, plan_s=plan_s,
-               step_s=step_s, layers=rows, peak_gib=peak,
-               memory_bytes=mem, batch_busy_share=busy / wall,
-               launches8=launches8, mode6_s=step6_s)
-    del state, state1, s6, sm, sm6, m
+               mode9_layers_s=mode9_layers_s, layers=rows,
+               memory_bytes=mem,
+               batch_busy_share=busy / wall,
+               launches8=launches8, mode6_s=step6_s, step8_s=step8_s,
+               layers8=rows8, march=march, peak8_gib=peak8,
+               trace_peak_gib=trace_peak / 2 ** 30,
+               tracer_busy_share=tr_busy / tr_wall, mode1_s=step1_s,
+               noneq9_s=step9_s, layers9=rows9, peak9_gib=peak9,
+               trace_err=(*err_levels, fesc_err),
+               launches_per_march_step=per_step)
+    del state, sm, sm8, m, ctx
 
     # (c) phase 19's 64^3 cell, f32: the dense state block-sparse, the
-    # windowed and the full-plane sparse sweeps within 1e-5 of each peak,
-    # the windowed step against phase 19's dense step on covered cells
+    # windowed step against phase 19's dense step on covered cells (the
+    # windowed and the full-plane sweeps are held to each other in (a));
+    # with the galaxy's 12 sources, the block-sparse trace against the
+    # dense one and a noneq mode-1 step (20 substeps) on either storage,
+    # on covered cells
     if dense_cell is not None:
         ml, dstate, dstep = dense_cell
         sp, conv_s = timed(lambda: amr_sparse.sparse_from_dense(dstate))
         sm = step_amr.SparseMLModel.setup(ml.rt, 3)
         sm.n_coupling_iters = ml.n_coupling_iters
-        s0 = sm._zero_rates(sp)
-        k0, lv_k = sm._kappas(s0)
-        win = sm._ensure_window(s0)
-        sweeps, sweep_s = [], []
-        for w in (win, None):
-            js, secs = timed(lambda: sweep_sparse.diffuse_sweep_sparse(
-                k0, lv_k, s0, sm.plan, ml.rt.uvb, ml.rt.geom.cell_size,
-                sm.n_coupling_iters, window=w))
-            sweeps.append(js)
-            sweep_s.append(secs)
-        (jw0, jwb), (jf0, jfb) = sweeps
-        err_w = max(float((a - b).abs().max() / b.abs().max())
-                    for a, b in zip([jw0, *jwb], [jf0, *jfb]))
         sp1, sparse_s = timed(lambda: sm.make_step()(sp))
         err_d = worst_covered(amr_sparse.dense_from_sparse(sp1), dstep)
         print(f"[21 sparse] phase 19's {sp.n}^3 cell block-sparse "
-              f"(converted in {conv_s:.3f} s; W "
-              f"{None if win is None else win[0]}), f32 at depth "
-              f"{sm.n_coupling_iters}: the windowed sparse sweep "
-              f"{sweep_s[0]:.3f} s, the full-plane one {sweep_s[1]:.3f} s, "
-              f"Jmean max diff {err_w:.2e} "
-              f"of each level's peak (tol 1e-5); the windowed sparse step "
+              f"(converted in {conv_s:.3f} s; W {sm._window[0]}), f32 at "
+              f"depth {sm.n_coupling_iters}: the windowed sparse step "
               f"{sparse_s:.3f} s against phase 19's dense step: species "
               f"and Jmean max diff on covered cells {err_d:.2e} of each "
               f"level's peak (tol 1e-5)")
-        assert err_w <= 1e-5 and err_d <= 1e-5, (err_w, err_d)
-        out.update(sweep64_s=sweep_s, sweep64_err=err_w, step64_err=err_d,
-                   step64_s=sparse_s)
-        del sp, sp1, s0, k0, lv_k, sweeps, dense_cell, dstate, dstep
+        assert err_d <= 1e-5, err_d
+        out.update(step64_err=err_d, step64_s=sparse_s)
+        del sp1, dstep
+        n64 = sp.n
+        config64 = write_cli_inputs(os.path.join(tmp, f"in{n64}"), n64,
+                                    refine_center=True, refine_core=True)
+        levels64 = grid_io.read_level_npz(os.path.join(
+            os.path.dirname(config64), "testgrid_velmet.npz"))
+        m1 = model(n64, 1, f32, DEVICE, mode1)
+        ctx = _cli_stellar(config64, levels64, sp, m1.geom, f32, DEVICE)
+        ctxn = _cli_stellar(config64, levels64, sp, m1.geom, f32, DEVICE,
+                            noneq=True)
+        (rfs_s, diag_s), tr_s = timed(
+            lambda: rays_multilevel.trace_point_sources_sparse(
+                sp, m1.geom, ctx.sources, ctx.tables,
+                dust_approximation=ctx.dust_approximation,
+                max_pixel_level=ctx.max_pixel_level, dtype=f32))
+        (rfs_d, diag_d), tr_d = timed(
+            lambda: rays_multilevel.trace_point_sources_ml(
+                dstate, m1.geom, ctx.sources, ctx.tables,
+                dust_approximation=ctx.dust_approximation,
+                max_pixel_level=ctx.max_pixel_level, dtype=f32))
+        # each level's covered cells: (their flat index in the dense
+        # level, in the block-sparse one); the base is all covered
+        idx = [(torch.arange(n64 ** 3, device=DEVICE),) * 2]
+        for ell, lv in enumerate(sp.levels, start=1):
+            n_l, be = n64 * 2 ** ell, lv.be
+            r = torch.arange(be, device=DEVICE)
+            o = lv.origin.long()
+            ix, iy, iz = (o[:, a, None, None, None] + r.reshape(
+                [be if i == a else 1 for i in range(3)]) for a in range(3))
+            flat = (ix * n_l + iy) * n_l + iz
+            c = lv.cover
+            idx.append((flat[c], c.reshape(-1).nonzero().squeeze(1)))
 
-    # (d) mode 6 through the CLI, 2 iterations; modes 8 and 1 refused
-    # before ingestion
+        def covered_rel(a, b, ell):
+            """rel of a level's block-sparse a and dense b on its covered
+            cells."""
+            d_idx, s_idx = idx[ell]
+            return rel(a.reshape(-1)[s_idx], b.reshape(-1)[d_idx].to(a))
+
+        err_tr = max(covered_rel(getattr(a, k), getattr(b, k), ell)
+                     for ell, (a, b) in enumerate(zip(rfs_s, rfs_d))
+                     for k in channels)
+        err_tr = max(err_tr, diag_worst(diag_s, diag_d))
+        dense_m = step_amr.MultiLevelModel.setup(m1, 3)
+        sparse_m = step_amr.SparseMLModel.setup(m1, 3)
+        sp_d = tuple(chemistry_noneq.species_from_field_state(lv)
+                     for lv in dstate.levels)
+        (d1, spd1, _), noneq_d_s = timed(lambda: dense_m.make_noneq_step(
+            MYR, ctxn, n_substeps=20)(dstate, sp_d))
+        (s1, sps1, _), noneq_s_s = timed(lambda: sparse_m.make_noneq_step(
+            MYR, ctxn, n_substeps=20)(sp, sparse_m.initial_species(sp)))
+        fs = [s1.base] + [lv.fields for lv in s1.levels]
+        err_n = max(
+            covered_rel(getattr(a, k), getattr(b, k), ell)
+            for ell, (fa, fd, sa, sd) in enumerate(zip(
+                fs, d1.levels, sps1, spd1))
+            for a, b, keys in ((fa, fd, ("HI", "HeI", "HeII", "krate24")),
+                               (sa, sd, chemistry_noneq.SPECIES))
+            for k in keys)
+        print(f"[21 sparse] phase 19's {n64}^3 cell with its "
+              f"{ctx.sources.n_sources} sources at maxPixelLevel "
+              f"{ctx.max_pixel_level}, f32: the block-sparse trace "
+              f"({tr_s:.3f} s) against the dense one ({tr_d:.3f} s): every "
+              f"channel on every level's covered cells and the diagnostics "
+              f"max diff {err_tr:.2e} of each peak (tol 1e-5); a noneq "
+              f"mode-1 step (20 substeps) block-sparse ({noneq_s_s:.3f} s) "
+              f"against dense ({noneq_d_s:.3f} s): fields and species max "
+              f"diff on covered cells {err_n:.2e} of each peak (tol 1e-5)")
+        assert err_tr <= 1e-5 and err_n <= 1e-5, (err_tr, err_n)
+        out.update(trace64_err=err_tr, noneq64_err=err_n,
+                   trace64_s=(tr_s, tr_d), noneq64_s=(noneq_s_s, noneq_d_s))
+        del sp, dense_cell, dstate, rfs_s, rfs_d, d1, s1, spd1, sps1, sp_d
+
+    # (d) mode 6 through the CLI, 2 iterations
     d6 = os.path.join(tmp, "sparse6")
     config6 = _config_variant(config, os.path.join(tmp, "mode6.cfg"), mode=6)
     out6, call6 = _cli(config6, d6, "--iters", "2", *sparse, tag="21 sparse")
     assert "coupling depth" not in out6 and list(_time_log(d6)) == [1, 2]
     print(f"[21 sparse] CLI mode 6 on the block-sparse {n_cli}^3 grid: call "
           f"{call6:.3f} s")
-    for mode in (8, 1):
-        d = os.path.join(tmp, f"refused{mode}")
-        cfg_m = _config_variant(config, os.path.join(tmp, f"m{mode}.cfg"),
-                                mode=mode)
-        buf = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(buf):
-                cli.main([cfg_m, "--snapshot-dir", d, "--iters", "1",
-                          *sparse])
-        except NotImplementedError as e:
-            refusal = str(e)
-        else:
-            raise AssertionError(f"mode {mode} ran on block-sparse storage")
-        assert "grid:" not in buf.getvalue(), "refused after ingestion"
-        assert refusal.endswith("ROADMAP, Block-sparse AMR (c)"), refusal
-        print(f"[21 sparse] CLI mode {mode} on block-sparse storage: refused "
-              f"before ingestion: {refusal}")
     assert _kernel_counts() == counts0, "the sparse CLI launched a kernel"
     phase_s = time.perf_counter() - t_phase
     print(f"[21 sparse] phase 21: {phase_s:.1f} s; {smi}")
+    _print_windows("21 sparse", "phases 17 to 21")
     out.update(cli_dts=dts, cli_call_s=call9, restart_s=restart_s,
-               cli_call6_s=call6, phase_s=phase_s)
+               cli_call6_s=call6, cli=cli_runs, phase_s=phase_s)
     return out
 
 

@@ -11,9 +11,10 @@ Modes 9 and 6 also run on a 1-D grid mesh of P ranks on one device
 (parallel/sweep_dist.py, parallel/sweep_rdma.py; the ring is a CUDA
 kernel on the card).  In every one of these the non-equilibrium 9-species
 network (core/chemistry_noneq.py, RTModel.make_noneq_step) can take the
-equilibrium chemistry's place.  Modes 9 and 6 also run on a two-level AMR
-grid (core/amr.py, core/sweep_amr.py, core/step_amr.py::AMRModel; plain
-PyTorch).
+equilibrium chemistry's place.  Modes 9, 8, 6 and 1 and the noneq
+network also run on nested grids, plain PyTorch (core/step_amr.py): two
+levels (AMRModel), L levels dense (MultiLevelModel) and block-sparse
+(SparseMLModel, core/amr_sparse.py).
 The measuring entry points are `python -m radiativetransfer_tpu_torch.bench`
 and `python -m radiativetransfer_tpu_torch.roofline_sweep`.
 

@@ -42,24 +42,29 @@ its sweep's coupling depth validated on the ingested grid unless
 under `--amr-storage dense`, under `auto` (the default) while the dense
 levels' 17 fields take at most 4e9 bytes.  Above that, or under
 `--amr-storage sparse`, such a grid runs as block-sparse L-level AMR
-(core/amr_sparse.py, core/step_amr.py::SparseMLModel) in modes 9 and 6,
-the JAX CLI's storage: ingested at O(leaves) in blocks of `--block-edge`
-cells a side, its coupling depth validated the same way, its sweep
-confined to each slab's refinement window unless `--sweep-window off`
-(core/sweep_sparse.py), its snapshots leaf streams with the block
-origins.  `--chemistry noneq` on a nested
-grid runs MultiLevelModel.make_noneq_step, a two-level grid as
-MultiLevelModel(2) at the default coupling depth, as the JAX CLI does, and
-writes L-level snapshots with each level's species (`species{l}_*`).  The
-diagnostic modes 2, 3, 4 and 7 of a nested grid read its base level, as
-the JAX CLI's do; its snapshots are cellArray leaf streams
-(io/snapshot.py::write_snapshot_amr, write_snapshot_ml).
+(core/amr_sparse.py, core/step_amr.py::SparseMLModel) in modes 9, 8, 6
+and 1, the JAX CLI's storage: ingested at O(leaves) in blocks of
+`--block-edge` cells a side, its coupling depth validated the same way,
+its sweep confined to each slab's refinement window unless
+`--sweep-window off` (core/sweep_sparse.py), the point sources traced
+through each level's blocks (core/rays_multilevel.py's block-sparse
+addressing), its snapshots leaf streams with the block origins; under
+`--split-compile` each iteration also prints its phases' seconds (the
+tracer's by phase, and its last phase's alive counts), as the JAX CLI
+does.  `--chemistry noneq` on a nested grid runs the model's
+make_noneq_step (a two-level grid as MultiLevelModel(2) at the default
+coupling depth, as the JAX CLI does; a block-sparse one with each refined
+level's species in blocks, their padding blocks zero) and writes
+snapshots with each level's species (`species{l}_*`), which a restart
+continues.  The diagnostic modes 2, 3, 4 and 7 of a nested grid read its
+base level, as the JAX CLI's do; its snapshots are cellArray leaf streams
+(io/snapshot.py::write_snapshot_amr, write_snapshot_ml,
+write_snapshot_sparse).
 
 Not ported yet, and refused before any work with NotImplementedError
-naming their ROADMAP entries: point sources (modes 8 and 1) and
-`--chemistry noneq` on block-sparse storage, a mesh on a nested grid,
-`.h4` grids, `--ckpt-format orbax`, `--debug-checkify`,
-`--tracer-compact`, point sources on a mesh and the multi-process flags.
+naming their ROADMAP entries: a mesh on a nested grid, `.h4` grids,
+`--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`, point
+sources on a mesh and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -176,8 +181,8 @@ def _parser() -> argparse.ArgumentParser:
                     default="auto",
                     help="storage of a grid of more than two levels: dense "
                          "per-level volumes, block-sparse (memory "
-                         "proportional to the leaves; modes 9 and 6), or "
-                         "auto (block-sparse when the dense footprint would "
+                         "proportional to the leaves), or auto "
+                         "(block-sparse when the dense footprint would "
                          "exceed 4e9 bytes)")
     ap.add_argument("--coupling-depth", type=int, default=0,
                     help="L-level sweep Gauss-Seidel coupling passes per "
@@ -193,8 +198,10 @@ def _parser() -> argparse.ArgumentParser:
                          "full-plane stack where refinement spans the grid) "
                          "or not (off); the result is the same")
     ap.add_argument("--split-compile", action="store_true",
-                    help="the JAX CLI's per-piece compiles: accepted, "
-                         "changes nothing here")
+                    help="the JAX CLI's per-piece compiles: the same "
+                         "results; a block-sparse run prints each "
+                         "iteration's phases (tracer, sweep, "
+                         "chemistry_sync) and the tracer's by phase")
     return ap
 
 
@@ -241,15 +248,14 @@ def _dense_bytes(levels, depth: int, x64: bool) -> int:
                for ell in range(depth))
 
 
-def _nesting(levels, args, mesh, stellar: bool = False) -> str:
+def _nesting(levels, args, mesh) -> str:
     """How the grid runs, as the JAX CLI decides it: "uniform" (one data
     level), "amr" (two-level AMR: two data levels, or more under
     --amr-depth 2), "ml" (L-level dense AMR: more than two data levels
     under --amr-depth > 2 while the dense storage is chosen) or "sparse"
     (the same grid stored block-sparse).  NotImplementedError naming the
     ROADMAP item, before any work, for what the port does not run yet on
-    that grid: point sources (`stellar`, modes 8 and 1) or --chemistry
-    noneq on block-sparse storage, a mesh on a nested grid."""
+    that grid: a mesh on a nested grid."""
     n_data_levels = sum(1 for lv in levels if lv.ncell > 0)
     if n_data_levels <= 1:
         return "uniform"
@@ -261,15 +267,6 @@ def _nesting(levels, args, mesh, stellar: bool = False) -> str:
         if args.amr_storage == "sparse" or (args.amr_storage == "auto"
                                             and dense_bytes > 4.0e9):
             kind = "sparse"
-            what = ("point sources (modes 8 and 1) are" if stellar else
-                    "--chemistry noneq is" if args.chemistry == "noneq"
-                    else None)
-            if what:
-                raise NotImplementedError(
-                    f"{what} not ported yet on the block-sparse storage of a "
-                    f"grid of {n_data_levels} data levels (--amr-storage "
-                    f"{args.amr_storage}, dense {dense_bytes / 1e9:.1f} GB): "
-                    f"ROADMAP, Block-sparse AMR (c)")
     if mesh is not None and kind == "sparse":
         raise NotImplementedError(
             "a mesh on a block-sparse AMR grid (shard_sparse_state, "
@@ -312,6 +309,78 @@ def _restore_noneq(species, restart_snap):
     return species
 
 
+def _print_phases(times: dict, stellar_ctx) -> None:
+    """A --split-compile iteration's phase lines, as the JAX CLI prints
+    them: each phase's seconds, the tracer's by phase, and the last
+    phase's alive counts read every chunk of march steps."""
+    parts = [f"{k}={v:.1f}s" for k, v in times.items()
+             if isinstance(v, (int, float))]
+    sub = times.get("tracer_phases") or {}
+    parts += [f"{k}={v:.1f}s" for k, v in sub.items()
+              if isinstance(v, (int, float)) and not k.endswith("_steps")]
+    print("  phases: " + " ".join(parts))
+    alive = (sub.get(f"level{stellar_ctx.max_pixel_level}_alive")
+             if stellar_ctx is not None else None)
+    if alive:
+        print("  final-phase alive/chunk: "
+              + "/".join(str(c) for c in alive))
+
+
+@dataclasses.dataclass
+class Stars:
+    """A config's point sources on an ingested grid, as main reads them:
+    the population (Starburst99 SEDs from synthesisDir when present, else
+    blackbodies, equiSources.f90:840-916), the metallicity buckets'
+    coefficients (None without metals on the grid), the star count, the
+    source batch, each source's host cell, the young (specific-age) star
+    count and the base level's abun2 on the host."""
+    population: object
+    used_sb99: bool
+    metal_coefs: list | None
+    n_stars: int
+    batch: object
+    host: np.ndarray
+    n_young: int
+    abun2: np.ndarray
+
+    def context(self, cfg, geom, *, max_pixel_level: int = 6,
+                noneq: bool = False, dtype=torch.float64, device="cuda"):
+        """The StellarContext of the run at 10 Myr (noneq: with the
+        k27..k31 weights, as --chemistry noneq builds it)."""
+        return step_mod.StellarContext.build(
+            self.population, self.batch, geom, 10.0 * MYR,
+            metal_coefs=self.metal_coefs or [(0, 0.0)],
+            n_stars_specific_age=self.n_young,
+            dust_approximation=cfg.dust_approximation,
+            max_pixel_level=max_pixel_level, noneq=noneq, dtype=dtype,
+            device=device)
+
+
+def read_stars(cfg, levels, abun2: torch.Tensor, refined, nx: int) -> Stars:
+    """The point sources of `cfg` (read_star_file within the grid's
+    bounds) on the grid ingested from `levels`: its base level's abun2 and
+    refined map (a tensor, None on a uniform grid; a star in a refined
+    parent sits at its fine leaf's centre), with metallicities on the grid
+    bucketed to the nearest SED track, each bucket sharing a table."""
+    lo, hi, _ = grid_io.grid_bounds(levels)
+    stars = sources_io.read_star_file(os.path.join(cfg.sph_dir, cfg.sources),
+                                      lo, hi)
+    population, used_sb99 = stellar_tables.load_population(
+        cfg.synthesis_dir, len(stars.age),
+        int(np.sum(stars.age <= cfg.upper_age_limit)),
+        cfg.mass_stellar_particle)
+    metal_edges = metal_coefs = None
+    if cfg.read_metals:
+        metal_edges, metal_coefs = stellar_tables.metal_bucket_plan(population)
+    ab2 = abun2.detach().cpu().numpy()
+    batch, host, n_young = sources_io.prepare_sources(
+        stars, nx, cfg.upper_age_limit, abun2=ab2,
+        metal_bucket_edges=metal_edges,
+        refined=None if refined is None else refined.detach().cpu().numpy())
+    return Stars(population, used_sb99, metal_coefs, len(stars.age), batch,
+                 host, n_young, ab2)
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     cfg = load_config(args.config)
@@ -349,7 +418,7 @@ def main(argv=None):
         for i, lv in enumerate(levels):
             print(f"level = {i + 1}  cells = {lv.ncell}")
         return
-    nesting = _nesting(levels, args, mesh, cfg.run_stellar_transfer)
+    nesting = _nesting(levels, args, mesh)
     # the nested state: an AMRState ("amr"), a MultiLevelState ("ml") or a
     # SparseMLState ("sparse")
     nested = None
@@ -405,33 +474,18 @@ def main(argv=None):
     # ---- sources --------------------------------------------------------
     stellar_ctx = None
     if cfg.run_stellar_transfer or cfg.mode == MODE_PLOT_PDFS:
-        src_path = os.path.join(cfg.sph_dir, cfg.sources)
-        lo, hi, _ = grid_io.grid_bounds(levels)
-        stars = sources_io.read_star_file(src_path, lo, hi)
-        n_young0 = int(np.sum(stars.age <= cfg.upper_age_limit))
-        # Starburst99 SEDs from synthesisDir when present, else blackbody
-        # (equiSources.f90:840-916); with metallicities on the grid the
-        # sources bucket to the nearest SED track and share a table
-        population, used_sb99 = stellar_tables.load_population(
-            cfg.synthesis_dir, len(stars.age), n_young0,
-            cfg.mass_stellar_particle)
-        if used_sb99:
+        stars = read_stars(
+            cfg, levels, state.abun2, None if nested is None else
+            (nested.refined if nesting == "amr"
+             else nested.refined0 if nesting == "sparse"
+             else nested.refined[0]), geom.nx)
+        if stars.used_sb99:
             print(f"Starburst99 SEDs from {cfg.synthesis_dir} "
-                  f"({len(population.metallicity_log10)} metallicity tracks)")
-        metal_edges = metal_coefs = None
-        if cfg.read_metals:
-            metal_edges, metal_coefs = stellar_tables.metal_bucket_plan(
-                population)
-        ab2 = state.abun2.detach().cpu().numpy()
-        batch, host, n_young = sources_io.prepare_sources(
-            stars, geom.nx, cfg.upper_age_limit, abun2=ab2,
-            metal_bucket_edges=metal_edges,
-            refined=(None if nested is None else
-                     (nested.refined if nesting == "amr"
-                      else nested.refined0 if nesting == "sparse"
-                      else nested.refined[0]).detach().cpu().numpy()))
-        print(f"nStars/specificAge/non-degenerate = {len(stars.age)} "
-              f"{n_young} {batch.n_sources}")
+                  f"({len(stars.population.metallicity_log10)} metallicity "
+                  "tracks)")
+        batch, host, ab2 = stars.batch, stars.host, stars.abun2
+        print(f"nStars/specificAge/non-degenerate = {stars.n_stars} "
+              f"{stars.n_young} {batch.n_sources}")
         # the reference's `weight` file (equiSources.f90:1214-1224)
         with open(os.path.join(args.snapshot_dir, "weight"), "w") as fh:
             for i in range(batch.n_sources):
@@ -447,12 +501,8 @@ def main(argv=None):
                 print(f"{c:12.4f} {g:12.1f} {s:12.1f}")
             return
 
-        stellar_ctx = step_mod.StellarContext.build(
-            population, batch, geom, 10.0 * MYR,
-            metal_coefs=metal_coefs or [(0, 0.0)],
-            n_stars_specific_age=n_young,
-            dust_approximation=cfg.dust_approximation,
-            max_pixel_level=args.max_pixel_level or 6,
+        stellar_ctx = stars.context(
+            cfg, geom, max_pixel_level=args.max_pixel_level or 6,
             noneq=noneq, dtype=dtype, device=device)
 
     # ---- model + iteration loop ----------------------------------------
@@ -470,8 +520,11 @@ def main(argv=None):
     elif nesting == "sparse":
         amodel = step_amr.SparseMLModel.setup(model, nested.n_levels)
         amodel.window_enabled = args.sweep_window != "off"
-        step = amodel.make_step(stellar_ctx,
-                                split_compile=args.split_compile)
+        step = (amodel.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
+                                       evolve_energy=args.evolve_energy,
+                                       split_compile=args.split_compile)
+                if noneq else amodel.make_step(
+                    stellar_ctx, split_compile=args.split_compile))
     elif noneq:
         step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                      evolve_energy=args.evolve_energy,
@@ -531,7 +584,15 @@ def main(argv=None):
     if mesh is not None:
         state = pmesh.shard_state(state, mesh)
     species = None
-    if noneq and nested is not None:
+    if noneq and nesting == "sparse":
+        # level 0 dense, the refined levels in blocks with their padding
+        # blocks zero
+        species = _restore_noneq(amodel.initial_species(nested),
+                                 restart_snap)
+        print(f"non-equilibrium chemistry (block-sparse, {nested.n_levels} "
+              f"levels): dt = {args.dt_myr} Myr, evolve_energy = "
+              f"{args.evolve_energy}")
+    elif noneq and nested is not None:
         species = _restore_noneq(
             tuple(chemistry_noneq.species_from_field_state(lv)
                   for lv in nested.levels), restart_snap)
@@ -587,6 +648,8 @@ def main(argv=None):
             throughput = geom.nx ** 3 * cfg.n_directions / max(dt_it, 1e-9)
             msg = (f"itime={itime} neutral={nf:.8f} dt={dt_it:.2f}s "
                    f"({throughput:.2e} cells*angles/s)")
+            if nesting == "sparse" and args.split_compile:
+                _print_phases(amodel.last_phase_times, stellar_ctx)
             if diag is not None:
                 w = stellar_ctx.sources.weight
                 frac = escape_fractions(diag, w)
@@ -603,18 +666,15 @@ def main(argv=None):
                 snapshot.write_snapshot_amr(
                     snapshot.snapshot_name(itime, args.snapshot_dir),
                     nested, itime, geom.physical_box_size)
-            elif nesting == "sparse":
-                snapshot.write_snapshot_sparse(
-                    snapshot.snapshot_name(itime, args.snapshot_dir),
-                    nested, itime, geom.physical_box_size)
-            elif nesting == "ml":
-                snapshot.write_snapshot_ml(
-                    snapshot.snapshot_name(itime, args.snapshot_dir),
-                    nested, itime, geom.physical_box_size,
-                    extra=({k: v for ell, spc in enumerate(species)
-                            for k, v in snapshot.species_extra(
-                                spc, prefix=f"species{ell}").items()}
-                           if noneq else None))
+            elif nesting in ("sparse", "ml"):
+                write = (snapshot.write_snapshot_sparse if nesting == "sparse"
+                         else snapshot.write_snapshot_ml)
+                write(snapshot.snapshot_name(itime, args.snapshot_dir),
+                      nested, itime, geom.physical_box_size,
+                      extra=({k: v for ell, spc in enumerate(species)
+                              for k, v in snapshot.species_extra(
+                                  spc, prefix=f"species{ell}").items()}
+                             if noneq else None))
             else:
                 snapshot.write_snapshot(
                     snapshot.snapshot_name(itime, args.snapshot_dir), state,

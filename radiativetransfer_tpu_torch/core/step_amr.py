@@ -10,11 +10,12 @@ modes 9 (UVB only), 8 (point sources and the UVB), 1 (point sources and
 the thin UVB) and 6 (the thin UVB, no stars) on one device, and the
 L-level model also the non-equilibrium 9-species chemistry
 (make_noneq_step, which the CLI runs on two-level grids too, as
-MultiLevelModel(2)).  SparseMLModel runs modes 9 and 6 on block-sparse
-storage (core/amr_sparse.py, core/sweep_sparse.py).  Not ported yet, and
-raising NotImplementedError naming their ROADMAP items: the device mesh
-(shard_amr_state, shard_multilevel_state, the distributed tracers) and
-the block-sparse tracer and noneq step (Block-sparse AMR (c)).
+MultiLevelModel(2)).  SparseMLModel runs the same modes and the
+non-equilibrium chemistry on block-sparse storage (core/amr_sparse.py,
+core/sweep_sparse.py, the block-sparse tracer of core/rays_multilevel.py).
+Not ported yet, and raising NotImplementedError naming its ROADMAP item:
+the device mesh (shard_amr_state, shard_multilevel_state,
+shard_sparse_state, the distributed tracers).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import time
 
 import numpy as np
 import torch
@@ -413,13 +415,14 @@ class MultiLevelModel:
 @dataclasses.dataclass
 class SparseMLModel:
     """L-level model on block-sparse storage (core/amr_sparse.py): the
-    iteration of MultiLevelModel -- zero rates, opacities and the
-    block-sparse sweep (core/sweep_sparse.py), chemistry on each level
-    with the padding blocks re-zeroed, restriction sync -- at memory
+    iteration of MultiLevelModel -- zero rates, the block-sparse tracer
+    (modes 8 and 1), opacities and the block-sparse sweep
+    (core/sweep_sparse.py), chemistry (or the noneq network) on each
+    level with the padding blocks re-zeroed, restriction sync -- at memory
     proportional to the leaves, the reference octree's
-    (definitionsModule.f90:163-180).  Modes 9 and 6 on one device; point
-    sources and the noneq chemistry raise NotImplementedError (ROADMAP,
-    Block-sparse AMR (c)), a mesh too (ROADMAP, Distribution)."""
+    (definitionsModule.f90:163-180).  Modes 9, 8, 6 and 1 and the noneq
+    chemistry on one device; a mesh raises NotImplementedError (ROADMAP,
+    Distribution)."""
     rt: "object"                      # core.step.RTModel
     n_levels: int
     plan: sweep_multilevel.MLSweepPlan | None
@@ -431,9 +434,14 @@ class SparseMLModel:
     # digest of the refined0 it was computed from
     _window: "object" = "unset"
     _window_key: "object" = None
+    # a split_compile step's seconds by phase: tracer (with its
+    # LAST_TRACE_PHASE_TIMES as tracer_phases), sweep, chemistry_sync
+    last_phase_times: dict | None = None
 
     chemistry = MultiLevelModel.chemistry
     level_geom = MultiLevelModel.level_geom
+    noneq_tables = MultiLevelModel.noneq_tables
+    evolve_level = MultiLevelModel.evolve_level
 
     @classmethod
     def setup(cls, rt_model, n_levels: int) -> "SparseMLModel":
@@ -446,12 +454,7 @@ class SparseMLModel:
         return cls(rt=rt_model, n_levels=n_levels, plan=plan)
 
     @staticmethod
-    def _check_supported(stellar=None, mesh=None) -> None:
-        if stellar is not None:
-            raise NotImplementedError(
-                "point sources on block-sparse AMR (the sparse tracer, "
-                "trace_point_sources_sparse) are not ported yet: ROADMAP, "
-                "Block-sparse AMR (c)")
+    def _check_supported(mesh) -> None:
         if mesh is not None:
             raise NotImplementedError(
                 "a block-sparse state on a mesh (shard_sparse_state, "
@@ -533,31 +536,177 @@ class SparseMLModel:
             levels=tuple(levels))
         return amr_sparse.sync_restriction_sparse(state)
 
-    def _sweep_and_chemistry(self, state: amr_sparse.SparseMLState):
-        if self.rt.config.run_uvb_transfer:
-            state = self._apply_sweep(state)
-        return self._chemistry_and_sync(state)
+    def _iteration(self, stellar, rates_mode: str, rest,
+                   split_compile: bool = False):
+        """The one body of every iteration on this storage: state, *extra
+        -> (rest(state, rfs, *extra), RayDiagnostics or None) -- zero
+        rates, the tracer where `stellar` is given (rates_mode), the sweep
+        where the mode sweeps the UVB, then rest (chemistry or the noneq
+        network, and the restriction sync).  split_compile (the JAX
+        package's per-piece compiles for its remote TPU worker: here the
+        same ops) waits for the device after each phase, runs the tracer
+        with host_phases, and fills self.last_phase_times with each
+        phase's seconds (tracer, its tracer_phases, sweep,
+        chemistry_sync)."""
+        def step(state, *extra):
+            times = {} if split_compile else None
+            device = state.base.rho.device
+
+            def phase(name, fn, *args):
+                if times is None:
+                    return fn(*args)
+                t0 = time.perf_counter()
+                out = fn(*args)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                times[name] = time.perf_counter() - t0
+                return out
+
+            state = self._zero_rates(state)
+            rfs = diag = None
+            if stellar is not None:
+                state, rfs, diag = phase("tracer", self.trace, state,
+                                         stellar, rates_mode, split_compile)
+                if times is not None:
+                    times["tracer_phases"] = dict(
+                        rays_multilevel.LAST_TRACE_PHASE_TIMES)
+            if self.rt.config.run_uvb_transfer:
+                state = phase("sweep", self._apply_sweep, state)
+            out = phase("chemistry_sync", rest, state, rfs, *extra)
+            if times is not None:
+                self.last_phase_times = times
+            return out, diag
+        return step
 
     def step(self, state: amr_sparse.SparseMLState, stellar=None,
              mesh=None):
-        """One full iteration: (state, None) -- no point sources on this
-        storage yet."""
-        self._check_supported(stellar, mesh)
-        return self._sweep_and_chemistry(self._zero_rates(state)), None
+        """One full iteration; returns (state, RayDiagnostics), the
+        diagnostics None unless the mode traces point sources (a
+        StellarContext given in mode 1 or 8)."""
+        self._check_supported(mesh)
+        return self._iteration(
+            stellar if self.rt.config.run_stellar_transfer else None, "auto",
+            lambda state, rfs: self._chemistry_and_sync(state))(state)
+
+    def trace(self, state: amr_sparse.SparseMLState, stellar,
+              rates_mode: str = "auto", host_phases: bool = False):
+        """The point-source phase (the JAX package's
+        SparseMLModel._traced): trace every source through every level's
+        blocks and put the six deposit fields into the (zero-rate) state,
+        level 0's as they are and a refined level's blocks times 8^l: the
+        tables are over the BASE cell's volume (StellarContext.build), a
+        level-l cell's is 8^-l of it.  Returns (state, the tracer's
+        per-level rate fields as it made them, level 0 flat and the refined
+        levels block-flat, RayDiagnostics); rates_mode and host_phases:
+        rays_multilevel.trace_point_sources_sparse's."""
+        rfs, diag = rays_multilevel.trace_point_sources_sparse(
+            state, self.rt.geom, stellar.sources, stellar.tables,
+            dust_approximation=stellar.dust_approximation,
+            max_pixel_level=stellar.max_pixel_level,
+            dtype=state.base.rho.dtype, rates_mode=rates_mode,
+            host_phases=host_phases)
+        names = [f.name for f in dataclasses.fields(rays.RateFields)]
+        base = dataclasses.replace(state.base, **{
+            k: getattr(rfs[0], k).reshape(state.base.shape) for k in names})
+        levels = tuple(
+            dataclasses.replace(lv, fields=dataclasses.replace(lv.fields, **{
+                k: getattr(rf, k).reshape(lv.cover.shape) * 8.0 ** ell
+                for k in names}))
+            for ell, (lv, rf) in enumerate(zip(state.levels, rfs[1:]),
+                                           start=1))
+        return dataclasses.replace(state, base=base, levels=levels), rfs, \
+            diag
 
     def make_step(self, stellar=None, split_compile: bool = False,
                   mesh=None):
-        """The iteration step, a plain eager function state -> state.
-        split_compile (the JAX package's per-piece compiles for its remote
-        TPU worker) is accepted and changes nothing here."""
-        self._check_supported(stellar, mesh)
-        return lambda state: self.step(state)[0]
+        """The iteration step, a plain eager function: state -> state, or
+        with a StellarContext state -> (state, RayDiagnostics or None), as
+        step returns them.  split_compile gives the same results and fills
+        last_phase_times (_iteration)."""
+        self._check_supported(mesh)
+        step = self._iteration(
+            stellar if self.rt.config.run_stellar_transfer else None, "auto",
+            lambda state, rfs: self._chemistry_and_sync(state),
+            split_compile)
+        if stellar is None:
+            return lambda state: step(state)[0]
+        return step
 
-    def make_noneq_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the non-equilibrium chemistry on block-sparse AMR "
-            "(SparseMLModel.make_noneq_step) is not ported yet: ROADMAP, "
-            "Block-sparse AMR (c)")
+    def pad_masks(self, state: amr_sparse.SparseMLState) -> list:
+        """(nb,) bool padding-block mask of each refined level."""
+        return [lv.pad_mask(self.rt.geom.nx * 2 ** ell)
+                for ell, lv in enumerate(state.levels, start=1)]
+
+    def initial_species(self, state: amr_sparse.SparseMLState,
+                        **kwargs) -> tuple:
+        """One chemistry_noneq.SpeciesState a level from the state's
+        fields (species_from_field_state, with `kwargs`): level 0 dense
+        (n, n, n), a refined level's blocks (nb, be, be, be) with the
+        padding blocks zeroed (their zero fields give garbage species).
+        The CLI's start of a block-sparse noneq run."""
+        return (chemistry_noneq.species_from_field_state(state.base,
+                                                         **kwargs),) + tuple(
+            amr_sparse.zero_pad_blocks(
+                chemistry_noneq.species_from_field_state(lv.fields, **kwargs),
+                pad)
+            for lv, pad in zip(state.levels, self.pad_masks(state)))
+
+    def sync_noneq(self, state: amr_sparse.SparseMLState, species):
+        """sync_restriction_sparse, then the species restricted onto
+        refined parents (their children's average) through the same block
+        geometry (amr_sparse.sync_restriction_tree): (state, species
+        tuple)."""
+        state = amr_sparse.sync_restriction_sparse(state)
+        sp0, sp_levels = amr_sparse.sync_restriction_tree(
+            state, species[0], tuple(species[1:]))
+        return state, (sp0, *sp_levels)
+
+    def make_noneq_step(self, dt: float, stellar=None, n_substeps: int = 200,
+                        evolve_energy: bool = False,
+                        split_compile: bool = False, mesh=None):
+        """Transport + non-equilibrium 9-species chemistry on block-sparse
+        storage (MultiLevelModel.make_noneq_step's, the JAX package's
+        SparseMLModel.make_noneq_step): each level advanced by dt [s] with
+        its own photo rates (evolve_level on the level's blocks, the
+        tracer's k27..k31 times 8^l), the padding blocks of the fields and
+        the species re-zeroed (the network on their zero fields is
+        garbage), then the fields and the species restricted onto refined
+        parents (sync_noneq).
+
+        Returns step(state, species) -> (state, species), or with a
+        StellarContext (built noneq=True) (state, species,
+        RayDiagnostics): `species` is a tuple of one
+        chemistry_noneq.SpeciesState a level, level 0 dense and the refined
+        levels block-shaped (initial_species), the state's HI/HeI/HeII
+        (and tgas with evolve_energy) synced from them each step; the
+        tracer runs in its quadrature_noneq mode.  split_compile: as
+        make_step takes it."""
+        self._check_supported(mesh)
+        tables = self.noneq_tables()
+        traced = stellar is not None
+
+        def evolve_and_sync(state, rfs, species):
+            base, sp0 = self.evolve_level(0, state.base, species[0], rfs, dt,
+                                          tables, n_substeps, evolve_energy)
+            levels, new_species = [], [sp0]
+            for ell, (lv, spc, pad) in enumerate(zip(
+                    state.levels, species[1:], self.pad_masks(state)),
+                    start=1):
+                f, spc = self.evolve_level(ell, lv.fields, spc, rfs, dt,
+                                           tables, n_substeps, evolve_energy)
+                levels.append(dataclasses.replace(
+                    lv, fields=amr_sparse.zero_pad_blocks(f, pad)))
+                new_species.append(amr_sparse.zero_pad_blocks(spc, pad))
+            return self.sync_noneq(dataclasses.replace(
+                state, base=base, levels=tuple(levels)), new_species)
+
+        body = self._iteration(stellar, "quadrature_noneq", evolve_and_sync,
+                               split_compile)
+
+        def step(state: amr_sparse.SparseMLState, species):
+            (state, species), diag = body(state, species)
+            return (state, species, diag) if traced else (state, species)
+        return step
 
     def validate_coupling_depth(self, state: amr_sparse.SparseMLState,
                                 tol: float = 1e-8, max_iters: int = 6) -> int:

@@ -96,6 +96,9 @@ def read_fortran_level_binary(path: str, read_metals: bool,
 
 
 def write_level_npz(path: str, levels: list[LevelData]) -> None:
+    """The levels into one uncompressed .npz (zlib took ~10 s of a 128^3
+    grid's writing; read_level_npz, and the JAX package's, read either
+    form)."""
     data: dict[str, np.ndarray] = {"nlevels": np.int32(len(levels))}
     for i, lv in enumerate(levels):
         data[f"pos_{i}"] = lv.pos
@@ -106,7 +109,7 @@ def write_level_npz(path: str, levels: list[LevelData]) -> None:
             data[f"vel_{i}"] = lv.vel
         if lv.abun is not None:
             data[f"abun_{i}"] = lv.abun
-    np.savez_compressed(path, **data)
+    np.savez(path, **data)
 
 
 def read_level_npz(path: str) -> list[LevelData]:

@@ -37,22 +37,29 @@ profiler windows; the tracer in a profiler window (its device-busy share
 and events a march step); the first zone batch's sweep over its first 8
 base slabs traced at full width (its launches and device-busy share); and
 the peak device memory.
-amr L >= 3 with sparse 1 (modes 9 and 6, one rank, equilibrium chemistry)
-runs the block-sparse L-level step (core/step_amr.py::SparseMLModel) on
+amr L >= 3 with sparse 1 (modes 9, 6, 8 and 1, one rank; noneq 1 in modes
+9 and 8) runs the block-sparse L-level step
+(core/step_amr.py::SparseMLModel, make_noneq_step with noneq 1) on
 make_test_data's galaxy with its refined centre and core, written by
 chip_smoke.write_cli_inputs and ingested as the CLI ingests it
-(sparse_from_level_lists, blocks of 8; the CLI's storage rule printed): it
-times the ingestion, compute_window, the plan, validate_coupling_depth and
-the equilibrium, prints W and the share of base slabs that take the skip
-branch, runs a warm-up step and one step layer by layer (opacity, the
-sparse sweep's device and host ms, chemistry on each level,
-sync_restriction_sparse), the peak device memory and memory_bytes, times
-the full-plane sparse sweep from the same state (the window's speed-up),
-traces
-the first zone batch's first 8 covered base slabs at full width (its
-device-busy share), counts the launches per covered and per skipped base
-slab from two agreeing windows each (4 and 8 slabs; up to 64^3), and
-times write_snapshot_sparse (s and MB).  sparse 2 (mode 9) holds one
+(sparse_from_level_lists, blocks of 8; the CLI's storage rule printed), in
+modes 8 and 1 with the galaxy's 12 sources at maxPixelLevel 6 as the CLI
+prepares them (galaxy_sources): it times the ingestion, compute_window,
+the plan, validate_coupling_depth and the equilibrium, prints W and the
+share of base slabs that take the skip branch, runs a warm-up step and
+one step layer by layer (the tracer with its march steps, opacity, the
+sparse sweep's device and host ms, chemistry on each level and
+sync_restriction_sparse, or noneq each level's evolve_noneq and
+sync_noneq), the peak device memory and memory_bytes; with sources the
+tracer in a profiler window (its device-busy share, events a march step,
+its peak memory) and its launches a march step at an 8^3 base from two
+agreeing windows (sparse_tracer_launches); where the mode sweeps, it
+times the full-plane sparse sweep from the same state (the window's
+speed-up), traces the first zone batch's first 8 covered base slabs at
+full width (its device-busy share), counts the launches per covered and
+per skipped base slab from two agreeing windows each (4 and 8 slabs; up
+to 64^3); and it times write_snapshot_sparse (s and MB; with noneq each
+level's species in it).  sparse 2 (mode 9) holds one
 block-sparse step to one dense L-level step from the same ingested galaxy
 (main_sparse_vs_dense).
 Otherwise it runs one warm-up step, times each layer of a step with CUDA
@@ -515,23 +522,32 @@ def ml_batch_window(amodel, state, slabs: int):
     return wall, _busy_us(events) / 1e6, launches, len(zones)
 
 
-def sparse_layer_names(n_levels: int) -> tuple:
-    """The layers of sparse_layers."""
+def sparse_layer_names(n_levels: int, noneq: bool = False) -> tuple:
+    """The layers of sparse_layers (noneq False) or sparse_noneq_layers,
+    but the tracer."""
+    if noneq:
+        return ("opacity", "sweep", *(f"evolve_noneq_{ell}"
+                                      for ell in range(n_levels)),
+                "sync_noneq")
     return ("opacity", "sweep", *(f"chemistry_{ell}"
                                   for ell in range(n_levels)),
             "sync_restriction_sparse")
 
 
-def sparse_layers(amodel, state, count=()):
-    """One block-sparse step from `state`, layer by layer, as
-    SparseMLModel's step runs it: (the state after the step, {layer:
-    (device ms, host ms, launches)}) for opacity on every level and the
-    sparse sweep in the model's window (where the mode sweeps), chemistry
-    on each level with its padding blocks re-zeroed (chemistry_0, ...) and
-    sync_restriction_sparse; `count` as ml_layers takes it."""
+def _sparse_traced_and_swept(amodel, state, layer, stellar, rates_mode):
+    """The layers that a block-sparse step runs before its chemistry,
+    from `state`'s zero rates: the tracer (with a StellarContext), opacity
+    on every level and the sparse sweep in the model's window (where the
+    mode sweeps).  Returns (the state with the deposits and Jmean, the
+    tracer's per-level rate fields or None, its march steps)."""
     rt = amodel.rt
-    rows, layer = _layer_rows(count)
     s0 = amodel._zero_rates(state)
+    rfs, march = None, 0
+    if stellar is not None:
+        steps0 = rays_multilevel.MARCH_STEPS
+        s0, rfs, _ = layer("tracer", lambda s=s0: amodel.trace(s, stellar,
+                                                               rates_mode))
+        march = rays_multilevel.MARCH_STEPS - steps0
     if amodel.plan is not None:
         k0, lv_k = layer("opacity", lambda: amodel._kappas(s0))
         win = amodel._ensure_window(s0)
@@ -542,6 +558,22 @@ def sparse_layers(amodel, state, count=()):
             s0, base=dataclasses.replace(s0.base, Jmean=j0),
             levels=tuple(dataclasses.replace(lv, fields=dataclasses.replace(
                 lv.fields, Jmean=j)) for lv, j in zip(s0.levels, jbs)))
+    return s0, rfs, march
+
+
+def sparse_layers(amodel, state, count=(), stellar=None):
+    """One block-sparse step from `state`, layer by layer, as
+    SparseMLModel's step runs it: (the state after the step, {layer:
+    (device ms, host ms, launches)}, the tracer's march steps) for the
+    tracer (with a StellarContext), opacity on every level and the sparse
+    sweep in the model's window (where the mode sweeps), chemistry on each
+    level with its padding blocks re-zeroed (chemistry_0, ...) and
+    sync_restriction_sparse; `count` and the march steps as ml_layers
+    takes and gives them."""
+    rt = amodel.rt
+    rows, layer = _layer_rows(count)
+    s0, _, march = _sparse_traced_and_swept(amodel, state, layer, stellar,
+                                            "auto")
     base = layer("chemistry_0", lambda: amodel.chemistry(s0.base, rt.geom))
     levels = []
     for ell, lv in enumerate(s0.levels, start=1):
@@ -553,7 +585,82 @@ def sparse_layers(amodel, state, count=()):
     s2 = layer("sync_restriction_sparse",
                lambda: amr_sparse.sync_restriction_sparse(dataclasses.replace(
                    s0, base=base, levels=tuple(levels))))
-    return s2, {k: tuple(v) for k, v in rows.items()}
+    if "tracer" in count:
+        march //= 3
+    return s2, {k: tuple(v) for k, v in rows.items()}, march
+
+
+def sparse_noneq_layers(amodel, state, species, count=(), stellar=None,
+                        dt: float = MYR, n_substeps: int = 200):
+    """One block-sparse non-equilibrium step (temperature held) from
+    `state` and `species`, layer by layer, as
+    SparseMLModel.make_noneq_step runs it: (the state and species after
+    the step, {layer: (device ms, host ms, launches)}, the tracer's march
+    steps) for the tracer (with a StellarContext built noneq=True, in its
+    quadrature_noneq mode), opacity and the sweep (where the mode
+    sweeps), each level's photo rates and evolve_noneq with its padding
+    blocks re-zeroed (evolve_noneq_0, ...) and sync_noneq; `count` as
+    ml_layers takes it."""
+    rows, layer = _layer_rows(count)
+    s0, rfs, march = _sparse_traced_and_swept(amodel, state, layer, stellar,
+                                              "quadrature_noneq")
+    tables = amodel.noneq_tables()
+    base, sp0 = layer("evolve_noneq_0", lambda: amodel.evolve_level(
+        0, s0.base, species[0], rfs, dt, tables, n_substeps))
+    levels, new_species = [], [sp0]
+    for ell, (lv, spc, pad) in enumerate(zip(s0.levels, species[1:],
+                                             amodel.pad_masks(s0)), start=1):
+        def evolve(lv=lv, spc=spc, pad=pad, ell=ell):
+            f, sp = amodel.evolve_level(ell, lv.fields, spc, rfs, dt, tables,
+                                        n_substeps)
+            return (amr_sparse.zero_pad_blocks(f, pad),
+                    amr_sparse.zero_pad_blocks(sp, pad))
+        f, spc = layer(f"evolve_noneq_{ell}", evolve)
+        levels.append(dataclasses.replace(lv, fields=f))
+        new_species.append(spc)
+    s2, sp2 = layer("sync_noneq", lambda: amodel.sync_noneq(
+        dataclasses.replace(s0, base=base, levels=tuple(levels)),
+        new_species))
+    if "tracer" in count:
+        march //= 3
+    return s2, sp2, {k: tuple(v) for k, v in rows.items()}, march
+
+
+def galaxy_sources(directory: str, state, geom, noneq: bool = False,
+                   max_pixel_level: int = 6, dtype=torch.float32,
+                   device="cuda", first: int | None = None, levels=None):
+    """The CLI's StellarContext (cli.read_stars, in `dtype`) of the galaxy
+    whose inputs chip_smoke.write_cli_inputs wrote into `directory` (its
+    12 sources, its first `first` kept where given), on `state` ingested
+    from them -- uniform, two-level, L-level or block-sparse: its base
+    level's abun2 and refined map -- at maxPixelLevel `max_pixel_level`
+    (noneq: with the k27..k31 weights).  `levels`: the grid's level data
+    where the caller has read them."""
+    from . import cli
+    from .config import load_config
+    from .io import grid_io
+    if levels is None:
+        levels = grid_io.read_level_npz(os.path.join(directory,
+                                                     "testgrid_velmet.npz"))
+    if isinstance(state, amr_sparse.SparseMLState):
+        abun2, refined = state.base.abun2, state.refined0
+    elif isinstance(state, amr.MultiLevelState):
+        abun2, refined = state.levels[0].abun2, state.refined[0]
+    elif isinstance(state, amr.AMRState):
+        abun2, refined = state.base.abun2, state.refined
+    else:
+        abun2, refined = state.abun2, None
+    cfg = load_config(os.path.join(directory, "inputParameters"))
+    stars = cli.read_stars(cfg, levels, abun2, refined, geom.nx)
+    if first is not None:
+        b = stars.batch
+        stars = dataclasses.replace(
+            stars, batch=rays.SourceBatch(
+                position=b.position[:first], weight=b.weight[:first],
+                table_idx=b.table_idx[:first]),
+            n_young=int(b.weight[:first].sum()))
+    return stars.context(cfg, geom, max_pixel_level=max_pixel_level,
+                         noneq=noneq, dtype=dtype, device=device)
 
 
 def sparse_first_batch(amodel, state):
@@ -930,7 +1037,31 @@ def sparse_galaxy(n: int, directory: str, be: int = 8,
     return state, storage, time.perf_counter() - t0
 
 
-def main_sparse(n: int, level: int, mode: int, smi: str) -> None:
+def sparse_tracer_launches(n: int = 8, noneq: bool = False,
+                           device="cuda") -> tuple[int, int]:
+    """The block-sparse tracer at a small base: make_test_data's galaxy at
+    n^3 with its refined centre and core (sparse_galaxy) in its
+    equilibrium, its 12 sources at maxPixelLevel 6 (galaxy_sources):
+    (the kernels one trace launches, from two agreeing profiler windows
+    (_layer), the march steps of one trace)."""
+    cfg = RunConfig(mode=MODE_STELLAR_TRANSFER_THIN_UVB,
+                    current_redshift=6.55, n_angular_level=1,
+                    reionization_model=10, self_shielding_threshold_kpc=0.1)
+    model = RTModel.setup(cfg, GridGeometry(n, n, n, 300.0 * KPC),
+                          torch.float32, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        state, _, _ = sparse_galaxy(n, tmp, device=device)
+        amodel = SparseMLModel.setup(model, state.n_levels)
+        state = amodel._zero_rates(amodel.initialize_equilibrium(state))
+        ctx = galaxy_sources(tmp, state, model.geom, noneq, device=device)
+    steps0 = rays_multilevel.MARCH_STEPS
+    _, _, _, launches = _layer(lambda: amodel.trace(
+        state, ctx, "quadrature_noneq" if noneq else "auto"))
+    return launches, (rays_multilevel.MARCH_STEPS - steps0) // 3
+
+
+def main_sparse(n: int, level: int, mode: int, noneq: bool,
+                smi: str) -> None:
     from .io import snapshot
     cfg = RunConfig(mode=mode, current_redshift=6.55, n_angular_level=level,
                     reionization_model=10, self_shielding_threshold_kpc=0.1)
@@ -945,13 +1076,18 @@ def main_sparse(n: int, level: int, mode: int, smi: str) -> None:
         t0 = time.perf_counter()
         win = amodel._ensure_window(state)
         window_s = time.perf_counter() - t0
+        ctx = (galaxy_sources(tmp, state, model.geom, noneq)
+               if cfg.run_stellar_transfer else None)
         print(f"block-sparse {n}^3 + {L - 1} levels (the CLI's storage "
               f"under --amr-storage auto: {storage}): {state.n_leaves()} "
               f"leaves, blocks {[lv.n_blocks for lv in state.levels]} of "
               f"{state.be}^3, memory_bytes {state.memory_bytes() / 1e9:.3f} "
               f"GB; ingestion {ingest_s:.3f} s, compute_window "
               f"{window_s:.3f} s (W {None if win is None else win[0]}), "
-              f"plan setup {plan_s:.3f} s; card {smi}")
+              f"plan setup {plan_s:.3f} s"
+              + (f"; {ctx.sources.n_sources} sources at maxPixelLevel "
+                 f"{ctx.max_pixel_level}" if ctx is not None else "")
+              + f"; card {smi}")
         if amodel.plan is not None:
             (depth, val_ms, val_host, _) = _timed(
                 lambda: amodel.validate_coupling_depth(state))
@@ -963,22 +1099,54 @@ def main_sparse(n: int, level: int, mode: int, smi: str) -> None:
         torch.cuda.synchronize()
         eq_s = time.perf_counter() - t0
         nf0 = amodel.neutral_fraction(state)
-        state = amodel.make_step()(state)
+        species = None
+        if noneq:
+            species = amodel.initial_species(state)
+            state, species = amodel.make_noneq_step(MYR, ctx)(
+                state, species)[:2]
+        elif ctx is not None:
+            state = amodel.make_step(ctx)(state)[0]
+        else:
+            state = amodel.make_step()(state)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, rows = sparse_layers(amodel, state)
+        if noneq:
+            state, species, rows, march = sparse_noneq_layers(
+                amodel, state, species, stellar=ctx)
+        else:
+            state, rows, march = sparse_layers(amodel, state, stellar=ctx)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        print(f"block-sparse mode {mode} at {n}^3 x {cfg.n_directions} dirs "
-              f"f32, coupling depth {amodel.n_coupling_iters}: equilibrium "
-              f"{eq_s:.3f} s; one step {step_s:.3f} s, layers (device ms / "
-              f"host ms): " + ", ".join(f"{k} {ms:.3f} / {host:.3f}"
-                                        for k, (ms, host, _) in rows.items())
+        print(f"block-sparse mode {mode}{' noneq' if noneq else ''} at "
+              f"{n}^3 x {cfg.n_directions} dirs f32, coupling depth "
+              f"{amodel.n_coupling_iters}"
+              + (f", the tracer {march} march steps" if ctx is not None
+                 else "")
+              + f": equilibrium {eq_s:.3f} s; one step {step_s:.3f} s, "
+              f"layers (device ms / host ms): " + ", ".join(
+                  f"{k} {ms:.3f} / {host:.3f}"
+                  for k, (ms, host, _) in rows.items())
               + f"; neutral fraction {nf0:.7f} -> "
               f"{amodel.neutral_fraction(state):.7f}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; card "
               f"{smi}")
+        if ctx is not None:
+            rates = "quadrature_noneq" if noneq else "auto"
+            torch.cuda.reset_peak_memory_stats()
+            wall, busy, events, _ = profiled(
+                lambda s: amodel.trace(amodel._zero_rates(s), ctx,
+                                       rates)[0], [state], steps=1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"the tracer in a profiler window: wall "
+                  f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+                  f"({100 * busy / wall:.1f}%), {events:.0f} device events "
+                  f"({events / max(march, 1):.1f} a march step), peak "
+                  f"device memory {peak:.3f} GiB; card {smi}")
+            launches, march8 = sparse_tracer_launches(8, noneq)
+            print(f"the tracer's launches a march step at an 8^3 base "
+                  f"(two agreeing windows): {launches} in {march8} march "
+                  f"steps, {launches / march8:.1f}; card {smi}")
         if amodel.plan is not None:
             k0, lv_k = amodel._kappas(state)
             _, full_ms, full_host, _ = _timed(
@@ -1011,9 +1179,16 @@ def main_sparse(n: int, level: int, mode: int, smi: str) -> None:
                       f"windows each): covered {per[0]:.1f}, skipped "
                       f"{per[1]:.1f}; card {smi}")
         path = os.path.join(tmp, "cellArray0001.npz")
+        extra = None
+        if species is not None:
+            extra = {}
+            for ell, spc in enumerate(species):
+                extra.update(snapshot.species_extra(spc,
+                                                    prefix=f"species{ell}"))
         t0 = time.perf_counter()
         snapshot.write_snapshot_sparse(path, state, 1,
-                                       model.geom.physical_box_size)
+                                       model.geom.physical_box_size,
+                                       extra=extra)
         print(f"write_snapshot_sparse: {time.perf_counter() - t0:.3f} s "
               f"(host; {os.path.getsize(path) / 1e6:.1f} MB compressed, "
               f"{state.n_leaves()} leaves)")
@@ -1090,15 +1265,20 @@ def main(n: int = 128, level: int = 3, mode: int = 9, ranks: int = 0,
         raise SystemExit("profile_step needs a CUDA device")
     smi = nvidia_smi()
     if sparse:
-        if nested < 3 or ranks or noneq or mode not in (
-                MODE_UVB_TRANSFER_ONLY, MODE_NO_STARS_THIN_UVB):
-            raise SystemExit("the block-sparse profile runs modes 9 and 6 "
-                             "on one rank, equilibrium chemistry, the "
-                             "galaxy's 3 levels (amr 3)")
+        if nested < 3 or ranks or mode not in (
+                MODE_UVB_TRANSFER_ONLY, MODE_NO_STARS_THIN_UVB,
+                MODE_BOTH_STELLAR_UVB_TRANSFER,
+                MODE_STELLAR_TRANSFER_THIN_UVB) or (noneq and mode not in (
+                    MODE_UVB_TRANSFER_ONLY, MODE_BOTH_STELLAR_UVB_TRANSFER)) \
+                or (sparse == 2 and (noneq or mode != MODE_UVB_TRANSFER_ONLY)):
+            raise SystemExit("the block-sparse profile runs modes 9, 6, 8 "
+                             "and 1 on one rank, the noneq chemistry in "
+                             "modes 9 and 8, the galaxy's 3 levels (amr 3); "
+                             "sparse 2 mode 9 with equilibrium chemistry")
         if sparse == 2:
             main_sparse_vs_dense(n, level, smi)
         else:
-            main_sparse(n, level, mode, smi)
+            main_sparse(n, level, mode, bool(noneq), smi)
         return
     if nested >= 2:
         if ranks or mode not in (

@@ -264,10 +264,6 @@ def test_three_levels_under_amr_depth_2_run_two_level(tmp_path):
      r"--debug-checkify is not ported yet: ROADMAP, core/debug\.py$"),
     (("--ckpt-format", "orbax"), 9, False, r"--ckpt-format orbax is not "
      r"ported yet: ROADMAP, Remaining I/O \(io/checkpoint\.py\)$"),
-    (("--amr-storage", "sparse", "--chemistry", "noneq"), 9, True,
-     r"--chemistry noneq is not ported yet on the block-sparse storage of a "
-     r"grid of 3 data levels \(--amr-storage sparse, dense 0\.0 GB\): "
-     r"ROADMAP, Block-sparse AMR \(c\)$"),
 ])
 def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
                                         core, match):

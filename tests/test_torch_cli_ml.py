@@ -212,8 +212,9 @@ def test_diagnostic_modes_match_jax(tmp_path, mode):
 
 def test_storage_choice_follows_the_jax_formula():
     """Dense while the levels' 17 fields fit in 4e9 bytes (8 bytes each
-    under --x64, 4 else), block-sparse above it or when asked; two levels,
-    or --amr-depth 2, take the two-level path."""
+    under --x64, 4 else), block-sparse above it or when asked, whatever
+    the chemistry; two levels, or --amr-depth 2, take the two-level
+    path."""
     def levels(*ncells):
         return [types.SimpleNamespace(ncell=c) for c in ncells]
 
@@ -225,9 +226,8 @@ def test_storage_choice_follows_the_jax_formula():
     deep = levels(80 ** 3, 8, 8)
     assert tcli._nesting(deep, args(), None) == "ml"
     assert tcli._nesting(deep, args(flags=["--x64"]), None) == "sparse"
-    with pytest.raises(NotImplementedError, match=r"--amr-storage auto, "
-                       r"dense 5\.1 GB\): ROADMAP, Block-sparse AMR \(c\)$"):
-        tcli._nesting(deep, args(flags=["--x64"]), None, stellar=True)
+    assert tcli._nesting(deep, args(flags=["--x64", "--chemistry",
+                                           "noneq"]), None) == "sparse"
     assert tcli._nesting(deep, args(flags=["--x64", "--amr-storage",
                                            "dense"]), None) == "ml"
     assert tcli._nesting(levels(8, 8, 8), args(flags=["--amr-storage",
@@ -247,8 +247,6 @@ _MESH = (r"a mesh on an L-level AMR grid \(shard_multilevel_state\) is not "
     (("--mesh-shape", "2"), 8, _MESH),
     (("--mesh-shape", "2"), 1, _MESH),
     (("--chemistry", "noneq", "--mesh-shape", "2"), 9, _MESH),
-    (("--amr-storage", "sparse"), 8, r"block-sparse storage .* GB\): "
-     r"ROADMAP, Block-sparse AMR \(c\)$"),
     (("--mesh-shape", "4"), 9, r"a mesh on an L-level AMR grid "
      r"\(shard_multilevel_state\) is not ported yet: ROADMAP, "
      r"Distribution$"),

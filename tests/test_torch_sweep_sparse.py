@@ -13,9 +13,10 @@ sweep (the fine carries translated where the window moves) within 1e-13
 of the full-plane one and 1e-12 of the JAX package's windowed sweep; the mode-9 and mode-6 steps within 1e-10 of
 the JAX package's SparseMLModel (and the windowed mode-9 step of the
 port's dense MultiLevelModel's), the padding blocks zero after the
-chemistry; validate_coupling_depth adopts the JAX package's depth; point
-sources, the noneq step and a mesh raise NotImplementedError naming
-their ROADMAP item.  The JAX runs are shared through module fixtures."""
+chemistry; validate_coupling_depth adopts the JAX package's depth; the
+mode-8 step and a mode-1 noneq step (three sources) within 1e-10 of the
+port's dense L-level steps; a mesh raises NotImplementedError naming its
+ROADMAP item.  The JAX runs are shared through module fixtures."""
 
 import dataclasses
 
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from radiativetransfer_tpu.config import (
+    MODE_BOTH_STELLAR_UVB_TRANSFER,
     MODE_NO_STARS_THIN_UVB,
     MODE_UVB_TRANSFER_ONLY,
     RunConfig,
@@ -317,12 +319,70 @@ class TestCouplingDepthProduction:
 
 @pytest.mark.parametrize("what", ["stellar", "mesh", "noneq"])
 def test_unported_parts_raise(what):
-    _, sparse = _models(8, MODE_UVB_TRANSFER_ONLY, "torch")
-    match = {"stellar": r"ROADMAP, Block-sparse AMR \(c\)$",
-             "noneq": r"ROADMAP, Block-sparse AMR \(c\)$",
-             "mesh": r"ROADMAP, Distribution$"}[what]
-    with pytest.raises(NotImplementedError, match=match):
-        if what == "noneq":
-            sparse.make_noneq_step(1.0)
-        else:
-            sparse.make_step(**{what: object()})
+    """A mesh raises NotImplementedError naming its ROADMAP item.  The
+    point sources and the noneq step, which raised until they were
+    ported, run: the mode-8 step (make_step with a StellarContext) and a
+    mode-1 noneq step (three sources, 1 Myr, 10 substeps) on block-sparse
+    storage against the port's dense L-level steps from the same state
+    (which test_torch_step_ml and test_torch_noneq_ml hold to the JAX
+    package's; test_torch_noneq_sparse and test_torch_cli_sparse hold the
+    block-sparse ones to it): every level's HI, HeII and krate24 (and the
+    species) on covered cells within 1e-10 of their peak, ndot_remaining
+    within 1e-10."""
+    from radiativetransfer_tpu_torch import StellarContext
+    from radiativetransfer_tpu_torch.config import (
+        MODE_STELLAR_TRANSFER_THIN_UVB,
+    )
+    from radiativetransfer_tpu_torch.constants import MYR
+    from radiativetransfer_tpu_torch.core import chemistry_noneq as tcn
+    from radiativetransfer_tpu_torch.core import rays as trays
+    from radiativetransfer_tpu_torch.tables import stellar as tstellar
+    if what == "mesh":
+        _, sparse = _models(8, MODE_UVB_TRANSFER_ONLY, "torch")
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP, Distribution$"):
+            sparse.make_step(mesh=object())
+        return
+    mode = (MODE_BOTH_STELLAR_UVB_TRANSFER if what == "stellar"
+            else MODE_STELLAR_TRANSFER_THIN_UVB)
+    dense, sparse = _models(8, mode, "torch")
+    rt = dense.rt
+    tml = port_ml(clustered_ml(8, seed=21, scale=1e-5)[0])
+    tml = tamr.sync_restriction_multi(tamr.MultiLevelState(
+        levels=tuple(rt.initialize_equilibrium(lv) for lv in tml.levels),
+        refined=tml.refined))
+    tsp = tas.sparse_from_dense(tml, be=8)
+    pos = np.random.default_rng(2).uniform(0.3, 0.7, (3, 3))
+    ctx = StellarContext.build(
+        tstellar.blackbody_population(), trays.SourceBatch(
+            position=pos, weight=np.ones(3),
+            table_idx=np.zeros(3, np.int32)), rt.geom, 10.0 * MYR,
+        metal_coefs=[(0, 0.0)], max_pixel_level=3, noneq=what == "noneq",
+        dtype=F64, device="cpu")
+    cover = tamr.cover_masks(tml.refined, tml.levels[0].shape, "cpu")
+    if what == "stellar":
+        (out_d, diag_d), (out_s, diag_s) = (dense.make_step(ctx)(tml),
+                                            sparse.make_step(ctx)(tsp))
+        pairs = []
+    else:
+        out_d, sp_d, diag_d = dense.make_noneq_step(
+            MYR, ctx, n_substeps=10)(tml, tuple(
+                tcn.species_from_field_state(lv) for lv in tml.levels))
+        out_s, sp_s, diag_s = sparse.make_noneq_step(
+            MYR, ctx, n_substeps=10)(tsp, sparse.initial_species(tsp))
+        pairs = [(getattr(a, k) if ell == 0 else torch.as_tensor(
+            tas.unblockify_like(out_s.levels[ell - 1], getattr(a, k))),
+                  getattr(b, k), c)
+                 for ell, (a, b, c) in enumerate(zip(sp_s, sp_d, cover))
+                 for k in ("HI", "HII", "H2I")]
+    back = tas.dense_from_sparse(out_s)
+    pairs += [(getattr(a, k), getattr(b, k), c.expand_as(getattr(a, k)))
+              for a, b, c in zip(back.levels, out_d.levels, cover)
+              for k in ("HI", "HeII", "krate24")]
+    pairs.append((diag_s.ndot_remaining, diag_d.ndot_remaining, None))
+    for a, b, m in pairs:
+        if m is not None:
+            a, b = a[m], b[m]
+        peak = float(b.abs().max())
+        assert peak > 0.0 and float((a - b).abs().max()) <= 1e-10 * peak
+    assert float(out_s.levels[-1].fields.krate24.max()) > 0.0
