@@ -7,8 +7,9 @@ Drives radiativetransfer_tpu_torch's paths through their public entry
 points -- mode 9 (UVB-only diffuse transfer + equilibrium chemistry), mode
 8 (point sources + UVB), the roofline script, the bench, mode 9 on a 1-D
 grid mesh, the CLI from files, the non-equilibrium chemistry, two-level
-AMR, L-level AMR and its point sources and non-equilibrium chemistry --
-and holds each hand-written kernel
+AMR, L-level AMR and its point sources and non-equilibrium chemistry,
+block-sparse AMR, the compacting tracer, the checked pre-flight,
+checkpoints and HDF4 grids -- and holds each hand-written kernel
 against its plain PyTorch version.  Phases, one line or more each; any
 failure raises and the script exits non-zero:
 
@@ -112,9 +113,10 @@ failure raises and the script exits non-zero:
     this process); mode 8 with the 12 sources, 2 iterations (the
     `weight` file, cosmicSpectrum.npz, fesc in [0, 1]); mode 9 on 4 ranks
     through --sweep-strategy rdma (the cluster ring) and zones (the
-    per-zone cluster kernel), 2 iterations each, against the one-device
-    run; each iteration's dt from the CLI's lines, the ingestion and one
-    write_snapshot at 128^3 timed (host), and the phase's seconds;
+    per-zone cluster kernel), 2 iterations each, checkpointed by
+    --ckpt-format orbax, against the one-device run; each iteration's dt
+    from the CLI's lines, the ingestion and one write_snapshot at 128^3
+    timed (host), and the phase's seconds;
 17. the non-equilibrium 9-species chemistry (RTModel.make_noneq_step,
     --chemistry noneq): one f64 noneq mode-9 step at 24^3, level 1, on
     the card against the same step on the CPU (every species within 1e-9
@@ -126,11 +128,11 @@ failure raises and the script exits non-zero:
     share, peak memory; one noneq mode-8
     step with phase 9's sources (k27..k31 finite and non-negative, k31 >
     0 somewhere, the species' nH the state's within 1e-5); then the CLI
-    from write_cli_inputs' files: noneq mode 9, 3 iterations, a restart
-    through python -m from the itime-1 snapshot, beside mode 8 (its
-    itime 2 within 1e-4 of this process's), noneq mode 8 with the 12
-    sources, 2 iterations,
-    and noneq mode 9 on 4 ranks through rdma and zones, 1 iteration each
+    from write_cli_inputs' files: noneq mode 9, 2 iterations, a restart
+    through python -m from the itime-1 snapshot, beside mode 8 and the
+    4-rank runs (its itime 2 within 1e-4 of this process's), noneq mode 8
+    with the 12 sources, 1 iteration, and noneq mode 9 on 4 ranks through
+    rdma and zones, 1 iteration each, checkpointed by --ckpt-format orbax
     (neutral fraction and HI within 1e-4 of one device's);
 18. two-level AMR (core/step_amr.py::AMRModel and its tracer
     core/rays_amr.py, the L-level march at L = 2, plain PyTorch: no
@@ -270,7 +272,30 @@ failure raises and the script exits non-zero:
     block-sparse trace against the dense L-level one
     and a noneq mode-1 step (20 substeps) on either storage, every
     channel, field and species on covered cells within 1e-5 of its
-    peak.
+    peak;
+22. the single-card CLI's last features (plain PyTorch and host code:
+    every count is held but for the two uniform steps, which launch the
+    cluster kernel): (a) the compacting tracer
+    (rays.trace_point_sources_compact) against the default one at phase
+    9's cell (128^3 x 8 sources, maxPixelLevel 6, f32) on the state of
+    one mode-8 step, in turns (default, compact, compact, default): ms,
+    march steps, peak memory above the state, the final phase's buffer
+    sizes; each in a profiler window (busy share, device events a march
+    step); the deposits and diagnostics within 1e-5 of each peak; (b)
+    --debug-checkify through cli.main, its pre-flight timed: mode 8 on the
+    128^3 uniform galaxy x 192 (one iteration, one cluster launch, its
+    state checkpointed by --ckpt-format orbax), mode
+    9 on the 32^3 two-level, L-level and block-sparse grids at angular
+    level 1 (the JAX CLI's line each); the 16^3 galaxy with a NaN through
+    python -m in a process of its own beside the rest, exiting non-zero
+    with FloatingPointError naming the op; (c) --ckpt-format orbax on the
+    32^3 block-sparse grid at level 1: 3 iterations, and a restart from their
+    ckpt0002 to the third within 1e-4 of the uninterrupted run (the
+    neutral fraction and every checkpointed field); phase 21's 128^3
+    block-sparse noneq state with its species checkpointed (write s, MB,
+    restore s, every tensor equal); (d) the two-level 32^3 grid converted
+    with convert.npz2h4 and run from its .h4 alone, its grid: and itime=
+    lines those of (b)'s .npz run.
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -2050,8 +2075,11 @@ def phase_cli(smi: str) -> dict:
             d = os.path.join(tmp, strategy)
             sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
             sweep_cluster.ZONE_LAUNCHES = sweep_cuda.ZONE_LAUNCHES = 0
+            # checkpointed (--ckpt-format orbax), not two 128^3 snapshots
             out, call = _cli(config, d, "--iters", "2", "--sweep-strategy",
-                             strategy, "--mesh-shape", "4")
+                             strategy, "--mesh-shape", "4", "--ckpt-format",
+                             "orbax")
+            assert os.path.isdir(os.path.join(d, "ckpt0002"))
             mesh[strategy] = {
                 "call_s": call, "dts": _iteration_dts(out, n ** 3 * 192),
                 "ring": sweep_rdma.RING_LAUNCHES,
@@ -2266,15 +2294,15 @@ def phase_noneq(smi: str) -> dict:
         config = write_cli_inputs(os.path.join(tmp, "inputs"), n)
         d9 = os.path.join(tmp, "noneq9")
         _zero_sweep_launches()
-        out9, call9 = _cli(config, d9, "--iters", "3", *noneq,
+        out9, call9 = _cli(config, d9, "--iters", "2", *noneq,
                            tag="17 noneq")
         launches["cli_noneq_mode9"] = sweep_cluster.LAUNCHES
-        assert sweep_cluster.LAUNCHES == 3 and sweep_cuda.LAUNCHES == 0
+        assert sweep_cluster.LAUNCHES == 2 and sweep_cuda.LAUNCHES == 0
         log9 = _time_log(d9)
         dts9 = _iteration_dts(out9, cells_angles)
-        assert list(log9) == [1, 2, 3] and all(
+        assert list(log9) == [1, 2] and all(
             0.0 <= v <= 1.0 for v in log9.values()), log9
-        with np.load(snapshot.snapshot_name(3, d9)) as f:
+        with np.load(snapshot.snapshot_name(2, d9)) as f:
             keys = [k for k in f if k.startswith("species0_")]
             assert len(keys) == 10 and all(
                 f[k].shape == (n,) * 3 and f[k].dtype == np.float32
@@ -2293,25 +2321,60 @@ def phase_noneq(smi: str) -> dict:
         restarted = _CliProcess([restart, "--snapshot-dir", dr, "--iters",
                                  "1", *noneq])
 
-        # mode 8, the 12 sources, 2 iterations
+        # mode 8, the 12 sources, 1 iteration
         d8 = os.path.join(tmp, "noneq8")
         os.makedirs(d8)
         mode8 = _config_variant(config, os.path.join(tmp, "mode8.cfg"),
                                 mode=8)
         _zero_sweep_launches()
-        out8, call8 = _cli(mode8, d8, "--iters", "2", *noneq,
+        out8, call8 = _cli(mode8, d8, "--iters", "1", *noneq,
                            tag="17 noneq")
         launches["cli_noneq_mode8"] = sweep_cluster.LAUNCHES
-        assert sweep_cluster.LAUNCHES == 2 and sweep_cuda.LAUNCHES == 0
+        assert sweep_cluster.LAUNCHES == 1 and sweep_cuda.LAUNCHES == 0
         log8 = _time_log(d8)
         dts8 = _iteration_dts(out8, cells_angles)
         fesc = [float(v) for m in re.findall(r"fesc=(\S+)", out8)
                 for v in m.split("/")]
         assert fesc and all(0.0 <= v <= 1.0 for v in fesc), fesc
-        assert list(log8) == [1, 2] and all(
+        assert list(log8) == [1] and all(
             0.0 <= v <= 1.0 for v in log8.values()), log8
         print(f"[17 noneq] CLI mode 8 noneq {n}^3 x 192, 12 sources: call "
               f"{call8:.3f} s, iterations' dt {_fmt(dts8)} s")
+
+        # mode 9 on 4 ranks through the ring and the zones strategy,
+        # checkpointed (--ckpt-format orbax, not a 128^3 snapshot with the
+        # species), while the restart goes on beside
+        with np.load(snapshot.snapshot_name(1, d9)) as f:
+            hi_one = f["HI"]
+        mesh = {}
+        for strategy in ("rdma", "zones"):
+            d = os.path.join(tmp, f"noneq_{strategy}")
+            sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
+            sweep_cluster.ZONE_LAUNCHES = sweep_cuda.ZONE_LAUNCHES = 0
+            out_m, call = _cli(config, d, "--iters", "1", *noneq,
+                               "--sweep-strategy", strategy, "--mesh-shape",
+                               "4", "--ckpt-format", "orbax", tag="17 noneq")
+            mesh[strategy] = {
+                "call_s": call, "dts": _iteration_dts(out_m, cells_angles),
+                "ring": sweep_rdma.RING_LAUNCHES,
+                "plane_ring": sweep_rdma.RDMA_LAUNCHES,
+                "zone": sweep_cluster.ZONE_LAUNCHES,
+                "plane_zone": sweep_cuda.ZONE_LAUNCHES}
+            nf = _time_log(d)[1]
+            rel = abs(nf - log9[1]) / log9[1]
+            # the uniform grid's leaf stream is its C order
+            hi = torch.load(os.path.join(d, "ckpt0001", "leaves_rank0.pt"),
+                            weights_only=True)["0.HI"].numpy().reshape(-1)
+            hi_err = float(np.abs(hi - hi_one).max() / np.abs(hi_one).max())
+            print(f"[17 noneq] CLI mode 9 noneq on 4 ranks, {strategy}: "
+                  f"call {call:.3f} s, dt {_fmt(mesh[strategy]['dts'])} s, "
+                  f"neutral fraction rel {rel:.2e}, HI max diff "
+                  f"{hi_err:.2e} of its peak from one device's (tol 1e-4); "
+                  f"launches {mesh[strategy]}")
+            assert rel <= 1e-4 and hi_err <= 1e-4, (strategy, rel, hi_err)
+        assert mesh["rdma"]["ring"] > 0 and mesh["rdma"]["zone"] == 0
+        assert mesh["rdma"]["plane_ring"] == 0, "the CLI took the plane ring"
+        assert mesh["zones"]["zone"] > 0 and mesh["zones"]["plane_zone"] == 0
 
         rc, stdout, stderr, restart_s = restarted.result()
         for line in stdout.splitlines():
@@ -2323,42 +2386,10 @@ def phase_noneq(smi: str) -> dict:
         nf_sub = _time_log(dr)[2]
         rel = abs(nf_sub - log9[2]) / log9[2]
         print(f"[17 noneq] restart: python -m ...cli {restart_s:.3f} s "
-              f"(beside mode 8), itime 2 neutral fraction {nf_sub:.8f} "
-              f"against {log9[2]:.8f} in this process (rel {rel:.2e}, tol "
-              f"1e-4)")
+              f"(beside mode 8 and the 4-rank runs), itime 2 neutral fraction "
+              f"{nf_sub:.8f} against {log9[2]:.8f} in this process (rel "
+              f"{rel:.2e}, tol 1e-4)")
         assert rel <= 1e-4, (nf_sub, log9[2])
-
-        # mode 9 on 4 ranks through the ring and the zones strategy
-        with np.load(snapshot.snapshot_name(1, d9)) as f:
-            hi_one = f["HI"]
-        mesh = {}
-        for strategy in ("rdma", "zones"):
-            d = os.path.join(tmp, f"noneq_{strategy}")
-            sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
-            sweep_cluster.ZONE_LAUNCHES = sweep_cuda.ZONE_LAUNCHES = 0
-            out_m, call = _cli(config, d, "--iters", "1", *noneq,
-                               "--sweep-strategy", strategy, "--mesh-shape",
-                               "4", tag="17 noneq")
-            mesh[strategy] = {
-                "call_s": call, "dts": _iteration_dts(out_m, cells_angles),
-                "ring": sweep_rdma.RING_LAUNCHES,
-                "plane_ring": sweep_rdma.RDMA_LAUNCHES,
-                "zone": sweep_cluster.ZONE_LAUNCHES,
-                "plane_zone": sweep_cuda.ZONE_LAUNCHES}
-            nf = _time_log(d)[1]
-            rel = abs(nf - log9[1]) / log9[1]
-            with np.load(snapshot.snapshot_name(1, d)) as f:
-                hi_err = float(np.abs(f["HI"] - hi_one).max()
-                               / np.abs(hi_one).max())
-            print(f"[17 noneq] CLI mode 9 noneq on 4 ranks, {strategy}: "
-                  f"call {call:.3f} s, dt {_fmt(mesh[strategy]['dts'])} s, "
-                  f"neutral fraction rel {rel:.2e}, HI max diff "
-                  f"{hi_err:.2e} of its peak from one device's (tol 1e-4); "
-                  f"launches {mesh[strategy]}")
-            assert rel <= 1e-4 and hi_err <= 1e-4, (strategy, rel, hi_err)
-        assert mesh["rdma"]["ring"] > 0 and mesh["rdma"]["zone"] == 0
-        assert mesh["rdma"]["plane_ring"] == 0, "the CLI took the plane ring"
-        assert mesh["zones"]["zone"] > 0 and mesh["zones"]["plane_zone"] == 0
     phase_s = time.perf_counter() - t_phase
     print(f"[17 noneq] phase 17: {phase_s:.1f} s; {smi}")
     out.update(launches=launches, mesh=mesh, phase_s=phase_s, cli_dts9=dts9,
@@ -4128,6 +4159,8 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
     assert np.isfinite(nf9) and 0.0 < nf9 < 1.0
     assert all(bool(torch.isfinite(getattr(sp, k)).all())
                for sp in sp9 for k in ("HI", "H2I", "de", "eint"))
+    # the noneq state and species, for phase 22's checkpoint at this cell
+    out["noneq_cell"] = (s9, sp9, m.geom.physical_box_size)
     del s9, sp9, species
     # the float32 trace above (float32's default kills) against float64's
     # of the same state with the same kills: every level's six channels
@@ -4288,6 +4321,279 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
     return out
 
 
+def phase_last_features(smi: str, noneq_cell=None) -> dict:
+    """22: the single-card CLI's last features -- the compacting tracer
+    (rays.trace_point_sources_compact), --debug-checkify (core/debug.py),
+    --ckpt-format orbax (io/checkpoint.py) and .h4 grids (io/convert.py,
+    io/hdf4.py); plain PyTorch and host code, no kernel of their own.
+    noneq_cell: phase 21's block-sparse 128^3 (state, species, box) after
+    its noneq step, for (c)'s checkpoint at the production cell."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_last_features(tmp, smi, noneq_cell)
+
+
+def _phase_last_features(tmp: str, smi: str, noneq_cell) -> dict:
+    """phase_last_features's checks, with `tmp` a directory of their
+    own."""
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch import cli, profile_step
+    from radiativetransfer_tpu_torch.bench import bench_sources
+    from radiativetransfer_tpu_torch.core import rays, sweep_cluster
+    from radiativetransfer_tpu_torch.io import checkpoint, convert, grid_io
+    from radiativetransfer_tpu_torch.tables import stellar
+    t_phase = time.perf_counter()
+    launches = {}
+    out = {"launches": launches}
+
+    def rel(x, y):
+        d = float((x - y).abs().max())
+        peak = float(y.abs().max())
+        return d / peak if peak else float(x.abs().max())
+
+    # (a) the compacting tracer against the default one at phase 9's cell
+    # (bench_step: 128^3 x 192, 8 sources, maxPixelLevel 6, f32), on the
+    # state of one default mode-8 step from the neutral box
+    n, level, box = MAIN_N, MAIN_LEVEL, 2000.0
+    pos = bench_sources(n, MODE8_SOURCES).position
+    pop = stellar.blackbody_population(q_ionizing=1.0e51)
+    model, ctx = _mode8_model(n, level, box, MODE8_SOURCES, pos, pop, 6)
+    _zero_sweep_launches()
+    state, _ = model.make_step(ctx)(rt.uniform_state(
+        n, nh=2e-4, tgas=1.5e4, dtype=torch.float32, device=DEVICE))
+    launches["compact_cell"] = sweep_cluster.LAUNCHES
+    assert launches["compact_cell"] == 1
+    s0 = state.zero_rates()
+    del state
+    counts0 = _kernel_counts()
+
+    def trace(compact):
+        tracer = (rays.trace_point_sources_compact if compact
+                  else rays.trace_point_sources)
+        return tracer(s0, model.geom, ctx.sources, ctx.tables,
+                      max_pixel_level=ctx.max_pixel_level,
+                      dtype=torch.float32)
+
+    turns, traces = [], {}
+    for compact in (False, True, True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        steps0 = rays.MARCH_STEPS
+        t0 = time.perf_counter()
+        rf, diag = trace(compact)
+        torch.cuda.synchronize()
+        turns.append({
+            "compact": compact, "ms": (time.perf_counter() - t0) * 1e3,
+            "march_steps": rays.MARCH_STEPS - steps0,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            "buckets": list(rays.LAST_COMPACT_BUCKETS) if compact else None})
+        traces.setdefault(compact, (rf, diag))
+        del rf, diag
+    name = {False: "default", True: "compact"}
+    for t in turns:
+        print(f"[22 last] {n}^3 x {MODE8_SOURCES} sources, maxPixelLevel "
+              f"{ctx.max_pixel_level}, f32, {name[t['compact']]} tracer: "
+              f"{t['ms']:.3f} ms, {t['march_steps']} march steps, peak "
+              f"{t['peak_gib']:.3f} GiB above the state"
+              + (f", final-phase buffers {t['buckets']}" if t["compact"]
+                 else ""))
+    (rf_d, dg_d), (rf_c, dg_c) = traces[False], traces[True]
+    err_rf = max(rel(getattr(rf_c, f.name), getattr(rf_d, f.name))
+                 for f in dataclasses.fields(rays.RateFields))
+    err_dg = max(rel(getattr(dg_c, f.name), getattr(dg_d, f.name))
+                 for f in dataclasses.fields(dg_d))
+    del traces, rf_d, dg_d, rf_c, dg_c
+    profile = {}
+    for compact in (False, True):
+        march = next(t["march_steps"] for t in turns
+                     if t["compact"] == compact)
+        wall, busy, events, _ = profile_step.profiled(
+            lambda _, c=compact: trace(c), [None], steps=1)
+        profile[compact] = {"busy_share": busy / wall,
+                            "events_per_march_step": events / march}
+        print(f"[22 last] {name[compact]} tracer in a profiler window: "
+              f"{wall * 1e3:.3f} ms, busy {100 * busy / wall:.1f}%, "
+              f"{events:.0f} device events, {events / march:.1f} a march "
+              f"step")
+    print(f"[22 last] the compacting tracer's deposits against the default "
+          f"tracer's: {err_rf:.2e} of each channel's peak, the diagnostics "
+          f"{err_dg:.2e} (tol 1e-5; the scatter order alone differs); "
+          f"{smi}")
+    assert err_rf <= 1e-5 and err_dg <= 1e-5, (err_rf, err_dg)
+    assert all(t["buckets"][0] == MODE8_SOURCES * 12 * 4 ** 5
+               for t in turns if t["compact"])
+    assert _kernel_counts() == counts0, "the tracers launched a kernel"
+    del s0, model, ctx
+    out["compact"] = {"turns": turns, "profile": profile,
+                      "max_err": max(err_rf, err_dg)}
+
+    # (b) --debug-checkify through the CLI, once before the loop: the
+    # pre-flight's seconds (cli._preflight timed in this process), the
+    # JAX CLI's line; a grid with a NaN, through python -m in a process
+    # of its own beside the rest, must exit non-zero naming the op
+    poison = os.path.join(tmp, "poison")
+    config_p = write_cli_inputs(poison, 16)
+    grid = os.path.join(poison, "testgrid_velmet.npz")
+    levels = grid_io.read_level_npz(grid)
+    levels[0].lT[5] = np.nan
+    grid_io.write_level_npz(grid, levels)
+    poisoned = _CliProcess([config_p, "--snapshot-dir", poison, "--iters",
+                            "1", "--debug-checkify"])
+    preflight_s = {}
+    plain_preflight = cli._preflight
+
+    def timed_preflight(storage, *args):
+        t0 = time.perf_counter()
+        plain_preflight(storage, *args)
+        torch.cuda.synchronize()
+        preflight_s[storage] = time.perf_counter() - t0
+
+    lines = {
+        "uniform": "checkify pre-flight passed (bounds/NaN/division clean "
+                   "on the ingested data)",
+        "amr": "checkify pre-flight passed on two-level AMR storage",
+        "ml": "checkify pre-flight passed on multilevel storage",
+        "sparse": "checkify pre-flight passed on block-sparse storage "
+                  "(slot-map/padding-block bounds, NaN/Inf, division clean "
+                  "on the ingested data)"}
+    n_cli = ML_CLI_N
+    config_u = write_cli_inputs(os.path.join(tmp, "uniform"), n, mode=8)
+    config_two = write_cli_inputs(os.path.join(tmp, "two"), n_cli,
+                                  refine_center=True)
+    config_ml = write_cli_inputs(os.path.join(tmp, "ml"), n_cli,
+                                 refine_center=True, refine_core=True)
+    level1 = ("--angular-level", "1", "--coupling-depth", "2")
+    # the uniform run checkpoints (--ckpt-format orbax) in place of its
+    # 128^3 cellArray snapshot
+    runs = {"uniform": (config_u, ("--ckpt-format", "orbax")),
+            "amr": (config_two, level1),
+            "ml": (config_ml, level1),
+            "sparse": (config_ml, level1 + ("--amr-storage", "sparse"))}
+    logs = {}
+    cli._preflight = timed_preflight
+    try:
+        for storage, (config, flags) in runs.items():
+            d = os.path.join(tmp, f"checkify_{storage}")
+            _zero_sweep_launches()
+            text, call_s = _cli(config, d, "--iters", "1",
+                                "--debug-checkify", *flags, tag="22 last")
+            if storage == "uniform":
+                launches["cli_checkify"] = sweep_cluster.LAUNCHES
+                assert launches["cli_checkify"] == 1
+            else:
+                assert sweep_cluster.LAUNCHES == 0
+            assert text.splitlines().count(lines[storage]) == 1, storage
+            logs[storage] = (_time_log(d), text)
+            grid_line = next(x for x in text.splitlines()
+                             if x.startswith("grid: "))
+            print(f"[22 last] --debug-checkify on the {storage} grid "
+                  f"({grid_line}): the pre-flight {preflight_s[storage]:.3f} "
+                  f"s of the call's {call_s:.3f} s")
+    finally:
+        cli._preflight = plain_preflight
+    out["preflight_s"] = preflight_s
+
+    # (c) --ckpt-format orbax on the 32^3 block-sparse grid, level 1: three
+    # iterations, and a restart from their ckpt0002 to a third, within
+    # 1e-4 of the uninterrupted run's
+    sparse = ("--amr-storage", "sparse", "--ckpt-format", "orbax",
+              *level1)
+    d_full, d_re = os.path.join(tmp, "orbax3"), os.path.join(tmp, "orbax_re")
+    _, full_s = _cli(config_ml, d_full, "--iters", "3", *sparse,
+                     tag="22 last")
+    assert sorted(x for x in os.listdir(d_full) if x.startswith("ckpt")) \
+        == ["ckpt0001", "ckpt0002", "ckpt0003"]
+    assert not any(x.startswith("cellArray") for x in os.listdir(d_full))
+    os.makedirs(d_re)
+    for it in (1, 2):
+        shutil.copytree(checkpoint.checkpoint_name(it, d_full),
+                        checkpoint.checkpoint_name(it, d_re))
+    config_re = _config_variant(config_ml, os.path.join(tmp, "re.cfg"),
+                                restart=1)
+    text, re_s = _cli(config_re, d_re, "--iters", "1", *sparse,
+                      tag="22 last")
+    assert (f"restarted from {checkpoint.checkpoint_name(2, d_re)} at "
+            f"itime=2") in text
+    log_full, log_re = _time_log(d_full), _time_log(d_re)
+    nf_err = abs(log_re[3] - log_full[3]) / log_full[3]
+    a, b = (torch.load(os.path.join(checkpoint.checkpoint_name(3, d),
+                                    "leaves_rank0.pt"), weights_only=True)
+            for d in (d_full, d_re))
+    assert a.keys() == b.keys()
+    field_err = max(rel(b[k].double(), a[k].double()) for k in a
+                    if a[k].is_floating_point())
+    print(f"[22 last] --ckpt-format orbax on the block-sparse {n_cli}^3 "
+          f"grid: 3 iterations {full_s:.3f} s, the restart from ckpt0002 "
+          f"{re_s:.3f} s; itime 3 {log_re[3]:.8f} against {log_full[3]:.8f}"
+          f" (rel {nf_err:.2e}), every checkpointed field within "
+          f"{field_err:.2e} of its peak (tol 1e-4)")
+    assert nf_err <= 1e-4 and field_err <= 1e-4, (nf_err, field_err)
+    out["orbax_restart_err"] = max(nf_err, field_err)
+    if noneq_cell is not None:
+        # the checkpoint of phase 21's 128^3 noneq state with its species
+        sp_state, species, box_cm = noneq_cell
+        path = checkpoint.checkpoint_name(1, os.path.join(tmp, "ckpt128"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_sharded(path, (sp_state, species), 1, box_cm)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, x))
+                     for x in os.listdir(path))
+        t0 = time.perf_counter()
+        back, meta = checkpoint.restore_sharded(path, (sp_state, species))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for x, y in zip(
+            checkpoint.flatten(back).values(),
+            checkpoint.flatten((sp_state, species)).values()))
+        print(f"[22 last] the checkpoint of the {MAIN_N}^3 block-sparse "
+              f"noneq state with its species (phase 21 (b)): written in "
+              f"{write_s:.3f} s, {nbytes / 1e6:.1f} MB, restored in "
+              f"{read_s:.3f} s, every tensor equal: {same}")
+        assert same and meta["itime"] == 1
+        out["ckpt128"] = {"write_s": write_s, "bytes": nbytes,
+                          "read_s": read_s}
+        del back, noneq_cell, sp_state, species
+
+    # (d) the .h4 path: (b)'s two-level 32^3 grid converted with
+    # convert.npz2h4, run by the CLI, its log (b)'s
+    h4_dir = os.path.join(tmp, "h4")
+    config_h4 = write_cli_inputs(h4_dir, n_cli, refine_center=True)
+    npz = os.path.join(h4_dir, "testgrid_velmet.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert.npz2h4(npz, os.path.join(h4_dir, "testgrid_velmet.h4"))
+    os.remove(npz)
+    d = os.path.join(tmp, "h4_run")
+    text, h4_s = _cli(config_h4, d, "--iters", "1", *level1, tag="22 last")
+    ref_log, ref_text = logs["amr"]
+
+    def shown(x):
+        return [ln.split(" dt=")[0] for ln in x.splitlines()
+                if ln.startswith(("grid: ", "itime="))]
+    h4_err = abs(_time_log(d)[1] - ref_log[1]) / ref_log[1]
+    print(f"[22 last] the two-level {n_cli}^3 grid as .h4: call {h4_s:.3f} "
+          f"s, its grid: and itime= lines those of the .npz run, itime 1 "
+          f"rel {h4_err:.2e}")
+    assert shown(text) == shown(ref_text), (shown(text), shown(ref_text))
+    assert h4_err <= 1e-6, h4_err
+
+    rc, stdout, stderr, poison_s = poisoned.result()
+    last_line = stderr.strip().splitlines()[-1] if stderr.strip() else ""
+    print(f"[22 last] the 16^3 grid with a NaN under --debug-checkify "
+          f"through python -m: exit code {rc} after {poison_s:.3f} s, "
+          f"{last_line!r}")
+    assert rc != 0 and "FloatingPointError: nan generated by op" in \
+        last_line and "itime=" not in stdout, (rc, last_line)
+    # every count held since (a) but the uniform CLI run's (counted above,
+    # then zeroed before the nested runs, which launched none)
+    assert _kernel_counts() == dict(counts0, sweep_cluster=0)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[22 last] phase 22: {phase_s:.1f} s; {smi}")
+    out["phase_s"] = phase_s
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -4318,7 +4624,9 @@ def main() -> None:
     amr_out = timed_phase(18, phase_amr, smi)
     ml_out = timed_phase(19, phase_ml, smi)
     timed_phase(20, phase_ml_sources, smi, ml_out["depth"])
-    timed_phase(21, phase_sparse, smi, ml_out.pop("dense_cell"))
+    sparse_out = timed_phase(21, phase_sparse, smi, ml_out.pop("dense_cell"))
+    last = timed_phase(22, phase_last_features, smi,
+                       sparse_out.pop("noneq_cell"))
     print("[main] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; the script so far {time.perf_counter() - t_start:.1f} s")
@@ -4334,7 +4642,8 @@ def main() -> None:
                    "exp_sweep_variants": variants["sweep_launches"],
                    **cli["launches"], **noneq["launches"],
                    "amr_uniform_check": amr_out["uniform_check_launches"],
-                   "ml_uniform_check": ml_out["uniform_check_launches"]}
+                   "ml_uniform_check": ml_out["uniform_check_launches"],
+                   **last["launches"]}
     assert all(v > 0 for v in sweep_paths.values()), sweep_paths
     assert times["launches"]["plane"] > 0
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)

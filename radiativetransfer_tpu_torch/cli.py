@@ -61,9 +61,19 @@ base level, as the JAX CLI's do; its snapshots are cellArray leaf streams
 (io/snapshot.py::write_snapshot_amr, write_snapshot_ml,
 write_snapshot_sparse).
 
+A grid may come as `.npz`, as the reference's HDF4 container `.h4`
+(io/convert.py::h42levels, the pure-Python reader io/hdf4.py) or as its
+Fortran `.dat` binary.  `--ckpt-format orbax` writes each iteration's state
+(with the species under --chemistry noneq) as a `ckptNNNN` checkpoint in
+place of the cellArray snapshot, and a restart continues from the newest
+one (io/checkpoint.py: torch-native files, not orbax's; neither package
+restores the other's).  `--debug-checkify` runs the checked pre-flight
+(core/debug.py) once on the ingested grid, on every storage, before the
+loop.  `--tracer-compact` traces the uniform grid's point sources with the
+compacting tracer (rays.trace_point_sources_compact).
+
 Not ported yet, and refused before any work with NotImplementedError
-naming their ROADMAP entries: a mesh on a nested grid, `.h4` grids,
-`--ckpt-format orbax`, `--debug-checkify`, `--tracer-compact`, point
+naming their ROADMAP entry (Distribution): a mesh on a nested grid, point
 sources on a mesh and the multi-process flags.
 """
 
@@ -88,10 +98,11 @@ from .config import (
     load_config,
 )
 from .constants import KPC, MYR
-from .core import amr, amr_sparse, chemistry_noneq, step_amr
+from .core import amr, amr_sparse, chemistry_noneq, debug, step_amr
 from .core import step as step_mod
 from .core.rays import cosmic_spectrum, escape_fractions
-from .io import diagnostics, grid_io, snapshot, sources_io
+from .io import checkpoint, convert, diagnostics, grid_io, snapshot
+from .io import sources_io
 from .parallel import mesh as pmesh
 from .tables import stellar as stellar_tables
 from .tables.chemistry_rates import dump_rates
@@ -125,8 +136,14 @@ def _parser() -> argparse.ArgumentParser:
                          "CLI's jax_debug_nans, which stops at the op that "
                          "made the NaN")
     ap.add_argument("--debug-checkify", action="store_true",
-                    help="pre-flight bounds/NaN/division checks "
-                         "(core/debug.py): not ported yet, raises")
+                    help="pre-flight the sweep+chemistry and tracer on the "
+                         "ingested data under core/debug.py's checks "
+                         "(gather/scatter bounds + NaN + integer division, "
+                         "the runtime analog of the reference's "
+                         "stop-asserts, equiSources.f90:2962-2976), once "
+                         "before the loop; uniform, two-level, L-level and "
+                         "block-sparse storage (nested: a 12-direction "
+                         "plan)")
     ap.add_argument("--dump-rates", action="store_true",
                     help="write rates.out / cool_rates.out like the reference")
     ap.add_argument("--profile", default="",
@@ -145,7 +162,11 @@ def _parser() -> argparse.ArgumentParser:
                          "f32, exact in f64), exact (reference two-branch), "
                          "or clamped (branch-free)")
     ap.add_argument("--tracer-compact", action="store_true",
-                    help="the compacting tracer: not ported yet, raises")
+                    help="uniform grid, modes 8 and 1: the single-device "
+                         "tracer with host-driven final-phase dead-lane "
+                         "compaction (the same deposits up to their order); "
+                         "ignored on nested grids and by the noneq step's "
+                         "trace, as in the JAX CLI")
     ap.add_argument("--tracer-strategy", default="",
                     choices=("", "sources", "domain"),
                     help="distributed tracer (not ported yet: point sources "
@@ -171,8 +192,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--evolve-energy", action="store_true",
                     help="noneq mode: evolve the internal energy")
     ap.add_argument("--ckpt-format", choices=("npz", "orbax"), default="npz",
-                    help="snapshot format: cellArray .npz (default); orbax "
-                         "is not ported yet and raises")
+                    help="snapshot format: portable cellArray .npz "
+                         "(default) or checkpoint directories ckptNNNN "
+                         "(io/checkpoint.py; the JAX CLI's name, torch "
+                         "files in place of orbax's)")
     ap.add_argument("--amr-depth", type=int, default=4,
                     help="max AMR levels kept from the input grid (deeper "
                          "input levels average onto the deepest kept one); "
@@ -205,24 +228,14 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_not_ported(args, cfg) -> None:
+def _refuse_not_ported(args) -> None:
     """NotImplementedError for what the port does not run yet, before any
-    work."""
-    refused = [
-        (args.ckpt_format == "orbax", "--ckpt-format orbax",
-         "Remaining I/O (io/checkpoint.py)"),
-        (args.debug_checkify, "--debug-checkify", "core/debug.py"),
-        (cfg.tracer_compact, "--tracer-compact (tracer_compact)",
-         "The compacting tracer"),
-        (bool(args.coordinator) or bool(args.num_processes)
-         or args.process_id >= 0,
-         "--coordinator / --num-processes / --process-id",
-         "Distribution (ranks on several cards)"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP, "
-                                      f"{item}")
+    work: the multi-process flags."""
+    if (bool(args.coordinator) or bool(args.num_processes)
+            or args.process_id >= 0):
+        raise NotImplementedError(
+            "--coordinator / --num-processes / --process-id is not ported "
+            "yet: ROADMAP, Distribution (ranks on several cards)")
 
 
 def _read_levels(cfg):
@@ -230,9 +243,9 @@ def _read_levels(cfg):
     if os.path.exists(grid_path + ".npz"):
         return grid_io.read_level_npz(grid_path + ".npz")
     if os.path.exists(grid_path + ".h4"):
-        raise NotImplementedError(
-            f"{grid_path}.h4: HDF4 grids (io/convert.py, io/hdf4.py, "
-            f"io/sfc.py) are not ported yet: ROADMAP, Remaining I/O")
+        # the reference's own container (equiSources.f90:316-423), read by
+        # the pure-Python HDF4-SD parser
+        return convert.h42levels(grid_path + ".h4")
     if os.path.exists(grid_path + ".dat"):
         return grid_io.read_fortran_level_binary(
             grid_path + ".dat", cfg.read_metals, cfg.read_kinematics)
@@ -293,20 +306,70 @@ def _check_finite(states, itime: int) -> None:
                     f"itime={itime}")
 
 
-def _restore_noneq(species, restart_snap):
-    """The species of a noneq restart: those of the snapshot the fields
-    were restored from, else (no restart, or a snapshot without species)
-    the equilibrium ones given, with a warning in the latter case.
-    species: a SpeciesState, or a nested run's tuple of one a level.  A
-    snapshot whose species do not fit the grid raises (read_species)."""
+def _restore_noneq(container, species, restart_snap, restart_ckpt):
+    """The restart state of a noneq run: (container, species, itime or
+    None).  species: a SpeciesState, or a nested run's tuple of one a
+    level.
+
+    A noneq checkpoint holds (fields, species), the prognostic state the
+    reference's restart restores (equiSources.f90:1071-1167), so both
+    restore together.  A fields-only checkpoint (an equilibrium run's,
+    which restore_sharded reports as checkpoint.TreeMismatch, and nothing
+    else) restores the fields, the species re-initialized from equilibrium
+    with a warning.  Any other failure raises: a truncated or corrupt
+    file, a species array that does not fit (the JAX CLI catches every
+    Exception there, ROADMAP section 3).  A snapshot's fields are restored
+    before this and only its species are read here, those that do not fit
+    the grid raising (read_species); without a restart source, or from a
+    snapshot without species (with a warning), the equilibrium species
+    given are kept."""
+    if restart_ckpt is not None:
+        try:
+            (cont2, sp2), meta = checkpoint.restore_sharded(
+                restart_ckpt, (container, species))
+            print("restored fields + 9-species noneq state from "
+                  f"{restart_ckpt}")
+            return cont2, sp2, meta["itime"]
+        except checkpoint.TreeMismatch:
+            cont2, meta = checkpoint.restore_sharded(restart_ckpt, container)
+            print("warning: checkpoint carries no species state; "
+                  "H2/H2+/H-/energy re-initialized from equilibrium")
+            return cont2, species, meta["itime"]
     if restart_snap is not None:
         sp2 = snapshot.read_species(restart_snap, species)
         if sp2 is not None:
             print("restored 9-species noneq state from snapshot")
-            return sp2
+            return container, sp2, None
         print("warning: snapshot carries no species state; "
               "H2/H2+/H-/energy re-initialized from equilibrium")
-    return species
+    return container, species, None
+
+
+def _preflight(storage: str, model, amodel, nested, state,
+               stellar_ctx) -> None:
+    """--debug-checkify: the checked pre-flight of the run's storage on the
+    ingested grid (core/debug.py), printing the JAX CLI's line; raises at
+    the first violated check.  A two-level grid checks through its
+    L-level view, MultiLevelModel(2), as the JAX CLI's does."""
+    if storage == "uniform":
+        debug.preflight(model, state, stellar_ctx)
+        print("checkify pre-flight passed (bounds/NaN/division clean "
+              "on the ingested data)")
+    elif storage == "sparse":
+        debug.preflight_sparse(amodel, nested, stellar_ctx)
+        print("checkify pre-flight passed on block-sparse storage "
+              "(slot-map/padding-block bounds, NaN/Inf, division "
+              "clean on the ingested data)")
+    elif storage == "ml":
+        debug.preflight_ml(amodel, nested, stellar_ctx)
+        print("checkify pre-flight passed on multilevel storage")
+    else:
+        if isinstance(nested, amr.AMRState):
+            nested = amr.MultiLevelState(levels=(nested.base, nested.fine),
+                                         refined=(nested.refined,))
+        debug.preflight_ml(step_amr.MultiLevelModel.setup(model, 2), nested,
+                           stellar_ctx)
+        print("checkify pre-flight passed on two-level AMR storage")
 
 
 def _print_phases(times: dict, stellar_ctx) -> None:
@@ -396,7 +459,7 @@ def main(argv=None):
         cfg.mesh_shape = tuple(int(x) for x in args.mesh_shape.split(","))
     if args.tracer_strategy:
         cfg.tracer_strategy = args.tracer_strategy
-    _refuse_not_ported(args, cfg)
+    _refuse_not_ported(args)
     noneq = args.chemistry == "noneq"
 
     device = torch.device(args.platform)
@@ -454,6 +517,9 @@ def main(argv=None):
     # two-level grid's noneq run goes through MultiLevelModel(2) at the
     # default depth, as the JAX CLI's does
     validate_depth = nesting in ("ml", "sparse")
+    # the storage the grid was ingested as (a two-level noneq run goes on
+    # as an L-level one)
+    storage = nesting
     if nesting == "amr" and noneq:
         nested = amr.MultiLevelState(levels=(nested.base, nested.fine),
                                      refined=(nested.refined,))
@@ -507,6 +573,9 @@ def main(argv=None):
 
     # ---- model + iteration loop ----------------------------------------
     model = step_mod.RTModel.setup(cfg, geom, dtype=dtype, device=device)
+    if args.debug_checkify and storage == "uniform":
+        # on the ingested state, before its equilibrium, as the JAX CLI
+        _preflight(storage, model, None, None, state, stellar_ctx)
     # point sources on a mesh (the distributed tracers) raise here, before
     # any step
     if nesting == "amr":
@@ -561,10 +630,27 @@ def main(argv=None):
     else:
         state = model.initialize_equilibrium(state)
         nf0 = model.neutral_fraction(state)
+    if args.debug_checkify and storage != "uniform":
+        _preflight(storage, model, amodel, nested, state, stellar_ctx)
     print(f"ionization equilibrium: {nf0:.8e}")
     itime = 0
-    restart_snap = None
-    if cfg.restart:
+    restart_snap = restart_ckpt = None
+    if cfg.restart and args.ckpt_format == "orbax":
+        path = checkpoint.latest_checkpoint(args.snapshot_dir)
+        if path and noneq:
+            # a noneq checkpoint holds (fields, species): restored together
+            # once the species are built below
+            restart_ckpt = path
+        elif path:
+            restored, meta = checkpoint.restore_sharded(
+                path, state if nested is None else nested)
+            itime = meta["itime"]
+            if nested is None:
+                state = restored
+            else:
+                nested = restored
+            print(f"restarted from {path} at itime={itime}")
+    elif cfg.restart:
         snap = (os.path.join(args.snapshot_dir, cfg.restart_cell_array_name)
                 if cfg.restart_cell_array_name
                 else snapshot.latest_snapshot(args.snapshot_dir))
@@ -587,27 +673,32 @@ def main(argv=None):
     if noneq and nesting == "sparse":
         # level 0 dense, the refined levels in blocks with their padding
         # blocks zero
-        species = _restore_noneq(amodel.initial_species(nested),
-                                 restart_snap)
+        nested, species, it2 = _restore_noneq(
+            nested, amodel.initial_species(nested), restart_snap,
+            restart_ckpt)
         print(f"non-equilibrium chemistry (block-sparse, {nested.n_levels} "
               f"levels): dt = {args.dt_myr} Myr, evolve_energy = "
               f"{args.evolve_energy}")
     elif noneq and nested is not None:
-        species = _restore_noneq(
-            tuple(chemistry_noneq.species_from_field_state(lv)
-                  for lv in nested.levels), restart_snap)
+        nested, species, it2 = _restore_noneq(
+            nested, tuple(chemistry_noneq.species_from_field_state(lv)
+                          for lv in nested.levels), restart_snap,
+            restart_ckpt)
         print(f"non-equilibrium chemistry ({nested.n_levels} levels): "
               f"dt = {args.dt_myr} Myr, evolve_energy = "
               f"{args.evolve_energy}")
     elif noneq:
-        species = _restore_noneq(
-            chemistry_noneq.species_from_field_state(state), restart_snap)
+        state, species, it2 = _restore_noneq(
+            state, chemistry_noneq.species_from_field_state(state),
+            restart_snap, restart_ckpt)
         if mesh is not None:
             species = pmesh.shard_species(species, mesh)
         print(f"non-equilibrium chemistry: dt = {args.dt_myr} Myr, "
               f"evolve_energy = {args.evolve_energy}"
               + (f", mesh = {(mesh.n_ranks,)}" if mesh is not None
                  else ""))
+    if noneq and it2 is not None:
+        itime = it2
     # 0 = unbounded: the reference iterates until externally judged/killed
     # (equiSources.f90:1230); the convergence break below still applies
     max_iter = args.iters if args.iters >= 0 else cfg.max_iterations
@@ -662,7 +753,13 @@ def main(argv=None):
                                       "cosmicSpectrum.npz"),
                          freq=freq.detach().cpu().numpy(), spectrum=spec)
             print(msg)
-            if nesting == "amr":
+            if args.ckpt_format == "orbax":
+                container = state if nested is None else nested
+                checkpoint.save_sharded(
+                    checkpoint.checkpoint_name(itime, args.snapshot_dir),
+                    (container, species) if noneq else container, itime,
+                    geom.physical_box_size)
+            elif nesting == "amr":
                 snapshot.write_snapshot_amr(
                     snapshot.snapshot_name(itime, args.snapshot_dir),
                     nested, itime, geom.physical_box_size)

@@ -296,7 +296,6 @@ class RTModel(nn.Module):
     # ----- the iteration -------------------------------------------------
 
     def _check_supported(self, stellar, mesh) -> None:
-        cfg = self.config
         if mesh is not None and not isinstance(mesh, GridMesh):
             raise TypeError(f"mesh must be a parallel.mesh.GridMesh, got "
                             f"{type(mesh).__name__}")
@@ -310,17 +309,16 @@ class RTModel(nn.Module):
         # tracer_strategy picks a distributed tracer; without a mesh
         # "sources" and "domain" both run the single-device tracer, as in
         # the JAX package
-        if cfg.tracer_compact:
-            raise NotImplementedError(
-                "tracer_compact=True (the compacting tracer) is not ported "
-                "yet: ROADMAP, The compacting tracer")
 
     def trace(self, state: FieldState, stellar: StellarContext,
-              rates_mode: str = "auto"):
+              rates_mode: str = "auto", compact: bool = False):
         """The point-source phase: trace every source and put the six
         deposit fields into the (zero-rate) state; (state, RateFields,
-        RayDiagnostics).  rates_mode: rays.trace_point_sources's."""
-        rf, diag = rays.trace_point_sources(
+        RayDiagnostics).  rates_mode: rays.trace_point_sources's; compact
+        runs rays.trace_point_sources_compact instead."""
+        tracer = (rays.trace_point_sources_compact if compact
+                  else rays.trace_point_sources)
+        rf, diag = tracer(
             state, self.geom, stellar.sources, stellar.tables,
             dust_approximation=stellar.dust_approximation,
             max_pixel_level=stellar.max_pixel_level,
@@ -402,16 +400,20 @@ class RTModel(nn.Module):
     def make_step(self, stellar: StellarContext | None = None, mesh=None):
         """The iteration step, a plain eager function (PyTorch has no jit
         to apply here): state -> state, or with a StellarContext
-        state -> (state, RayDiagnostics), tracing whatever the mode.  With
-        a `mesh` (parallel.mesh.GridMesh; no StellarContext) the sweep runs
-        the configured strategy on it."""
+        state -> (state, RayDiagnostics), tracing whatever the mode, with
+        the compacting tracer under config.tracer_compact (as the JAX
+        package's make_step; its noneq step and transport_chemistry_step
+        trace with the default one).  With a `mesh` (parallel.mesh.GridMesh;
+        no StellarContext) the sweep runs the configured strategy on it."""
         self._check_supported(stellar, mesh)
         if stellar is None:
             return functools.partial(self.transport_chemistry_step,
                                      mesh=mesh)
+        compact = self.config.tracer_compact
 
         def step(state: FieldState):
-            state, _, diag = self.trace(state.zero_rates(), stellar)
+            state, _, diag = self.trace(state.zero_rates(), stellar,
+                                        compact=compact)
             return self._sweep_and_chemistry(state), diag
 
         return step

@@ -29,6 +29,17 @@ from radiativetransfer_tpu.io.grid_io import LevelData  # noqa: E402
 from radiativetransfer_tpu_torch.core import amr as tamr  # noqa: E402
 from radiativetransfer_tpu_torch.core.state import make_state  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the port's eager ops are small CPU ops, on
+    which more threads only spin beside the other test workers (module-
+    scoped, so that the module's fixtures run pinned too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 F64 = torch.float64
 
 

@@ -33,6 +33,7 @@ from radiativetransfer_tpu_torch.core import amr as tamr
 from radiativetransfer_tpu_torch.core import amr_sparse as tas
 from radiativetransfer_tpu_torch.io import grid_io as tgrid
 from radiativetransfer_tpu_torch.io import snapshot as tsnap
+from test_torch_host import jax_compile_cache
 
 F64 = torch.float64
 
@@ -43,6 +44,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 def _rand_state(rng, m, scale=1e-3):

@@ -14,8 +14,9 @@ the writer validated); mode 6 runs on both; the diagnostic modes 2 and 7 print t
 same lines.  Modes 8 and 1 (maxPixelLevel 3, the galaxy's 12 sources):
 logs within 1e-10, the `fesc=` lines and `weight` files identical,
 cosmicSpectrum.npz within 1e-9.  `--chemistry noneq` on the L-level grid
-and on the two-level one (the galaxy without its core; MultiLevelModel(2)
-at the default coupling depth, no `coupling depth:` line): mode 9 (2
+(at the coupling depth mode 9 validated) and on the two-level one (the
+galaxy without its core; MultiLevelModel(2) at the default coupling
+depth, no `coupling depth:` line): mode 9 (2
 iterations) and mode 8 (1 iteration, the 12 sources at maxPixelLevel 3:
 the `fesc=` lines identical, cosmicSpectrum.npz within 1e-9), logs
 within 1e-10, the snapshots (with each level's species,
@@ -44,6 +45,7 @@ import chip_smoke
 from radiativetransfer_tpu import cli as jcli
 from radiativetransfer_tpu.core import sweep_multilevel as jsm
 from radiativetransfer_tpu_torch import cli as tcli
+from test_torch_host import jax_compile_cache
 
 N = 8
 _LEVEL = ("--angular-level", "1")
@@ -60,6 +62,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -321,12 +331,17 @@ _NONEQ_RUNS = {("ml", 9): (True, 2, ()), ("two", 9): (False, 2, ()),
 
 
 @pytest.fixture(scope="module")
-def noneq_runs(tmp_path_factory):
+def noneq_runs(mode9, tmp_path_factory):
     """Each package's --chemistry noneq runs in --x64 (_NONEQ_RUNS):
-    {(pkg, grid, mode): (stdout, dir)}."""
+    {(pkg, grid, mode): (stdout, dir)}; on the L-level grid at the
+    coupling depth mode 9 validated there (the same grid; the validation
+    is mode9's cases')."""
+    depth = re.search(r"coupling depth: (\d+)", mode9["jax"][0]).group(1)
     root = tmp_path_factory.mktemp("ml_cli_noneq")
     out = {}
     for (grid, mode), (core, iters, flags) in _NONEQ_RUNS.items():
+        if grid == "ml":
+            flags = flags + ("--coupling-depth", depth)
         for pkg in ("torch", "jax"):
             d = root / f"{pkg}_{grid}{mode}"
             out[pkg, grid, mode] = (_run(
@@ -368,6 +383,7 @@ def test_noneq_x64_matches_jax(noneq_runs, grid, mode):
         assert "coupling depth" not in out_t + out_j
     else:
         assert _GRID in out_t.splitlines()
+        assert re.search(r"^coupling depth: \d \(fixed\)$", out_t, re.M)
     if mode == 8:
         assert ("nStars/specificAge/non-degenerate = 12 12 12"
                 in out_t.splitlines())

@@ -25,6 +25,7 @@ from test_torch_cli import (
     _Runs,
     _time_log,
 )
+from test_torch_host import jax_compile_cache
 
 _NONEQ = ("--chemistry", "noneq", "--x64")
 # the one run of two iterations: the restarts continue its itime 1
@@ -46,6 +47,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 def _assert_species_close(pa, pb, tol=1e-10):

@@ -42,6 +42,7 @@ import torch
 import chip_smoke
 from radiativetransfer_tpu import cli as jcli
 from radiativetransfer_tpu_torch import cli as tcli
+from test_torch_host import jax_compile_cache
 
 N = 8
 _FLAGS = ("--angular-level", "1", "--amr-storage", "sparse")
@@ -57,6 +58,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 def _inputs(directory, **kw) -> str:

@@ -2,6 +2,7 @@
 to the JAX package's, the octant rotations work on tensors, the package
 imports no JAX, and the config parser reads the reference's format."""
 
+import contextlib
 import dataclasses
 import subprocess
 import sys
@@ -23,6 +24,45 @@ from radiativetransfer_tpu_torch.geometry import octants as toctants
 from radiativetransfer_tpu_torch.tables import chemistry_rates as trates
 from radiativetransfer_tpu_torch.tables import spectral as tspectral
 from radiativetransfer_tpu_torch.tables import uvb_models as tuvb
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the port's eager ops are small CPU ops, on
+    which more threads only spin beside the other test workers (module-
+    scoped, so that the module's fixtures run pinned too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def jax_compile_cache(directory):
+    """JAX's persistent compilation cache in `directory` for the block, the
+    settings as they were after it.  A JAX CLI run (or model setup) builds
+    new jitted closures each time, so JAX's in-memory cache misses on a
+    second run of the same configuration; with this cache the second run
+    loads the programs the first compiled (its executables are the same,
+    so are the results), and a parity module shares the JAX package's
+    compiles across its cases.  Every program is cached, however quick
+    its compile."""
+    import jax
+    from jax._src import compilation_cache
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    before = {k: getattr(jax.config, k) for k in names}
+    jax.config.update("jax_compilation_cache_dir", str(directory))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
 
 
 def _assert_same(a, b, path="value"):

@@ -47,6 +47,7 @@ from radiativetransfer_tpu_torch.parallel import mesh as tmesh
 from radiativetransfer_tpu_torch.tables import chemistry_rates as trates
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
 from test_torch_rays import BOX, N, _fields, _sources, _tables
+from test_torch_host import jax_compile_cache
 
 SPECIES = tcn.SPECIES
 _JDTYPE = {torch.float64: jnp.float64, torch.float32: jnp.float32}
@@ -62,6 +63,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -508,12 +517,15 @@ def test_noneq_refusals():
     with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
         model.make_noneq_step(MYR, tc,
                               mesh=tmesh.make_grid_mesh(2, device="cpu"))
+    # tracer_compact is ignored by the noneq step's trace, as in the JAX
+    # package: the step builds and traces with the default tracer
     model.config = dataclasses.replace(model.config, tracer_compact=True)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, The compacting tracer"):
-        model.make_noneq_step(MYR, tc)
     species = tcn.species_from_field_state(
         rt.uniform_state(n, dtype=torch.float64, device="cpu"))
+    trays.LAST_COMPACT_BUCKETS.clear()
+    model.make_noneq_step(MYR, tc, n_substeps=2)(
+        rt.uniform_state(n, dtype=torch.float64, device="cpu"), species)
+    assert trays.LAST_COMPACT_BUCKETS == []
     with pytest.raises(ValueError, match="do not divide"):
         tmesh.shard_species(species, tmesh.make_grid_mesh(3, device="cpu"))
     # a StellarContext built without noneq=True has no k27..k31 weights

@@ -28,6 +28,7 @@ from radiativetransfer_tpu_torch.core.sweep import _tau_eps
 from radiativetransfer_tpu_torch.geometry.patterns import SEG_XZ, SEG_YZ
 from radiativetransfer_tpu_torch.parallel import mesh as tmesh
 from radiativetransfer_tpu_torch.parallel import sweep_dist, sweep_rdma
+from test_torch_host import jax_compile_cache
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -39,6 +40,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 UVB = np.array([1.0, 0.5, 0.25])

@@ -32,10 +32,29 @@ from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.core import state as tstate
 from radiativetransfer_tpu_torch.tables import dust as tdust
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
-from test_torch_host import _assert_same
+from test_torch_host import _assert_same, jax_compile_cache
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the port's eager ops are small CPU ops, on
+    which more threads only spin beside the other test workers (module-
+    scoped, so that the module's fixtures run pinned too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 N = 16
 BOX = 300.0 * KPC   # the 100 kpc output radius lies inside the box
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 # ---------------------------------------------------------------------------
@@ -287,12 +306,17 @@ def test_unroll_keeps_the_result():
 
 
 def test_unported_modes_raise():
+    """No tracer mode is left unported: the compacting tracer runs
+    (tests/test_torch_compact.py) and refuses what no tracer takes."""
     ts = tstate.uniform_state(4, dtype=torch.float64, device="cpu")
     geom = tstate.GridGeometry(4, 4, 4, BOX)
     src = trays.SourceBatch(**{k: v[:1] for k, v in _sources().items()})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, The compacting tracer"):
-        trays.trace_point_sources_compact(ts, geom, src, _tables())
+    for tracer in (trays.trace_point_sources,
+                   trays.trace_point_sources_compact):
+        with pytest.raises(ValueError, match="unknown rates_mode"):
+            tracer(ts, geom, src, _tables(), rates_mode="exact")
+    with pytest.raises(ValueError, match="chunk must be positive"):
+        trays.trace_point_sources_compact(ts, geom, src, _tables(), chunk=0)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from radiativetransfer_tpu_torch.core import rays_multilevel as trml
 from radiativetransfer_tpu_torch.core import state as tstate
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
 from test_torch_rays import _tables
+from test_torch_host import jax_compile_cache
 
 BOX = 300.0 * KPC
 
@@ -48,6 +49,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 def _np_fields(fs) -> dict:

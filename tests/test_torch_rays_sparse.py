@@ -38,6 +38,7 @@ from radiativetransfer_tpu_torch.core import state as tstate
 from test_torch_amr_sparse import clustered_ml, jax_sparse_np, port_ml
 from test_torch_rays import _tables
 from test_torch_rays_ml import noneq_tables, port_tables
+from test_torch_host import jax_compile_cache
 
 N, L = 8, 3
 BOX = 300.0 * KPC
@@ -56,6 +57,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 def dense_state(seed=7):

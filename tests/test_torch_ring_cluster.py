@@ -20,6 +20,17 @@ from radiativetransfer_tpu_torch.geometry.patterns import SEG_XZ, SEG_YZ
 from radiativetransfer_tpu_torch.parallel import mesh as tmesh
 from radiativetransfer_tpu_torch.parallel import sweep_rdma
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the port's eager ops are small CPU ops, on
+    which more threads only spin beside the other test workers (module-
+    scoped, so that the module's fixtures run pinned too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 UVB = np.array([1.0, 0.5, 0.25])
 SMEM_OPTIN = 232448
 

@@ -26,6 +26,7 @@ from radiativetransfer_tpu_torch.constants import KPC, MH, MYR, PSI
 from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
+from test_torch_host import jax_compile_cache
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -37,6 +38,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 # neutral fractions of one f32 step on the 24^3 anchor setup, as the JAX
@@ -154,10 +163,13 @@ def test_unported_paths_raise():
     with pytest.raises(TypeError, match="GridMesh"):
         tm.transport_chemistry_step(state, mesh=object())
     base = tm.config
+    # tracer_compact picks the compacting tracer without a mesh (it is
+    # ported: tests/test_torch_compact.py), and raises with one as the
+    # other tracers do
     tm.config = dataclasses.replace(base, tracer_compact=True)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, The compacting tracer"):
-        tm.make_step(stellar=object())
+    assert callable(tm.make_step(stellar=object()))
+    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
+        tm.make_step(stellar=object(), mesh=mesh)
     # the domain-decomposed tracer runs only on a mesh (not ported)
     tm.config = dataclasses.replace(base, tracer_strategy="domain")
     with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):

@@ -42,6 +42,7 @@ from radiativetransfer_tpu_torch.core import step_amr as tstep_amr
 from radiativetransfer_tpu_torch.io import snapshot as tsnap
 from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
+from test_torch_host import jax_compile_cache
 
 N = 6
 F64 = torch.float64
@@ -56,6 +57,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 def _cfg(mode):

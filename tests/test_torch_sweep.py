@@ -16,6 +16,7 @@ from radiativetransfer_tpu_torch.core import sweep as tsweep
 from radiativetransfer_tpu_torch.core import sweep_cuda
 
 from reference_impl import serial_sweep
+from test_torch_host import jax_compile_cache
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -27,6 +28,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 UVB = np.array([1.0, 0.5, 0.25])

@@ -54,6 +54,7 @@ from test_torch_amr_sparse import (
     jax_sparse_np,
     port_ml,
 )
+from test_torch_host import jax_compile_cache
 
 F64 = torch.float64
 UVB = np.array([2e-21, 5e-22, 1e-23])
@@ -95,12 +96,21 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
+
+
 @pytest.fixture(scope="module")
 def sweeps():
     """{case: (JAX sparse state, port state, refined maps, opacities
     (dense levels), port block opacities, the window, {windowed: JAX (j0,
     jbs)})}: the JAX package's full-plane sweep at both clustered bases,
     its windowed one at 16^3 and on the two clumps ("moving")."""
+    _PORT_SWEEPS.clear()
     out = {}
     for key, (be, off) in [*CASES.items(), ("moving", (4, None))]:
         n = 16 if key == "moving" else key
@@ -127,11 +137,20 @@ def sweeps():
 
 
 def _port_sweep(case, window):
+    """The port's sparse sweep of a `sweeps` case, full-plane (window
+    None) or windowed, each computed once for the module (the cases share
+    them; the tests do not change them)."""
     jsp, tsp, refined, kappas, tlv, win, _ = case
-    plan = tsm.build_ml_sweep_plan(1, tsp.n, 3)
-    return tss.diffuse_sweep_sparse(torch.as_tensor(kappas[0]), tlv, tsp,
-                                    plan, UVB, CELL, n_coupling_iters=4,
-                                    window=window)
+    key = (id(case[1]), window is not None)
+    if key not in _PORT_SWEEPS:
+        plan = tsm.build_ml_sweep_plan(1, tsp.n, 3)
+        _PORT_SWEEPS[key] = tss.diffuse_sweep_sparse(
+            torch.as_tensor(kappas[0]), tlv, tsp, plan, UVB, CELL,
+            n_coupling_iters=4, window=window)
+    return _PORT_SWEEPS[key]
+
+
+_PORT_SWEEPS: dict = {}
 
 
 def _leaf_err(tsp, got, want) -> float:

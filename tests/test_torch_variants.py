@@ -27,6 +27,7 @@ from radiativetransfer_tpu.core import sweep_pallas
 from radiativetransfer_tpu_torch.core import sweep as tsweep
 from radiativetransfer_tpu_torch.core import sweep_cuda, variants_cuda
 from radiativetransfer_tpu_torch.geometry import octants
+from test_torch_host import jax_compile_cache
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -38,6 +39,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_cache(tmp_path_factory):
+    """The JAX package's compiles shared by the port's parity modules of
+    this test process (test_torch_host.jax_compile_cache)."""
+    with jax_compile_cache(tmp_path_factory.getbasetemp() / "jax_cache"):
+        yield
 
 
 UVB = np.array([1.0, 0.5, 0.25])
@@ -169,9 +178,11 @@ def test_zones_sweep_on_cpu_matches_jax_sweep(level, n):
 def test_pair_interpret_matches_plain(level, n, np_dtype, monkeypatch):
     monkeypatch.setattr(xpair, "_pair_call", _pair_call_interpret)
     kappa = _kappa(n, np_dtype)
-    j_pal = np.asarray(xpair.pair_sweep(
-        jnp.asarray(kappa), jsweep.build_sweep_plan(level, n),
-        jnp.asarray(UVB, np_dtype), KPC))
+    plan = jsweep.build_sweep_plan(level, n)
+    # one compiled program around the script's sweep (its launches would
+    # compile one by one eagerly)
+    j_pal = np.asarray(jax.jit(lambda k: xpair.pair_sweep(
+        k, plan, jnp.asarray(UVB, np_dtype), KPC))(jnp.asarray(kappa)))
     j_t = variants_cuda.sweep_pair(torch.from_numpy(kappa),
                                    tsweep.build_sweep_plan(level, n), UVB,
                                    KPC)
@@ -184,9 +195,10 @@ def test_lean_interpret_matches_plain(variant, np_dtype, monkeypatch):
     monkeypatch.setattr(xvar, "_lean_call", _lean_call_interpret)
     n = 6
     kappa = _kappa(n, np_dtype)
-    j_pal = np.asarray(xvar.lean_sweep(
-        jnp.asarray(kappa), jsweep.build_sweep_plan(1, n),
-        jnp.asarray(UVB, np_dtype), KPC, **variants_cuda.flags(variant)))
+    plan = jsweep.build_sweep_plan(1, n)
+    j_pal = np.asarray(jax.jit(lambda k: xvar.lean_sweep(
+        k, plan, jnp.asarray(UVB, np_dtype), KPC,
+        **variants_cuda.flags(variant)))(jnp.asarray(kappa)))
     j_t = variants_cuda.lean_sweep(torch.from_numpy(kappa),
                                    tsweep.build_sweep_plan(1, n), UVB, KPC,
                                    variant)
