@@ -209,9 +209,10 @@ failure raises and the script exits non-zero:
     sources, maxPixelLevel 6, f32: one mode-8 step layer by
     layer (profile_step.ml_layers: the tracer with its march steps, CUDA
     events and host ms), the tracer in a profiler window (the card's busy
-    share), peak memory, one mode-1 step, one noneq mode-9 step (0.1 Myr
-    in 20 substeps) layer by layer (profile_step.ml_noneq_layers:
-    evolve_noneq on each level), the
+    share), peak memory, one mode-1 step, one noneq mode-6 step (0.1 Myr
+    in 20 substeps; a mode-9 step adds the mode-8 step's sweep layer)
+    layer by layer (profile_step.ml_noneq_layers: evolve_noneq on each
+    level), the
     f32 trace against the f64 trace of the same state with float32's
     kills (every level's six channels within 5e-5 of each peak, the
     escape fractions within 1e-5; the deposits below float32's smallest
@@ -261,8 +262,9 @@ failure raises and the script exits non-zero:
     busy share), a mode-6 step, the tracer's peak memory (held under half
     the dense form's finest int32 leaf-level volume and packed fields)
     and its busy share in a profiler window, one mode-1 step, one noneq
-    mode-9 step layer by layer (profile_step.sparse_noneq_layers:
-    evolve_noneq on each level), the
+    mode-6 step layer by layer (profile_step.sparse_noneq_layers:
+    evolve_noneq on each level; a mode-9 step adds the mode-8 step's
+    sweep layer), the
     f32 trace against the f64 trace with float32's kills (5e-5 of each
     channel's peak, escape fractions 1e-5), and the tracer's launches a
     march step from two agreeing profiler windows at an 8^3 base; (c)
@@ -283,7 +285,7 @@ failure raises and the script exits non-zero:
     sizes; each in a profiler window (busy share, device events a march
     step); the deposits and diagnostics within 1e-5 of each peak; (b)
     --debug-checkify through cli.main, its pre-flight timed: mode 8 on the
-    128^3 uniform galaxy x 192 (one iteration, one cluster launch, its
+    64^3 uniform galaxy x 192 (one iteration, one cluster launch, its
     state checkpointed by --ckpt-format orbax), mode
     9 on the 32^3 two-level, L-level and block-sparse grids at angular
     level 1 (the JAX CLI's line each); the 16^3 galaxy with a NaN through
@@ -295,7 +297,29 @@ failure raises and the script exits non-zero:
     block-sparse noneq state with its species checkpointed (write s, MB,
     restore s, every tensor equal); (d) the two-level 32^3 grid converted
     with convert.npz2h4 and run from its .h4 alone, its grid: and itime=
-    lines those of (b)'s .npz run.
+    lines those of (b)'s .npz run;
+23. the mesh on every storage (parallel/rays_dist.py, the nested states'
+    shard functions, sweep_dist.diffuse_sweep_sparse_zones; plain
+    PyTorch, every count held but for (b)'s steps): (b) phase 9's mode-8
+    cell (128^3 x 8 sources, maxPixelLevel 6, f32, the exact logmean) from
+    the neutral box on one device, on 4 ranks with the one-device sweep
+    (the source-parallel tracer alone differs) and on 4 ranks under rdma
+    (the cluster ring, 24 launches): the deposits, Jmean, HI and the
+    neutral fraction within 1e-4 of the one-device step's, the cells where
+    HeI or HeII move by more than 1e-4 of their peaks counted; (a) the
+    source-parallel tracer on 4 ranks against the single-device one on the
+    one-device step's state, in turns (single, 4 ranks, 4 ranks, single):
+    ms, march steps, peak memory above the state; each in a profiler
+    window (busy share, device events a march step); the deposits and
+    diagnostics within 1e-5 of each peak; one rank bit for bit the
+    single-device trace under torch.use_deterministic_algorithms; (c)
+    --mesh-shape 4 through cli.main on the 32^3 two-level, L-level and
+    block-sparse grids in mode 8 and a noneq mode-8 iteration on the
+    L-level one (level 1, maxPixelLevel 4, coupling depth 2), each log
+    within 1e-4 of the same run without a mesh through python -m in a
+    process of its own beside them; (d) the block-sparse zones sweep on 4
+    ranks against the one-device sparse sweep at the 64^3 galaxy x 192
+    (Jmean within 1e-5 of each band's peak on every level).
 
 The last lines are the card's name and power limit, one JSON object of
 every kernel's numbers, and {"ok": true, "device": {...}}.  Exits non-zero
@@ -3325,6 +3349,7 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
     from radiativetransfer_tpu_torch import profile_step
     from radiativetransfer_tpu_torch.config import (
         MODE_BOTH_STELLAR_UVB_TRANSFER,
+        MODE_NO_STARS_THIN_UVB,
         MODE_STELLAR_TRANSFER_THIN_UVB,
         MODE_UVB_TRANSFER_ONLY,
     )
@@ -3609,7 +3634,11 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
           f"{_fmt(fesc1[:, -1])}")
     assert 0.0 < nf1 < nf0 and bool(np.isfinite(fesc1).all())
     del s1, ml1
-    ml9 = dataclasses.replace(ml8, rt=model(n, level, f32, DEVICE))
+    # the noneq step in mode 6: the networks (a mode-9 step adds the
+    # sweep, whose layer the mode-8 step above times)
+    ml9 = dataclasses.replace(ml8, rt=model(n, level, f32, DEVICE,
+                                            MODE_NO_STARS_THIN_UVB),
+                              plan=None)
     species = tuple(chemistry_noneq.species_from_field_state(lv)
                     for lv in state.levels)
     torch.cuda.reset_peak_memory_stats()
@@ -3617,8 +3646,9 @@ def _phase_ml_sources(tmp: str, smi: str, depth: int | None) -> dict:
         ml9, state, species, dt=0.1 * MYR, n_substeps=20))
     peak9 = torch.cuda.max_memory_allocated() / 2 ** 30
     nf9 = ml9.neutral_fraction(s9)
-    print(f"[20 mlsrc] {n}^3 + 2 levels x 192 f32 L-level noneq mode-9 step "
-          f"(0.1 Myr, 20 substeps; 1 Myr in 200 took the network 10 s): "
+    print(f"[20 mlsrc] {n}^3 + 2 levels f32 L-level noneq mode-6 step "
+          f"(0.1 Myr, 20 substeps; 1 Myr in 200 took the network 10 s; a "
+          f"mode-9 step adds the mode-8 step's sweep layer): "
           f"{step9_s:.3f} s, layers (device ms / host ms): "
           + ", ".join(f"{k} {ms:.3f} / {h:.3f}"
                               for k, (ms, h, _) in rows9.items())
@@ -3708,10 +3738,11 @@ def _sparse_sweep_once(sweep):
     def fields(state):
         return [state.base] + [lv.fields for lv in state.levels]
 
-    def swept(state):
+    def swept(state, *args):
         species = [(f.HI, f.HeI, f.HeII) for f in fields(state)]
         if not first:
-            first.append((species, [f.Jmean for f in fields(sweep(state))]))
+            first.append((species, [f.Jmean for f in fields(
+                sweep(state, *args))]))
         assert all(torch.equal(a, b) for x, y in zip(species, first[0][0])
                    for a, b in zip(x, y)), "another state's sweep"
         js = first[0][1]
@@ -4143,15 +4174,19 @@ def _phase_sparse(tmp: str, smi: str, dense_cell) -> dict:
           f"{_fmt(fesc1[:, -1])}; {smi}")
     assert 0.0 < nf1 < nf0 and bool(np.isfinite(fesc1).all())
     del s1, sm1
-    # a noneq mode-9 step, layer by layer
-    species = sm.initial_species(state)
+    # a noneq step layer by layer, in mode 6: the networks (a mode-9 step
+    # adds the sweep, whose layer the mode-8 step above times)
+    sm6n = step_amr.SparseMLModel.setup(
+        model(n, level, f32, DEVICE, mode=MODE_NO_STARS_THIN_UVB), 3)
+    species = sm6n.initial_species(state)
     torch.cuda.reset_peak_memory_stats()
     (s9, sp9, rows9, _), step9_s = timed(
-        lambda: profile_step.sparse_noneq_layers(sm, state, species))
+        lambda: profile_step.sparse_noneq_layers(sm6n, state, species))
     peak9 = torch.cuda.max_memory_allocated() / 2 ** 30
-    nf9 = sm.neutral_fraction(s9)
-    print(f"[21 sparse] {n}^3 + 2 levels x 192 f32 block-sparse noneq mode-9 "
-          f"step (1 Myr, 200 substeps): {step9_s:.3f} s, layers (device ms "
+    nf9 = sm6n.neutral_fraction(s9)
+    print(f"[21 sparse] {n}^3 + 2 levels f32 block-sparse noneq mode-6 step "
+          f"(1 Myr, 200 substeps; a mode-9 step adds the mode-8 step's "
+          f"sweep layer): {step9_s:.3f} s, layers (device ms "
           "/ host ms): " + ", ".join(f"{k} {ms:.3f} / {h:.3f}"
                                      for k, (ms, h, _) in rows9.items())
           + f"; neutral fraction {nf0:.7f} -> {nf9:.7f}; peak device memory "
@@ -4458,14 +4493,16 @@ def _phase_last_features(tmp: str, smi: str, noneq_cell) -> dict:
                   "(slot-map/padding-block bounds, NaN/Inf, division clean "
                   "on the ingested data)"}
     n_cli = ML_CLI_N
-    config_u = write_cli_inputs(os.path.join(tmp, "uniform"), n, mode=8)
+    # at 64^3: the 128^3 pre-flight took 16.6-29.6 s (PERF.md section 4)
+    config_u = write_cli_inputs(os.path.join(tmp, "uniform"), n // 2,
+                                mode=8)
     config_two = write_cli_inputs(os.path.join(tmp, "two"), n_cli,
                                   refine_center=True)
     config_ml = write_cli_inputs(os.path.join(tmp, "ml"), n_cli,
                                  refine_center=True, refine_core=True)
     level1 = ("--angular-level", "1", "--coupling-depth", "2")
     # the uniform run checkpoints (--ckpt-format orbax) in place of its
-    # 128^3 cellArray snapshot
+    # cellArray snapshot
     runs = {"uniform": (config_u, ("--ckpt-format", "orbax")),
             "amr": (config_two, level1),
             "ml": (config_ml, level1),
@@ -4594,6 +4631,277 @@ def _phase_last_features(tmp: str, smi: str, noneq_cell) -> dict:
     return out
 
 
+def phase_dist(smi: str, sparse_state=None) -> dict:
+    """23: the source-parallel tracers on P = 4 ranks of the card and the
+    nested states on a mesh (parallel/rays_dist.py, parallel/mesh.py's
+    nested shard functions, sweep_dist.diffuse_sweep_sparse_zones): plain
+    PyTorch, but for (b)'s two steps, which launch the cluster kernel
+    (one device) and the cluster ring (the mesh).  sparse_state: a
+    block-sparse state for (d); None builds the galaxy's at 64^3 (at phase
+    21's 128^3 cell the one-device sweep alone takes ~13 s, over the
+    phase's budget with the zones sweep beside it)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_dist(tmp, smi, sparse_state)
+
+
+def _phase_dist(tmp: str, smi: str, sparse_state) -> dict:
+    """phase_dist's checks, with `tmp` a directory of their own."""
+    import radiativetransfer_tpu_torch as rt
+    from radiativetransfer_tpu_torch import profile_step
+    from radiativetransfer_tpu_torch.bench import bench_sources
+    from radiativetransfer_tpu_torch.constants import KPC
+    from radiativetransfer_tpu_torch.core import (
+        rays,
+        step_amr,
+        sweep_cluster,
+        sweep_sparse,
+    )
+    from radiativetransfer_tpu_torch.parallel import mesh as pmesh
+    from radiativetransfer_tpu_torch.parallel import (
+        rays_dist,
+        sweep_dist,
+        sweep_rdma,
+    )
+    from radiativetransfer_tpu_torch.tables import stellar
+    t_phase = time.perf_counter()
+    p = 4
+    mesh = pmesh.make_grid_mesh(p, device=DEVICE)
+    launches = {}
+    out = {"launches": launches}
+
+    def rel(x, y):
+        d = float((x.to(y) - y).abs().max())
+        peak = float(y.abs().max())
+        return d / peak if peak else float(x.abs().max())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    # (b) the uniform mode-8 step at phase 9's cell (bench_step: 128^3 x
+    # 192, 8 sources, maxPixelLevel 6, f32) from the neutral box, on one
+    # device (the cluster kernel) and on the 4-rank mesh under the rdma
+    # strategy: the source-parallel tracer, then the cluster ring (#3)
+    n, level, box = MAIN_N, MAIN_LEVEL, 2000.0
+    pos = bench_sources(n, MODE8_SOURCES).position
+    pop = stellar.blackbody_population(q_ionizing=1.0e51)
+    # the exact logmean on one device, as the ring's (phase 15: the
+    # clamped form moves Jmean 1.64e-4 of a band's peak)
+    model, ctx = _mode8_model(n, level, box, MODE8_SOURCES, pos, pop, 6,
+                              sweep_logmean="exact")
+    model_r, _ = _mode8_model(n, level, box, MODE8_SOURCES, pos, pop, 6,
+                              sweep_strategy="rdma")
+    box0 = rt.uniform_state(n, nh=2e-4, tgas=1.5e4, dtype=torch.float32,
+                            device=DEVICE)
+    _zero_sweep_launches()
+    (one, _), one_s = timed(lambda: model.make_step(ctx)(box0))
+    # the same sweep on the mesh: the tracer alone differs
+    (same, _), same_s = timed(lambda: model.make_step(ctx, mesh=mesh)(
+        pmesh.shard_state(box0, mesh)))
+    launches["dist_one_device"] = sweep_cluster.LAUNCHES
+    assert launches["dist_one_device"] == 2
+    sweep_rdma.RING_LAUNCHES = sweep_rdma.RDMA_LAUNCHES = 0
+    (two, _), mesh_s = timed(lambda: model_r.make_step(ctx, mesh=mesh)(
+        pmesh.shard_state(box0, mesh)))
+    out["ring"], out["plane_ring"] = (sweep_rdma.RING_LAUNCHES,
+                                      sweep_rdma.RDMA_LAUNCHES)
+    assert out["ring"] + out["plane_ring"] == len(model.sweep_plan.zones)
+    assert sweep_cluster.LAUNCHES == 2
+    fields = ("HI", "HeI", "HeII", "tgas", "Jmean", "krate24", "crate24",
+              "krate26")
+    errs = {k: (rel(getattr(same, k), getattr(one, k)),
+                rel(getattr(two, k), getattr(one, k))) for k in fields}
+
+    def flipped(x, k):
+        """The cells whose k differs from the one-device step's by more
+        than 1e-4 of its peak."""
+        y = getattr(one, k)
+        return int(((getattr(x, k) - y).abs() > 1e-4 * y.abs().max()).sum())
+    flips = {k: (flipped(same, k), flipped(two, k)) for k in ("HeI", "HeII")}
+    nf = [model.neutral_fraction(x) for x in (one, same, two)]
+    nf_rel = [abs(x - nf[0]) / nf[0] for x in nf[1:]]
+    print(f"[23 dist] {n}^3 x 192 f32 mode-8 step, {MODE8_SOURCES} "
+          f"sources at maxPixelLevel 6, exact logmean: one device "
+          f"{one_s:.3f} s; {p} ranks, the source-parallel tracer and the "
+          f"one-device sweep (1 cluster launch) {same_s:.3f} s, under rdma "
+          f"({out['ring']} cluster ring and {out['plane_ring']} plane ring "
+          f"launches) {mesh_s:.3f} s; each field's max diff over its peak "
+          f"against the one-device step (tracer only / tracer and ring): "
+          + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in errs.items())
+          + f"; cells off by more than 1e-4 of the peak: "
+          + ", ".join(f"{k} {a} / {b}" for k, (a, b) in flips.items())
+          + f" of {n ** 3}; neutral fraction {nf[0]:.7f}, rel "
+          f"{nf_rel[0]:.2e} / {nf_rel[1]:.2e} (tol 1e-4 but for HeI and "
+          f"HeII)")
+    out["step_errs"], out["step_flips"] = errs, flips
+    # the float32 equilibrium's helium moves at isolated cells where an
+    # input moves by ~1e-7 (the deposits' scatter order, the ring's
+    # Jmean): held are the transport products, HI and the neutral fraction
+    assert max(max(errs[k]) for k in fields
+               if k not in ("HeI", "HeII")) <= 1e-4, errs
+    assert max(nf_rel) <= 1e-4, nf_rel
+    s0 = one.zero_rates()
+    del one, same, two, box0, model_r
+    counts0 = _kernel_counts()
+
+    # (a) the source-parallel tracer against the single-device one at
+    # that cell, on the state of the one-device step, in turns
+    def trace(ranks):
+        if ranks is None:
+            return rays.trace_point_sources(
+                s0, model.geom, ctx.sources, ctx.tables,
+                max_pixel_level=ctx.max_pixel_level, dtype=torch.float32)
+        m = pmesh.make_grid_mesh(ranks, device=DEVICE)
+        return rays_dist.trace_point_sources_dist(
+            s0, model.geom, ctx.sources, ctx.tables, m,
+            max_pixel_level=ctx.max_pixel_level, dtype=torch.float32)
+
+    turns, traces = [], {}
+    for ranks in (None, p, p, None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        steps0 = rays.MARCH_STEPS
+        (rf, diag), s = timed(lambda: trace(ranks))
+        turns.append({
+            "ranks": ranks or 1, "dist": ranks is not None, "ms": s * 1e3,
+            "march_steps": rays.MARCH_STEPS - steps0,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30})
+        traces.setdefault(ranks, (rf, diag))
+        del rf, diag
+    name = {False: "single-device", True: f"source-parallel ({p} ranks)"}
+    for t in turns:
+        print(f"[23 dist] {n}^3 x {MODE8_SOURCES} sources, maxPixelLevel "
+              f"{ctx.max_pixel_level}, f32, the {name[t['dist']]} tracer: "
+              f"{t['ms']:.3f} ms, {t['march_steps']} march steps, peak "
+              f"{t['peak_gib']:.3f} GiB above the state")
+    (rf_1, dg_1), (rf_p, dg_p) = traces[None], traces[p]
+    err_rf = max(rel(getattr(rf_p, f.name), getattr(rf_1, f.name))
+                 for f in dataclasses.fields(rays.RateFields))
+    err_dg = max(rel(getattr(dg_p, f.name), getattr(dg_1, f.name))
+                 for f in dataclasses.fields(dg_1))
+    del traces, rf_p, dg_p
+    profile = {}
+    for dist in (False, True):
+        march = next(t["march_steps"] for t in turns if t["dist"] == dist)
+        wall, busy, events, _ = profile_step.profiled(
+            lambda _, d=dist: trace(p if d else None), [None], steps=1)
+        profile[dist] = {"busy_share": busy / wall,
+                         "events_per_march_step": events / march}
+        print(f"[23 dist] the {name[dist]} tracer in a profiler window: "
+              f"{wall * 1e3:.3f} ms, busy {100 * busy / wall:.1f}%, "
+              f"{events:.0f} device events, {events / march:.1f} a march "
+              f"step")
+    # one rank: the single-device trace itself; the deposits' atomic adds
+    # run in one order in both under the deterministic algorithms
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rf_a, dg_a = trace(None)
+        rf_b, dg_b = trace(1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(getattr(x, f.name), getattr(y, f.name))
+               for x, y in ((rf_a, rf_b), (dg_a, dg_b))
+               for f in dataclasses.fields(x))
+    print(f"[23 dist] the source-parallel tracer's deposits against the "
+          f"single-device tracer's: {err_rf:.2e} of each channel's peak, the "
+          f"diagnostics {err_dg:.2e} (tol 1e-5; the scatter order alone "
+          f"differs); on one rank bit for bit the single-device trace: "
+          f"{same}; {smi}")
+    assert err_rf <= 1e-5 and err_dg <= 1e-5, (err_rf, err_dg)
+    assert same
+    del rf_1, dg_1, rf_a, dg_a, rf_b, dg_b, s0, model, ctx
+    out["tracer"] = {"turns": turns, "profile": profile,
+                     "max_err": max(err_rf, err_dg)}
+
+    # (c) --mesh-shape 4 through the CLI on the 32^3 two-level, L-level
+    # and block-sparse grids in mode 8 (the galaxy's 12 sources at
+    # maxPixelLevel 4) and a noneq mode-8 iteration on the L-level grid,
+    # angular level 1, each against the same run without a mesh through
+    # python -m in a process of its own beside the rest
+    n_cli = ML_CLI_N
+    config_two = write_cli_inputs(os.path.join(tmp, "two"), n_cli, mode=8,
+                                  refine_center=True)
+    config_ml = write_cli_inputs(os.path.join(tmp, "ml"), n_cli, mode=8,
+                                 refine_center=True, refine_core=True)
+    flags = ("--iters", "1", "--angular-level", "1", "--coupling-depth",
+             "2", "--max-pixel-level", "4")
+    runs = {"two_level": (config_two, ()), "ml": (config_ml, ()),
+            "sparse": (config_ml, ("--amr-storage", "sparse")),
+            "ml_noneq": (config_ml, ("--chemistry", "noneq"))}
+    plain = {}
+    for k, (config, extra) in runs.items():
+        os.makedirs(os.path.join(tmp, f"{k}_plain"))
+        plain[k] = _CliProcess([config, "--snapshot-dir",
+                                os.path.join(tmp, f"{k}_plain"), *flags,
+                                *extra])
+    cli_out = {}
+    for k, (config, extra) in runs.items():
+        d = os.path.join(tmp, f"{k}_mesh")
+        text, call_s = _cli(config, d, *flags, *extra, "--mesh-shape",
+                            str(p), tag="23 dist")
+        assert f"device mesh: {{'gz': {p}}} strategy = auto" in text
+        cli_out[k] = (_time_log(d), call_s)
+    errs = {}
+    for k, proc in plain.items():
+        rc, stdout, stderr, proc_s = proc.result()
+        assert rc == 0, (k, stderr[-2000:])
+        log_p = _time_log(os.path.join(tmp, f"{k}_plain"))
+        log_m, call_s = cli_out[k]
+        errs[k] = abs(log_m[1] - log_p[1]) / log_p[1]
+        print(f"[23 dist] the CLI's {k} run on {n_cli}^3 at level 1: "
+              f"--mesh-shape {p} {call_s:.3f} s (this process), without a "
+              f"mesh {proc_s:.3f} s (python -m); itime 1 {log_m[1]:.8f} "
+              f"against {log_p[1]:.8f} (rel {errs[k]:.2e}, tol 1e-4)")
+    assert max(errs.values()) <= 1e-4, errs
+    out["cli"] = {k: (cli_out[k][1], errs[k]) for k in runs}
+    assert _kernel_counts() == counts0, "the nested mesh runs launched a kernel"
+
+    # (d) diffuse_sweep_sparse_zones on phase 21's block-sparse 128^3 cell
+    # x 192 against the one-device sparse sweep: Jmean within 1e-5 of
+    # each band's peak on every level
+    if sparse_state is None:
+        inputs = os.path.join(tmp, "sparse64")
+        sparse_state, _, _ = profile_step.sparse_galaxy(64, inputs,
+                                                        device=DEVICE)
+    ns = sparse_state.n
+    cfg = rt.RunConfig(mode=9, current_redshift=6.55,
+                       n_angular_level=MAIN_LEVEL, reionization_model=10,
+                       self_shielding_threshold_kpc=0.1)
+    sm = step_amr.SparseMLModel.setup(rt.RTModel.setup(
+        cfg, rt.GridGeometry(ns, ns, ns, 300.0 * KPC),
+        torch.float32, DEVICE), 3)
+    sm.n_coupling_iters = 2
+    k0, lv_k = sm._kappas(sparse_state)
+    win = sm._ensure_window(sparse_state)
+    args = (k0, lv_k, sparse_state, sm.plan, sm.rt.uvb,
+            sm.rt.geom.cell_size)
+    (j1, jb1), one_s = timed(lambda: sweep_sparse.diffuse_sweep_sparse(
+        *args, n_coupling_iters=2, window=win))
+    (jp, jbp), zones_s = timed(lambda: sweep_dist.diffuse_sweep_sparse_zones(
+        *args, mesh, n_coupling_iters=2, window=win))
+    err = max(rel(a[b], r[b]) for a, r in zip([jp, *jbp], [j1, *jb1])
+              for b in range(3))
+    print(f"[23 dist] diffuse_sweep_sparse_zones on the {ns}^3 block-sparse "
+          f"cell x 192 (W {None if win is None else win[0]}, depth 2), f32: "
+          f"{p} ranks {zones_s:.3f} s against the one-device sparse sweep's "
+          f"{one_s:.3f} s; Jmean within {err:.2e} of each band's peak on "
+          f"every level (tol 1e-5); {smi}")
+    assert err <= 1e-5, err
+    assert _kernel_counts() == counts0, "the zones sweep launched a kernel"
+    out["zones"] = {"n": ns, "one_s": one_s, "zones_s": zones_s,
+                    "max_err": err}
+    del j1, jb1, jp, jbp, k0, lv_k, sparse_state
+    phase_s = time.perf_counter() - t_phase
+    print(f"[23 dist] phase 23: {phase_s:.1f} s; {smi}")
+    out["phase_s"] = phase_s
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -4627,6 +4935,7 @@ def main() -> None:
     sparse_out = timed_phase(21, phase_sparse, smi, ml_out.pop("dense_cell"))
     last = timed_phase(22, phase_last_features, smi,
                        sparse_out.pop("noneq_cell"))
+    dist = timed_phase(23, phase_dist, smi)
     print("[main] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; the script so far {time.perf_counter() - t_start:.1f} s")
@@ -4643,12 +4952,12 @@ def main() -> None:
                    **cli["launches"], **noneq["launches"],
                    "amr_uniform_check": amr_out["uniform_check_launches"],
                    "ml_uniform_check": ml_out["uniform_check_launches"],
-                   **last["launches"]}
+                   **last["launches"], **dist["launches"]}
     assert all(v > 0 for v in sweep_paths.values()), sweep_paths
     assert times["launches"]["plane"] > 0
     line = _kernels_line(errs, times, probes, sweep_paths, bench_out)
     line += _new_kernels(zones, pair, variants, scatter, mesh, cli["mesh"],
-                         noneq["mesh"])
+                         noneq["mesh"], dist)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
@@ -4731,7 +5040,7 @@ def _kernels_line(errs, times, probes, sweep_paths, bench_out) -> list:
 
 
 def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh,
-                 noneq_mesh) -> list:
+                 noneq_mesh, dist) -> list:
     """The kernels line's entries of kernels #2, #6, #7, #8 and #3 (#6
     and #7: the cluster instances, then the plane kernels)."""
     from radiativetransfer_tpu_torch.core import (
@@ -4839,7 +5148,11 @@ def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh,
     assert scatter_cuda.BYTES_PER_ROW == 100
     ring = mesh["full"][4]
     ring_paths = {**mesh["launches"], "cli_mesh": cli_mesh["rdma"]["ring"],
-                  "cli_noneq_mesh": noneq_mesh["rdma"]["ring"]}
+                  "cli_noneq_mesh": noneq_mesh["rdma"]["ring"],
+                  "mode8_mesh": dist["ring"]}
+    plane_ring_paths = dict(mesh["old_launches"])
+    if dist["plane_ring"]:
+        plane_ring_paths["mode8_mesh"] = dist["plane_ring"]
 
     def cluster_only(r):
         # a time under the cluster ring's name only where every zone took
@@ -4868,8 +5181,8 @@ def _new_kernels(zones, pair, variants, scatter, mesh, cli_mesh,
         "name": "sweep_zone_rdma", "route": "cuda",
         "source": "radiativetransfer_tpu_torch/csrc/sweep_rdma.cu",
         "replaces": "radiativetransfer_tpu/parallel/sweep_rdma.py:64",
-        "launches": sum(mesh["old_launches"].values()),
-        "launches_by_path": mesh["old_launches"],
+        "launches": sum(plane_ring_paths.values()),
+        "launches_by_path": plane_ring_paths,
         "max_abs_err": mesh["old_max_abs_err"], "ms": ring["old_ms"],
         "plain_ms": ring["plain_ms"], "bound_ms": mesh["bound"]["bound_ms"],
         "bound_by": mesh["bound"]["bound_by"], "library_ms": None,

@@ -6,15 +6,16 @@ sources + UVB) and 1 (point sources under the thin UVB) on a uniform grid
 on one device.  The diffuse sweep runs as a hand-written CUDA kernel on a
 CUDA device (core/sweep_cuda.py) and as a plain PyTorch slab scan on the
 CPU (core/sweep.py); the point-source tracer (core/rays.py) is PyTorch.
-Modes 9 and 6 also run on a 1-D grid mesh of P ranks on one device
+Every mode also runs on a 1-D grid mesh of P ranks on one device
 (parallel/mesh.py), with the pipelined, zones or ring sweep
 (parallel/sweep_dist.py, parallel/sweep_rdma.py; the ring is a CUDA
-kernel on the card).  In every one of these the non-equilibrium 9-species
-network (core/chemistry_noneq.py, RTModel.make_noneq_step) can take the
-equilibrium chemistry's place.  Modes 9, 8, 6 and 1 and the noneq
-network also run on nested grids, plain PyTorch (core/step_amr.py): two
-levels (AMRModel), L levels dense (MultiLevelModel) and block-sparse
-(SparseMLModel, core/amr_sparse.py).
+kernel on the card) and the source-parallel tracer
+(parallel/rays_dist.py).  In every one of these the non-equilibrium
+9-species network (core/chemistry_noneq.py, RTModel.make_noneq_step) can
+take the equilibrium chemistry's place.  Modes 9, 8, 6 and 1 and the
+noneq network also run on nested grids, plain PyTorch (core/step_amr.py):
+two levels (AMRModel), L levels dense (MultiLevelModel) and block-sparse
+(SparseMLModel, core/amr_sparse.py), on one device or on the mesh.
 The measuring entry points are `python -m radiativetransfer_tpu_torch.bench`
 and `python -m radiativetransfer_tpu_torch.roofline_sweep`.
 

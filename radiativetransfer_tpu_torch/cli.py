@@ -27,7 +27,12 @@ The run is on the card (`--platform cuda`, the default) or, when asked, on
 the CPU; without a CUDA device a cuda run fails, it does not fall back to
 the CPU.  A mesh (`--mesh-shape P` or an explicit `--sweep-strategy`) is P
 virtual ranks on that one device (parallel/mesh.py); the JAX CLI spreads
-its mesh over every device it sees.
+its mesh over every device it sees.  On a mesh the point sources are traced
+source-parallel (`--tracer-strategy sources`, parallel/rays_dist.py) on
+every storage; a uniform grid sweeps by the strategy, a two-level or
+L-level grid sweeps as without a mesh (the JAX CLI's GSPMD partitioning),
+and a block-sparse grid sweeps angle-decomposed
+(parallel/sweep_dist.py::diffuse_sweep_sparse_zones).
 
 A grid of two data levels (or more, under `--amr-depth 2`, the deeper
 levels averaged onto the second) runs as two-level AMR
@@ -73,8 +78,9 @@ loop.  `--tracer-compact` traces the uniform grid's point sources with the
 compacting tracer (rays.trace_point_sources_compact).
 
 Not ported yet, and refused before any work with NotImplementedError
-naming their ROADMAP entry (Distribution): a mesh on a nested grid, point
-sources on a mesh and the multi-process flags.
+naming their ROADMAP entry (Distribution): the domain-decomposed tracer
+(`--tracer-strategy domain` on a mesh in a point-source mode), 2-D and 3-D
+`--mesh-shape` and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -169,9 +175,11 @@ def _parser() -> argparse.ArgumentParser:
                          "trace, as in the JAX CLI")
     ap.add_argument("--tracer-strategy", default="",
                     choices=("", "sources", "domain"),
-                    help="distributed tracer (not ported yet: point sources "
-                         "on a mesh raise); without a mesh both run the "
-                         "single-device tracer")
+                    help="distributed tracer on a mesh: sources (the "
+                         "default: each rank traces its share of the "
+                         "sources through the whole grid) or domain (not "
+                         "ported yet: raises in a point-source mode); "
+                         "without a mesh both run the single-device tracer")
     ap.add_argument("--mesh-shape", default="",
                     help="P: a 1-D mesh of P virtual ranks on the run's one "
                          "device (the JAX CLI takes every device instead); "
@@ -228,14 +236,21 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_not_ported(args) -> None:
+def _refuse_not_ported(args, cfg) -> None:
     """NotImplementedError for what the port does not run yet, before any
-    work: the multi-process flags."""
+    work: the multi-process flags, and the domain-decomposed tracer on a
+    mesh in a point-source mode."""
     if (bool(args.coordinator) or bool(args.num_processes)
             or args.process_id >= 0):
         raise NotImplementedError(
             "--coordinator / --num-processes / --process-id is not ported "
             "yet: ROADMAP, Distribution (ranks on several cards)")
+    if ((cfg.mesh_shape or cfg.sweep_strategy != "auto")
+            and cfg.run_stellar_transfer and cfg.tracer_strategy == "domain"):
+        raise NotImplementedError(
+            "--tracer-strategy domain (the domain-decomposed tracer, "
+            "parallel/rays_domain.py) is not ported yet: ROADMAP, "
+            "Distribution")
 
 
 def _read_levels(cfg):
@@ -261,14 +276,12 @@ def _dense_bytes(levels, depth: int, x64: bool) -> int:
                for ell in range(depth))
 
 
-def _nesting(levels, args, mesh) -> str:
+def _nesting(levels, args) -> str:
     """How the grid runs, as the JAX CLI decides it: "uniform" (one data
     level), "amr" (two-level AMR: two data levels, or more under
     --amr-depth 2), "ml" (L-level dense AMR: more than two data levels
     under --amr-depth > 2 while the dense storage is chosen) or "sparse"
-    (the same grid stored block-sparse).  NotImplementedError naming the
-    ROADMAP item, before any work, for what the port does not run yet on
-    that grid: a mesh on a nested grid."""
+    (the same grid stored block-sparse)."""
     n_data_levels = sum(1 for lv in levels if lv.ncell > 0)
     if n_data_levels <= 1:
         return "uniform"
@@ -280,16 +293,6 @@ def _nesting(levels, args, mesh) -> str:
         if args.amr_storage == "sparse" or (args.amr_storage == "auto"
                                             and dense_bytes > 4.0e9):
             kind = "sparse"
-    if mesh is not None and kind == "sparse":
-        raise NotImplementedError(
-            "a mesh on a block-sparse AMR grid (shard_sparse_state, "
-            "diffuse_sweep_sparse_zones) is not ported yet: ROADMAP, "
-            "Distribution")
-    if mesh is not None:
-        grid, shard = (("an L-level", "shard_multilevel_state")
-                       if kind == "ml" else ("a two-level", "shard_amr_state"))
-        raise NotImplementedError(f"a mesh on {grid} AMR grid ({shard}) is "
-                                  f"not ported yet: ROADMAP, Distribution")
     return kind
 
 
@@ -459,7 +462,7 @@ def main(argv=None):
         cfg.mesh_shape = tuple(int(x) for x in args.mesh_shape.split(","))
     if args.tracer_strategy:
         cfg.tracer_strategy = args.tracer_strategy
-    _refuse_not_ported(args)
+    _refuse_not_ported(args, cfg)
     noneq = args.chemistry == "noneq"
 
     device = torch.device(args.platform)
@@ -481,7 +484,7 @@ def main(argv=None):
         for i, lv in enumerate(levels):
             print(f"level = {i + 1}  cells = {lv.ncell}")
         return
-    nesting = _nesting(levels, args, mesh)
+    nesting = _nesting(levels, args)
     # the nested state: an AMRState ("amr"), a MultiLevelState ("ml") or a
     # SparseMLState ("sparse")
     nested = None
@@ -576,24 +579,25 @@ def main(argv=None):
     if args.debug_checkify and storage == "uniform":
         # on the ingested state, before its equilibrium, as the JAX CLI
         _preflight(storage, model, None, None, state, stellar_ctx)
-    # point sources on a mesh (the distributed tracers) raise here, before
-    # any step
     if nesting == "amr":
         amodel = step_amr.AMRModel.setup(model)
-        step = amodel.make_step(stellar_ctx)
+        step = amodel.make_step(stellar_ctx, mesh=mesh)
     elif nesting == "ml":
         amodel = step_amr.MultiLevelModel.setup(model, nested.n_levels)
         step = (amodel.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
-                                       evolve_energy=args.evolve_energy)
-                if noneq else amodel.make_step(stellar_ctx))
+                                       evolve_energy=args.evolve_energy,
+                                       mesh=mesh)
+                if noneq else amodel.make_step(stellar_ctx, mesh=mesh))
     elif nesting == "sparse":
         amodel = step_amr.SparseMLModel.setup(model, nested.n_levels)
         amodel.window_enabled = args.sweep_window != "off"
         step = (amodel.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                        evolve_energy=args.evolve_energy,
-                                       split_compile=args.split_compile)
+                                       split_compile=args.split_compile,
+                                       mesh=mesh)
                 if noneq else amodel.make_step(
-                    stellar_ctx, split_compile=args.split_compile))
+                    stellar_ctx, split_compile=args.split_compile,
+                    mesh=mesh))
     elif noneq:
         step = model.make_noneq_step(args.dt_myr * MYR, stellar_ctx,
                                      evolve_energy=args.evolve_energy,
@@ -670,12 +674,18 @@ def main(argv=None):
     if mesh is not None:
         state = pmesh.shard_state(state, mesh)
     species = None
+    on_mesh = (f", mesh = {(mesh.n_ranks,)}" if mesh is not None else "")
     if noneq and nesting == "sparse":
         # level 0 dense, the refined levels in blocks with their padding
         # blocks zero
         nested, species, it2 = _restore_noneq(
             nested, amodel.initial_species(nested), restart_snap,
             restart_ckpt)
+        if mesh is not None:
+            # the JAX CLI's lines word for word: its devices are the ranks
+            print(f"block-sparse noneq distributed over {mesh.n_ranks} "
+                  f"devices: zones sweep + source-parallel "
+                  f"quadrature_noneq tracer")
         print(f"non-equilibrium chemistry (block-sparse, {nested.n_levels} "
               f"levels): dt = {args.dt_myr} Myr, evolve_energy = "
               f"{args.evolve_energy}")
@@ -684,9 +694,13 @@ def main(argv=None):
             nested, tuple(chemistry_noneq.species_from_field_state(lv)
                           for lv in nested.levels), restart_snap,
             restart_ckpt)
+        if mesh is not None:
+            nested = pmesh.shard_multilevel_state(nested, mesh)
+            species = tuple(pmesh.shard_species(spc, mesh)
+                            for spc in species)
         print(f"non-equilibrium chemistry ({nested.n_levels} levels): "
               f"dt = {args.dt_myr} Myr, evolve_energy = "
-              f"{args.evolve_energy}")
+              f"{args.evolve_energy}" + on_mesh)
     elif noneq:
         state, species, it2 = _restore_noneq(
             state, chemistry_noneq.species_from_field_state(state),
@@ -694,9 +708,22 @@ def main(argv=None):
         if mesh is not None:
             species = pmesh.shard_species(species, mesh)
         print(f"non-equilibrium chemistry: dt = {args.dt_myr} Myr, "
-              f"evolve_energy = {args.evolve_energy}"
-              + (f", mesh = {(mesh.n_ranks,)}" if mesh is not None
-                 else ""))
+              f"evolve_energy = {args.evolve_energy}" + on_mesh)
+    elif mesh is not None and nesting == "sparse":
+        if cfg.sweep_strategy not in ("", "auto", "zones"):
+            print(f"warning: sparse deep AMR distributes via the "
+                  f"angle-decomposed zones strategy (not "
+                  f"{cfg.sweep_strategy}); using zones")
+        print(f"block-sparse deep AMR distributed over {mesh.n_ranks} "
+              f"devices: zones sweep (direction chunks + psum) + "
+              f"source-parallel tracer")
+    elif mesh is not None and nested is not None:
+        if cfg.sweep_strategy not in ("", "auto"):
+            print(f"warning: explicit sweep strategies are uniform-grid "
+                  f"only; the {'multilevel' if nesting == 'ml' else 'AMR'} "
+                  f"sweep runs as without a mesh")
+        nested = (pmesh.shard_multilevel_state(nested, mesh)
+                  if nesting == "ml" else pmesh.shard_amr_state(nested, mesh))
     if noneq and it2 is not None:
         itime = it2
     # 0 = unbounded: the reference iterates until externally judged/killed

@@ -61,11 +61,12 @@ class RunConfig:
     # emissivity bias <= 1.75e-4 below tau = 3.5e-4)
     sweep_logmean: str = "auto"   # auto: clamped in f32, exact in f64
     # single-device tracer: host-driven final-phase dead-lane compaction
-    # (the compacting tracer is not ported yet: RTModel raises)
+    # (rays.trace_point_sources_compact, picked by RTModel.make_step)
     tracer_compact: bool = False
-    # on a mesh, "sources": shard sources, all-gather fields; "domain":
-    # shard fields, migrate rays between shards (the distributed tracers
-    # are not ported yet); without a mesh both run the single-device tracer
+    # on a mesh, "sources": each rank traces its share of the sources
+    # through the whole grid (parallel/rays_dist.py); "domain": shard
+    # fields, migrate rays between shards (not ported yet: the models
+    # raise); without a mesh both run the single-device tracer
     tracer_strategy: str = "sources"
 
     @property

@@ -22,9 +22,6 @@ on the host in NumPy (block structure, ingestion, blockify) stays NumPy
 here, and field data moves to the device once, by exact gathers.
 Restriction sums a parent's eight children in the order core/amr.py's
 `restrict` does, so a sparse state restricts bit for bit as the dense one.
-The mesh-divisibility padding of the JAX package
-(pad_blocks_to_multiple) comes with the block-sparse state on a mesh:
-ROADMAP, Distribution.
 """
 
 from __future__ import annotations
@@ -635,3 +632,45 @@ def zero_pad_blocks(tree, pad: torch.Tensor):
         return torch.where(m, torch.zeros((), dtype=x.dtype,
                                           device=x.device), x)
     return _tree_map(zero, tree)
+
+
+def pad_blocks(x: torch.Tensor, extra: int) -> torch.Tensor:
+    """A (..., nb, be, be, be) tensor with `extra` zero blocks appended on
+    its block axis; a tensor of fewer dimensions as it is."""
+    if x.dim() < 4 or extra == 0:
+        return x
+    shape = list(x.shape)
+    shape[-4] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=x.dim() - 4)
+
+
+def pad_blocks_to_multiple(state: SparseMLState,
+                           multiple: int) -> SparseMLState:
+    """Append zero padding blocks so that every level's block count is a
+    multiple of `multiple` (the JAX package's, whose block-axis sharding
+    needs the division; parallel/mesh.py::shard_sparse_state).
+
+    The extra blocks carry the contract of the standard final padding
+    block: zero fields, cover and refined False, origin out of the level's
+    range, so gathers through them read zeros and restriction writes from
+    them drop; the slot map never names them (absent tiles route to the
+    last block, itself a zero padding block)."""
+    if multiple <= 1:
+        return state
+    levels = []
+    for lv in state.levels:
+        extra = (-lv.n_blocks) % multiple
+        if extra == 0:
+            levels.append(lv)
+            continue
+        n_l = lv.slot.shape[0] * lv.be
+        levels.append(SparseLevel(
+            fields=_tree_map(lambda x, extra=extra: pad_blocks(x, extra),
+                             lv.fields),
+            slot=lv.slot,
+            origin=torch.cat([lv.origin, torch.full(
+                (extra, 3), n_l, dtype=lv.origin.dtype,
+                device=lv.origin.device)]),
+            cover=pad_blocks(lv.cover, extra),
+            refined=pad_blocks(lv.refined, extra)))
+    return dataclasses.replace(state, levels=tuple(levels))

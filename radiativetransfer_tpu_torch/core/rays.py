@@ -331,7 +331,7 @@ def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
                  last_phase: bool, dust_approximation: int, max_steps: int,
                  src_of_ray, n_bands: int = 3, tau_kill: float = _TAU_KILL,
                  unroll: int = 1, rel_kill: float = 0.0, *, scale: float,
-                 check_alive: bool = True):
+                 check_alive: bool = True, rank_offset=None):
     """March all rays of one phase until they die or reach r_stop.
 
     fields_pk: packed (n^3, 5) tensor [HI, HeI, HeII, nH, abun2].
@@ -357,6 +357,10 @@ def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
     check_alive: read any(alive) every _ALIVE_CHECK bodies and stop when
     every ray is dead; False runs max_steps steps without a host read (the
     compacting tracer's chunks, whose bodies over dead rays are no-ops).
+
+    rank_offset: None, or each ray's offset (R,) int64 into rf's rank-major
+    accumulators (_rank_offset): its deposits land in its rank's n^3
+    slice, its gathers read the one field.
     """
     n = geom.nx
     cell_size = geom.cell_size
@@ -496,6 +500,8 @@ def _march_phase(state: _RayState, fields_pk, geom, rate_ctx,
                                                         bnd_acc)
             idxs.append(idx)
             deps.append(dep)
+        if rank_offset is not None:
+            idxs = [i + rank_offset for i in idxs]
         cat_idx = torch.cat(idxs) if unroll > 1 else idxs[0]
         for fi in active_ch:
             v = (torch.cat([d[fi] for d in deps]) if unroll > 1
@@ -720,9 +726,17 @@ def _trace_all_phases(fields, init_state: _RayState, tables, geom,
                       max_pixel_level: int, dtype, rates_mode: str = "table",
                       n_bands: int = 3, tau_kill: float | None = None,
                       unroll: int = 1, rel_kill: float | None = None,
-                      skip_last_phase: bool = False):
+                      skip_last_phase: bool = False, n_ranks: int = 1):
     """All phases of the trace over tensors on one device; returns
     (RateFields, RayDiagnostics).
+
+    n_ranks: the sources split into n_ranks equal runs, rank r's the r-th
+    (parallel/rays_dist.py).  Each channel is then one rank-major
+    (n_ranks * n^3,) accumulator, a ray of source s depositing into rank
+    s // (n_sources / n_ranks)'s slice (_rank_offset), and the slices are
+    summed in rank order at the end (_sum_ranks).  One march serves every
+    rank: its launches do not grow with n_ranks.  n_ranks 1 is the
+    single-device trace.
 
     skip_last_phase: stop after splitting into the final phase's rays and
     return (RateFields, RayDiagnostics, the final phase's rays, the packed
@@ -741,7 +755,7 @@ def _trace_all_phases(fields, init_state: _RayState, tables, geom,
                              fields["nH"], fields["abun2"])
 
     def zeros(k):
-        return [torch.zeros(n * n * n, dtype=dtype, device=device)
+        return [torch.zeros(n_ranks * n * n * n, dtype=dtype, device=device)
                 for _ in range(k)]
     rf = (NoneqRateFields(*zeros(11)) if rates_mode == "quadrature_noneq"
           else RateFields(*zeros(6)))
@@ -762,12 +776,43 @@ def _trace_all_phases(fields, init_state: _RayState, tables, geom,
             state, fields_pk, geom, rate_ctx, diag, rf, r_stop, last,
             dust_approximation, max_steps, src_of_ray, n_bands,
             tau_kill=tau_kill, unroll=max(1, min(unroll, max_steps)),
-            rel_kill=rel_kill, scale=scale)
+            rel_kill=rel_kill, scale=scale,
+            rank_offset=_rank_offset(src_of_ray, n_sources, n_ranks,
+                                     n ** 3))
         state, diag = _end_phase(state, diag, src_of_ray, sig_ratio,
                                  out_radii, level, last, n, geom.cell_size)
     if skip_last_phase:
         return rf, diag, state, fields_pk
-    return _unscale(rf, scale), diag
+    return _sum_ranks(_unscale(rf, scale), n_ranks), diag
+
+
+def _rank_offset(src_of_ray, n_sources: int, n_ranks: int, size: int):
+    """Each ray's offset into the rank-major accumulators: its source's
+    rank (n_sources / n_ranks sources a rank, in order) times the size of
+    one rank's slice; None with one rank."""
+    if n_ranks == 1:
+        return None
+    if n_sources % n_ranks:
+        raise ValueError(f"{n_sources} sources do not split over {n_ranks} "
+                         f"ranks (parallel/rays_dist.py pads them)")
+    return (src_of_ray // (n_sources // n_ranks)) * size
+
+
+def _sum_ranks(rf, n_ranks: int):
+    """Rank-major (n_ranks * size,) channels summed over their ranks in
+    rank order, as a plain loop, so that the order of the adds is the same
+    on every device (the JAX package's psum over the source shards)."""
+    if n_ranks == 1:
+        return rf
+
+    def total(x):
+        part = x.reshape(n_ranks, -1)
+        acc = part[0]
+        for r in range(1, n_ranks):
+            acc = acc + part[r]
+        return acc
+    return dataclasses.replace(rf, **{
+        f.name: total(getattr(rf, f.name)) for f in dataclasses.fields(rf)})
 
 
 def _src_of_ray(n_sources: int, level: int, device) -> torch.Tensor:

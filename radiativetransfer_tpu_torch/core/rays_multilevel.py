@@ -174,7 +174,7 @@ def _march_phase_ml(state: _RayState, fields, geom, n_levels: int, rate_ctx,
                     last_phase: bool, dust_approximation: int,
                     max_steps: int, src_of_ray, tau_kill: float,
                     rel_kill: float, scale: float, chunk_steps: int = 0,
-                    alive: list | None = None):
+                    alive: list | None = None, rank_offset=None):
     """March one phase on an L-level grid; the deposits accumulate into rf
     (RateFields or NoneqRateFields over the level-concatenated layout) in
     place, the six RateFields channels times `scale`.  Returns (state,
@@ -189,7 +189,8 @@ def _march_phase_ml(state: _RayState, fields, geom, n_levels: int, rate_ctx,
     chunk_steps > 0 also reads the alive count every chunk_steps march
     steps, and where the phase ends, into the list `alive`: the bodies
     run after the last ray died are no-ops, so the deposits are the same
-    either way."""
+    either way.  rank_offset: None, or each ray's offset into rf's
+    rank-major accumulators (rays._rank_offset)."""
     global MARCH_STEPS
     L = n_levels
     n = geom.nx
@@ -278,8 +279,9 @@ def _march_phase_ml(state: _RayState, fields, geom, n_levels: int, rate_ctx,
                 state.depth, rate_ctx[1][0], rate_ctx[1][2], state.table_idx,
                 torch.where(active, state.ndot, 0.0),
                 torch.where(active, seg_cells, 0.0))
+        dep_idx = idx if rank_offset is None else idx + rank_offset
         for buf, v in zip(bufs, deposit):
-            buf.index_add_(0, idx, v)
+            buf.index_add_(0, dep_idx, v)
 
         # advance: snap the crossing coordinate onto the face, exact index
         # arithmetic on the crossed axis, relocalize the others
@@ -347,12 +349,15 @@ def _trace_all_phases_ml(fields, init_state: _RayState, tables, geom,
                          n_levels: int, n_sources: int,
                          dust_approximation: int, max_pixel_level: int,
                          dtype, rates_mode: str, tau_kill: float,
-                         rel_kill: float, chunk_steps: int = 0):
+                         rel_kill: float, chunk_steps: int = 0,
+                         n_ranks: int = 1):
     """All phases of the L-level trace over tensors on one device, either
     storage's addressing in `fields` (_addr_all); returns (tuple of
     per-level RateFields or NoneqRateFields, RayDiagnostics).  chunk_steps
     > 0 (host_phases) reads the alive count every chunk_steps march steps
-    and records each phase in LAST_TRACE_PHASE_TIMES."""
+    (one count over every rank's rays) and records each phase in
+    LAST_TRACE_PHASE_TIMES.  n_ranks: rays._trace_all_phases's, each
+    rank's slice the whole level-concatenated layout."""
     n = geom.nx
     nF = n * 2 ** (n_levels - 1)
     device = init_state.pos.device
@@ -363,7 +368,8 @@ def _trace_all_phases_ml(fields, init_state: _RayState, tables, geom,
     sizes = _level_sizes(n, n_levels, fields)
     rf_cls = NoneqRateFields if rates_mode == "quadrature_noneq" \
         else RateFields
-    rf = rf_cls(*[torch.zeros(sum(sizes), dtype=dtype, device=device)
+    rf = rf_cls(*[torch.zeros(n_ranks * sum(sizes), dtype=dtype,
+                              device=device)
                   for _ in dataclasses.fields(rf_cls)])
     rate_ctx = _rate_ctx(tables, rates_mode, dtype, device)
     # the six RateFields channels accumulate times a power of two
@@ -388,7 +394,8 @@ def _trace_all_phases_ml(fields, init_state: _RayState, tables, geom,
         state, diag = _march_phase_ml(
             state, fields, geom, n_levels, rate_ctx, diag, rf, r_stop, last,
             dust_approximation, max_steps, src_of_ray, tau_kill, rel_kill,
-            scale, chunk_steps, alive)
+            scale, chunk_steps, alive,
+            rays._rank_offset(src_of_ray, n_sources, n_ranks, sum(sizes)))
         if chunk_steps:
             # the last alive count synchronized the device
             LAST_TRACE_PHASE_TIMES[f"level{level}"] = (time.perf_counter()
@@ -403,7 +410,7 @@ def _trace_all_phases_ml(fields, init_state: _RayState, tables, geom,
     rf = dataclasses.replace(rf, **{
         f.name: getattr(rf, f.name) * (1.0 / scale)
         for f in dataclasses.fields(RateFields)})
-    return _split_rfs(rf, sizes), diag
+    return _split_rfs(rays._sum_ranks(rf, n_ranks), sizes), diag
 
 
 def _split_rfs(rf, sizes) -> tuple:
@@ -417,11 +424,13 @@ def _split_rfs(rf, sizes) -> tuple:
 
 def _trace(fields, levels, geom, sources: SourceBatch, tables,
            dust_approximation: int, max_pixel_level: int, dtype,
-           rates_mode: str, tau_kill, rel_kill, chunk_steps: int = 0):
+           rates_mode: str, tau_kill, rel_kill, chunk_steps: int = 0,
+           n_ranks: int = 1):
     """The trace of either storage: `fields` with its addressing
     (_addr_all) but the packed rows, which come from `levels` (FieldStates,
     level 0 first, each flattened in its storage's order) and the level
-    offsets; the rays spawned at their sources' finest-grid cells."""
+    offsets; the rays spawned at their sources' finest-grid cells.
+    n_ranks: _trace_all_phases_ml's."""
     if rates_mode == "auto":
         rates_mode = "quadrature" if "quad_A" in tables else "table"
     if rates_mode not in ("table", "quadrature", "quadrature_noneq"):
@@ -443,7 +452,7 @@ def _trace(fields, levels, geom, sources: SourceBatch, tables,
         dust_approximation, max_pixel_level, dtype, rates_mode,
         default_tau_kill(dtype) if tau_kill is None else tau_kill,
         default_rel_kill(dtype) if rel_kill is None else rel_kill,
-        chunk_steps)
+        chunk_steps, n_ranks)
 
 
 def trace_point_sources_ml(ml_state, geom, sources: SourceBatch, tables,
@@ -462,12 +471,28 @@ def trace_point_sources_ml(ml_state, geom, sources: SourceBatch, tables,
     over the tables' volume: StellarContext.build divides them by the BASE
     cell's (the k27..k31 weights by its face area), so a level-l cell's
     rate is its deposit times 8^l (MultiLevelModel.trace)."""
-    L = ml_state.n_levels
+    return _trace(*dense_addressing(ml_state, geom.nx), geom, sources,
+                  tables, dust_approximation, max_pixel_level, dtype,
+                  rates_mode, tau_kill, rel_kill)
+
+
+def dense_addressing(ml_state, n: int):
+    """(the tracer's addressing of a MultiLevelState, its levels): the
+    leaf-level volume (leaf_level_volume) and the level FieldStates."""
     fields = {"leaf_level": leaf_level_volume(
-        ml_state.refined, geom.nx, L, ml_state.levels[0].HI.device)}
-    return _trace(fields, ml_state.levels, geom, sources, tables,
-                  dust_approximation, max_pixel_level, dtype, rates_mode,
-                  tau_kill, rel_kill)
+        ml_state.refined, n, ml_state.n_levels, ml_state.levels[0].HI.device)}
+    return fields, ml_state.levels
+
+
+def sparse_addressing(sp_state):
+    """(the tracer's addressing of a SparseMLState, its levels): each
+    refined level's flat slot map and cover with its sizes, and level 0's
+    FieldState then each refined level's block FieldState."""
+    fields = {"blocks": [{"slot": lv.slot.reshape(-1),
+                          "cover": lv.cover.reshape(-1),
+                          "T": lv.slot.shape[0], "be": lv.be,
+                          "nb": lv.n_blocks} for lv in sp_state.levels]}
+    return fields, [sp_state.base] + [lv.fields for lv in sp_state.levels]
 
 
 def trace_point_sources_sparse(sp_state, geom, sources: SourceBatch, tables,
@@ -494,12 +519,6 @@ def trace_point_sources_sparse(sp_state, geom, sources: SourceBatch, tables,
     any(alive) every rays._ALIVE_CHECK steps and records nothing."""
     if host_phases and chunk_steps < 1:
         raise ValueError(f"chunk_steps must be positive, not {chunk_steps}")
-    fields = {"blocks": [{"slot": lv.slot.reshape(-1),
-                          "cover": lv.cover.reshape(-1),
-                          "T": lv.slot.shape[0], "be": lv.be,
-                          "nb": lv.n_blocks} for lv in sp_state.levels]}
-    return _trace(fields, [sp_state.base] + [lv.fields
-                                             for lv in sp_state.levels],
-                  geom, sources, tables, dust_approximation, max_pixel_level,
-                  dtype, rates_mode, tau_kill, rel_kill,
-                  chunk_steps if host_phases else 0)
+    return _trace(*sparse_addressing(sp_state), geom, sources, tables,
+                  dust_approximation, max_pixel_level, dtype, rates_mode,
+                  tau_kill, rel_kill, chunk_steps if host_phases else 0)

@@ -8,12 +8,12 @@ Mirrors the reference's driver flow (equiSources.f90:1230-1843):
 the loop (calc_rates, uniformTable, UVB amplitudes, powerSpectrumIndex,
 uvbBetaTable; equiSources.f90:172-289) on the host and keeps the device
 tables as buffers of the module.  The port covers the uniform grid in
-modes 1, 6, 8 and 9 on one device, and modes 6 and 9 on a 1-D grid mesh
-of P ranks on one device (parallel/mesh.py) with every sweep strategy,
-with equilibrium chemistry (make_step) or the non-equilibrium 9-species
-network (make_noneq_step); the compacting tracer and the distributed
-tracers (ROADMAP, "The compacting tracer" and "Distribution") raise
-NotImplementedError.
+modes 1, 6, 8 and 9, on one device and on a 1-D grid mesh of P ranks on
+one device (parallel/mesh.py: every sweep strategy, and the point sources
+traced source-parallel, parallel/rays_dist.py), with equilibrium
+chemistry (make_step) or the non-equilibrium 9-species network
+(make_noneq_step).  The domain-decomposed tracer (tracer_strategy
+"domain" on a mesh; ROADMAP, "Distribution") raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from ..constants import (
     NU2,
     NU3,
 )
-from ..parallel import sweep_dist, sweep_rdma
+from ..parallel import rays_dist, sweep_dist, sweep_rdma
 from ..parallel.mesh import GridMesh
 from ..tables import chemistry_rates, spectral, uvb_models
 from ..tables import stellar as stellar_tables
@@ -296,33 +296,29 @@ class RTModel(nn.Module):
     # ----- the iteration -------------------------------------------------
 
     def _check_supported(self, stellar, mesh) -> None:
-        if mesh is not None and not isinstance(mesh, GridMesh):
-            raise TypeError(f"mesh must be a parallel.mesh.GridMesh, got "
-                            f"{type(mesh).__name__}")
-        if stellar is None:
-            return
-        if mesh is not None:
-            raise NotImplementedError(
-                "point sources on a mesh (the distributed tracers, "
-                "parallel/rays_dist.py and rays_domain.py) are not ported "
-                "yet: ROADMAP, Distribution")
-        # tracer_strategy picks a distributed tracer; without a mesh
-        # "sources" and "domain" both run the single-device tracer, as in
-        # the JAX package
+        check_mesh(self.config, stellar, mesh)
 
     def trace(self, state: FieldState, stellar: StellarContext,
-              rates_mode: str = "auto", compact: bool = False):
+              rates_mode: str = "auto", compact: bool = False, mesh=None):
         """The point-source phase: trace every source and put the six
         deposit fields into the (zero-rate) state; (state, RateFields,
         RayDiagnostics).  rates_mode: rays.trace_point_sources's; compact
-        runs rays.trace_point_sources_compact instead."""
-        tracer = (rays.trace_point_sources_compact if compact
-                  else rays.trace_point_sources)
-        rf, diag = tracer(
-            state, self.geom, stellar.sources, stellar.tables,
-            dust_approximation=stellar.dust_approximation,
-            max_pixel_level=stellar.max_pixel_level,
-            dtype=state.rho.dtype, rates_mode=rates_mode)
+        runs rays.trace_point_sources_compact instead; a mesh runs the
+        source-parallel tracer (rays_dist.trace_point_sources_dist), as
+        the JAX package's make_step does before it looks at
+        tracer_compact."""
+        kw = dict(dust_approximation=stellar.dust_approximation,
+                  max_pixel_level=stellar.max_pixel_level,
+                  dtype=state.rho.dtype, rates_mode=rates_mode)
+        if mesh is not None:
+            rf, diag = rays_dist.trace_point_sources_dist(
+                state, self.geom, stellar.sources, stellar.tables, mesh,
+                **kw)
+        else:
+            tracer = (rays.trace_point_sources_compact if compact
+                      else rays.trace_point_sources)
+            rf, diag = tracer(state, self.geom, stellar.sources,
+                              stellar.tables, **kw)
         shape = state.shape
         state = dataclasses.replace(
             state, **{name: getattr(rf, name).reshape(shape)
@@ -334,14 +330,16 @@ class RTModel(nn.Module):
                                  mesh=None):
         """One full transport + chemistry iteration (a function of state;
         the input state is not modified).  With a StellarContext in a
-        point-source mode the tracer runs first and (state, RayDiagnostics)
-        is returned; else the state alone."""
+        point-source mode the tracer runs first (source-parallel on a
+        mesh: where the JAX package's traces on one device, the port's
+        runs the tracer of its make_step) and (state, RayDiagnostics) is
+        returned; else the state alone."""
         self._check_supported(stellar, mesh)
         state = state.zero_rates()
         if not (self.config.run_stellar_transfer and stellar is not None):
             return self._sweep_and_chemistry(state, mesh)
-        state, _, diag = self.trace(state, stellar)
-        return self._sweep_and_chemistry(state), diag
+        state, _, diag = self.trace(state, stellar, mesh=mesh)
+        return self._sweep_and_chemistry(state, mesh), diag
 
     def _run_sweep(self, kappa: torch.Tensor, mesh=None) -> torch.Tensor:
         """Dispatch cfg.sweep_strategy.  The explicit strategies need a 1-D
@@ -403,8 +401,11 @@ class RTModel(nn.Module):
         state -> (state, RayDiagnostics), tracing whatever the mode, with
         the compacting tracer under config.tracer_compact (as the JAX
         package's make_step; its noneq step and transport_chemistry_step
-        trace with the default one).  With a `mesh` (parallel.mesh.GridMesh;
-        no StellarContext) the sweep runs the configured strategy on it."""
+        trace with the default one).  With a `mesh` (parallel.mesh.GridMesh)
+        the point sources are traced source-parallel on it
+        (rays_dist.trace_point_sources_dist; tracer_compact is then
+        ignored, as in the JAX package) and the sweep runs the configured
+        strategy on it."""
         self._check_supported(stellar, mesh)
         if stellar is None:
             return functools.partial(self.transport_chemistry_step,
@@ -413,8 +414,8 @@ class RTModel(nn.Module):
 
         def step(state: FieldState):
             state, _, diag = self.trace(state.zero_rates(), stellar,
-                                        compact=compact)
-            return self._sweep_and_chemistry(state), diag
+                                        compact=compact, mesh=mesh)
+            return self._sweep_and_chemistry(state, mesh), diag
 
         return step
 
@@ -486,10 +487,9 @@ class RTModel(nn.Module):
         quadrature_noneq mode (the StellarContext needs noneq=True).
 
         The network's tables are the model's, in the run's dtype on its
-        device.  With a `mesh` (parallel.mesh.GridMesh; no StellarContext:
-        the distributed tracers are not ported) the sweep runs the
-        configured strategy on it and the network, elementwise, runs on the
-        whole field.
+        device.  With a `mesh` (parallel.mesh.GridMesh) the tracer runs
+        source-parallel on it, the sweep the configured strategy, and the
+        network, elementwise, on the whole field.
         """
         self._check_supported(stellar, mesh)
         k16 = self.dev_tables.k16
@@ -526,7 +526,7 @@ class RTModel(nn.Module):
 
         def step_traced(state: FieldState, species):
             state, rf, diag = self.trace(state.zero_rates(), stellar,
-                                         "quadrature_noneq")
+                                         "quadrature_noneq", mesh=mesh)
             state, species = sweep_and_evolve(state, species, rf)
             return state, species, diag
 
@@ -536,6 +536,24 @@ class RTModel(nn.Module):
         """Global neutral-hydrogen mass fraction (computeMass,
         equiSources.f90:4369-4393 / :1833-1836)."""
         return float(torch.sum(state.HI) / torch.sum(state.nh))
+
+
+def check_mesh(config, stellar, mesh) -> None:
+    """What the models still refuse on a mesh: TypeError for a mesh that is
+    not a parallel.mesh.GridMesh, NotImplementedError for point sources
+    under tracer_strategy "domain" (the domain-decomposed tracer,
+    parallel/rays_domain.py).  Without a mesh "sources" and "domain" both
+    run the single-device tracer, as in the JAX package."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, GridMesh):
+        raise TypeError(f"mesh must be a parallel.mesh.GridMesh, got "
+                        f"{type(mesh).__name__}")
+    if stellar is not None and config.tracer_strategy == "domain":
+        raise NotImplementedError(
+            "tracer_strategy 'domain' (the domain-decomposed tracer, "
+            "parallel/rays_domain.py) is not ported yet: ROADMAP, "
+            "Distribution")
 
 
 def iterate_to_equilibrium(model: RTModel, state: FieldState,

@@ -13,9 +13,16 @@ L-level model also the non-equilibrium 9-species chemistry
 MultiLevelModel(2)).  SparseMLModel runs the same modes and the
 non-equilibrium chemistry on block-sparse storage (core/amr_sparse.py,
 core/sweep_sparse.py, the block-sparse tracer of core/rays_multilevel.py).
-Not ported yet, and raising NotImplementedError naming its ROADMAP item:
-the device mesh (shard_amr_state, shard_multilevel_state,
-shard_sparse_state, the distributed tracers).
+
+On a 1-D mesh of P ranks on one device (parallel/mesh.py: the states of
+shard_amr_state, shard_multilevel_state, shard_sparse_state) the point
+sources are traced source-parallel (parallel/rays_dist.py), as the JAX
+package's models trace them; the two-level and L-level sweeps and the
+chemistry run as without a mesh (the JAX package leaves them to GSPMD's
+partitioning), and the block-sparse sweep runs angle-decomposed
+(parallel/sweep_dist.py::diffuse_sweep_sparse_zones).  The
+domain-decomposed tracer (tracer_strategy "domain" on a mesh) raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ from . import (
     sweep_multilevel,
     sweep_sparse,
 )
+from ..parallel import rays_dist, sweep_dist
 from .state import GridGeometry
+from .step import check_mesh
 
 
 @dataclasses.dataclass
@@ -65,12 +74,8 @@ class AMRModel:
         g = self.rt.geom
         return GridGeometry(2 * g.nx, 2 * g.ny, 2 * g.nz, g.physical_box_size)
 
-    @staticmethod
-    def _check_supported(mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "a two-level AMR state on a mesh (shard_amr_state) is not "
-                "ported yet: ROADMAP, Distribution")
+    def _check_supported(self, stellar, mesh) -> None:
+        check_mesh(self.rt.config, stellar, mesh)
 
     @staticmethod
     def _zero_rates(state: amr.AMRState) -> amr.AMRState:
@@ -80,26 +85,30 @@ class AMRModel:
     def step(self, state: amr.AMRState, stellar=None, mesh=None):
         """One iteration; returns (state, RayDiagnostics), the diagnostics
         None unless the mode traces point sources (a StellarContext
-        given in mode 1 or 8)."""
-        self._check_supported(mesh)
+        given in mode 1 or 8); with a mesh (mesh.shard_amr_state's state)
+        the tracer runs source-parallel."""
+        self._check_supported(stellar, mesh)
         state = self._zero_rates(state)
         diag = None
         if self.rt.config.run_stellar_transfer and stellar is not None:
-            state, diag = self.trace(state, stellar)
+            state, diag = self.trace(state, stellar, mesh)
         return self._sweep_and_chemistry(state), diag
 
-    def trace(self, state: amr.AMRState, stellar):
+    def trace(self, state: amr.AMRState, stellar, mesh=None):
         """The point-source phase (the JAX package's AMRModel._traced):
-        trace every source through both levels and put the six deposit
+        trace every source through both levels (source-parallel on a mesh,
+        rays_dist.trace_point_sources_amr_dist) and put the six deposit
         fields into the (zero-rate) state, the base level's as they are
         and the fine level's times 8: the tables are over the BASE cell's
         volume (StellarContext.build), a fine cell's is an eighth of it.
         Returns (state, RayDiagnostics)."""
-        rfb, rff, diag = rays_amr.trace_point_sources_amr(
-            state, self.rt.geom, stellar.sources, stellar.tables,
-            dust_approximation=stellar.dust_approximation,
-            max_pixel_level=stellar.max_pixel_level,
-            dtype=state.base.rho.dtype)
+        args = (state, self.rt.geom, stellar.sources, stellar.tables)
+        kw = dict(dust_approximation=stellar.dust_approximation,
+                  max_pixel_level=stellar.max_pixel_level,
+                  dtype=state.base.rho.dtype)
+        rfb, rff, diag = (
+            rays_amr.trace_point_sources_amr(*args, **kw) if mesh is None
+            else rays_dist.trace_point_sources_amr_dist(*args, mesh, **kw))
         bs, fs = state.base.shape, state.fine.shape
         names = [f.name for f in dataclasses.fields(rfb)]
         return dataclasses.replace(
@@ -146,11 +155,11 @@ class AMRModel:
     def make_step(self, stellar=None, mesh=None):
         """The iteration step, a plain eager function: state -> state, or
         with a StellarContext state -> (state, RayDiagnostics or None), as
-        step returns them."""
-        self._check_supported(mesh)
+        step returns them, on a mesh if one is given."""
+        self._check_supported(stellar, mesh)
         if stellar is None:
-            return lambda state: self.step(state)[0]
-        return functools.partial(self.step, stellar=stellar)
+            return lambda state: self.step(state, mesh=mesh)[0]
+        return functools.partial(self.step, stellar=stellar, mesh=mesh)
 
     def neutral_fraction(self, state: amr.AMRState) -> float:
         """Leaf-volume-weighted neutral hydrogen fraction, summed in float64
@@ -190,12 +199,7 @@ class MultiLevelModel:
                 rt_model.config.n_angular_level, rt_model.geom.nx, n_levels)
         return cls(rt=rt_model, n_levels=n_levels, plan=plan)
 
-    @staticmethod
-    def _check_supported(mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "an L-level state on a mesh (shard_multilevel_state) is not "
-                "ported yet: ROADMAP, Distribution")
+    _check_supported = AMRModel._check_supported
 
     def _kappas(self, state: amr.MultiLevelState) -> list:
         rt = self.rt
@@ -236,28 +240,34 @@ class MultiLevelModel:
     def step(self, state: amr.MultiLevelState, stellar=None, mesh=None):
         """One full iteration; returns (state, RayDiagnostics), the
         diagnostics None unless the mode traces point sources (a
-        StellarContext given in mode 1 or 8)."""
-        self._check_supported(mesh)
+        StellarContext given in mode 1 or 8); with a mesh
+        (mesh.shard_multilevel_state's state) the tracer runs
+        source-parallel."""
+        self._check_supported(stellar, mesh)
         state = self._zero_rates(state)
         diag = None
         if self.rt.config.run_stellar_transfer and stellar is not None:
-            state, _, diag = self.trace(state, stellar)
+            state, _, diag = self.trace(state, stellar, mesh=mesh)
         return self._sweep_and_chemistry(state), diag
 
     def trace(self, state: amr.MultiLevelState, stellar,
-              rates_mode: str = "auto"):
+              rates_mode: str = "auto", mesh=None):
         """The point-source phase (the JAX package's
         MultiLevelModel._traced): trace every source through every level
+        (source-parallel on a mesh, rays_dist.trace_point_sources_ml_dist)
         and put the six deposit fields into the (zero-rate) state, level
         l's times 8^l: the tables are over the BASE cell's volume
         (StellarContext.build), a level-l cell's is 8^-l of it.  Returns
         (state, the tracer's per-level rate fields as it made them,
         RayDiagnostics); rates_mode: rays_multilevel's."""
-        rfs, diag = rays_multilevel.trace_point_sources_ml(
-            state, self.rt.geom, stellar.sources, stellar.tables,
-            dust_approximation=stellar.dust_approximation,
-            max_pixel_level=stellar.max_pixel_level,
-            dtype=state.levels[0].rho.dtype, rates_mode=rates_mode)
+        args = (state, self.rt.geom, stellar.sources, stellar.tables)
+        kw = dict(dust_approximation=stellar.dust_approximation,
+                  max_pixel_level=stellar.max_pixel_level,
+                  dtype=state.levels[0].rho.dtype, rates_mode=rates_mode)
+        rfs, diag = (
+            rays_multilevel.trace_point_sources_ml(*args, **kw)
+            if mesh is None
+            else rays_dist.trace_point_sources_ml_dist(*args, mesh, **kw))
         names = [f.name for f in dataclasses.fields(rays.RateFields)]
         levels = tuple(
             dataclasses.replace(lv, **{
@@ -302,11 +312,11 @@ class MultiLevelModel:
     def make_step(self, stellar=None, mesh=None):
         """The iteration step, a plain eager function: state -> state, or
         with a StellarContext state -> (state, RayDiagnostics or None), as
-        step returns them."""
-        self._check_supported(mesh)
+        step returns them, on a mesh if one is given."""
+        self._check_supported(stellar, mesh)
         if stellar is None:
-            return lambda state: self.step(state)[0]
-        return functools.partial(self.step, stellar=stellar)
+            return lambda state: self.step(state, mesh=mesh)[0]
+        return functools.partial(self.step, stellar=stellar, mesh=mesh)
 
     def noneq_tables(self) -> chemistry_noneq.NoneqTablesDevice:
         """The network's tables, the model's in the run's dtype on its
@@ -372,8 +382,8 @@ class MultiLevelModel:
         quadrature_noneq mode; its k27..k31 deposits, per-particle rates
         over the BASE cell (the weights over its face area, the segment in
         base cells), scale by 8^l on level l as the six band channels do
-        (evolve_level)."""
-        self._check_supported(mesh)
+        (evolve_level).  With a mesh the tracer runs source-parallel."""
+        self._check_supported(stellar, mesh)
         tables = self.noneq_tables()
 
         def sweep_and_evolve(state, species, rfs):
@@ -394,7 +404,7 @@ class MultiLevelModel:
 
         def step_traced(state: amr.MultiLevelState, species):
             state, rfs, diag = self.trace(self._zero_rates(state), stellar,
-                                          "quadrature_noneq")
+                                          "quadrature_noneq", mesh)
             state, species = sweep_and_evolve(state, species, rfs)
             return state, species, diag
 
@@ -421,8 +431,8 @@ class SparseMLModel:
     level with the padding blocks re-zeroed, restriction sync -- at memory
     proportional to the leaves, the reference octree's
     (definitionsModule.f90:163-180).  Modes 9, 8, 6 and 1 and the noneq
-    chemistry on one device; a mesh raises NotImplementedError (ROADMAP,
-    Distribution)."""
+    chemistry, on one device or on a mesh (the zones sweep and the
+    source-parallel tracer)."""
     rt: "object"                      # core.step.RTModel
     n_levels: int
     plan: sweep_multilevel.MLSweepPlan | None
@@ -453,13 +463,7 @@ class SparseMLModel:
                 rt_model.config.n_angular_level, rt_model.geom.nx, n_levels)
         return cls(rt=rt_model, n_levels=n_levels, plan=plan)
 
-    @staticmethod
-    def _check_supported(mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "a block-sparse state on a mesh (shard_sparse_state, "
-                "diffuse_sweep_sparse_zones) is not ported yet: ROADMAP, "
-                "Distribution")
+    _check_supported = AMRModel._check_supported
 
     def _ensure_window(self, state: amr_sparse.SparseMLState):
         """The sweep's refinement window of the state (None with
@@ -493,15 +497,20 @@ class SparseMLModel:
             levels=tuple(dataclasses.replace(lv, fields=lv.fields.zero_rates())
                          for lv in state.levels))
 
-    def _apply_sweep(self, state: amr_sparse.SparseMLState):
-        """Every level's opacities and the block-sparse sweep, into
-        Jmean."""
+    def _apply_sweep(self, state: amr_sparse.SparseMLState, mesh=None,
+                     eager_rounds: bool = False):
+        """Every level's opacities and the block-sparse sweep, into Jmean;
+        on a mesh the angle-decomposed one
+        (sweep_dist.diffuse_sweep_sparse_zones, eager_rounds its)."""
         rt = self.rt
         k0, lv_k = self._kappas(state)
-        j0, jbs = sweep_sparse.diffuse_sweep_sparse(
-            k0, lv_k, state, self.plan, rt.uvb, rt.geom.cell_size,
-            n_coupling_iters=self.n_coupling_iters,
-            window=self._ensure_window(state))
+        args = (k0, lv_k, state, self.plan, rt.uvb, rt.geom.cell_size)
+        kw = dict(n_coupling_iters=self.n_coupling_iters,
+                  window=self._ensure_window(state))
+        j0, jbs = (
+            sweep_sparse.diffuse_sweep_sparse(*args, **kw) if mesh is None
+            else sweep_dist.diffuse_sweep_sparse_zones(
+                *args, mesh, eager_rounds=eager_rounds, **kw))
         return dataclasses.replace(
             state, base=dataclasses.replace(state.base, Jmean=j0),
             levels=tuple(dataclasses.replace(lv, fields=dataclasses.replace(
@@ -537,7 +546,7 @@ class SparseMLModel:
         return amr_sparse.sync_restriction_sparse(state)
 
     def _iteration(self, stellar, rates_mode: str, rest,
-                   split_compile: bool = False):
+                   split_compile: bool = False, mesh=None):
         """The one body of every iteration on this storage: state, *extra
         -> (rest(state, rfs, *extra), RayDiagnostics or None) -- zero
         rates, the tracer where `stellar` is given (rates_mode), the sweep
@@ -545,9 +554,11 @@ class SparseMLModel:
         network, and the restriction sync).  split_compile (the JAX
         package's per-piece compiles for its remote TPU worker: here the
         same ops) waits for the device after each phase, runs the tracer
-        with host_phases, and fills self.last_phase_times with each
-        phase's seconds (tracer, its tracer_phases, sweep,
-        chemistry_sync)."""
+        with host_phases (and on a mesh the sweep with eager_rounds), and
+        fills self.last_phase_times with each phase's seconds (tracer, its
+        tracer_phases, sweep, chemistry_sync).  A mesh runs the
+        source-parallel tracer and the zones sweep (the JAX package's
+        make_step(mesh=...))."""
         def step(state, *extra):
             times = {} if split_compile else None
             device = state.base.rho.device
@@ -566,12 +577,14 @@ class SparseMLModel:
             rfs = diag = None
             if stellar is not None:
                 state, rfs, diag = phase("tracer", self.trace, state,
-                                         stellar, rates_mode, split_compile)
+                                         stellar, rates_mode, split_compile,
+                                         mesh)
                 if times is not None:
                     times["tracer_phases"] = dict(
                         rays_multilevel.LAST_TRACE_PHASE_TIMES)
             if self.rt.config.run_uvb_transfer:
-                state = phase("sweep", self._apply_sweep, state)
+                state = phase("sweep", self._apply_sweep, state, mesh,
+                              split_compile)
             out = phase("chemistry_sync", rest, state, rfs, *extra)
             if times is not None:
                 self.last_phase_times = times
@@ -582,14 +595,18 @@ class SparseMLModel:
              mesh=None):
         """One full iteration; returns (state, RayDiagnostics), the
         diagnostics None unless the mode traces point sources (a
-        StellarContext given in mode 1 or 8)."""
-        self._check_supported(mesh)
+        StellarContext given in mode 1 or 8); on a mesh
+        (mesh.shard_sparse_state's state) the zones sweep and the
+        source-parallel tracer."""
+        self._check_supported(stellar, mesh)
         return self._iteration(
             stellar if self.rt.config.run_stellar_transfer else None, "auto",
-            lambda state, rfs: self._chemistry_and_sync(state))(state)
+            lambda state, rfs: self._chemistry_and_sync(state),
+            mesh=mesh)(state)
 
     def trace(self, state: amr_sparse.SparseMLState, stellar,
-              rates_mode: str = "auto", host_phases: bool = False):
+              rates_mode: str = "auto", host_phases: bool = False,
+              mesh=None):
         """The point-source phase (the JAX package's
         SparseMLModel._traced): trace every source through every level's
         blocks and put the six deposit fields into the (zero-rate) state,
@@ -598,13 +615,17 @@ class SparseMLModel:
         level-l cell's is 8^-l of it.  Returns (state, the tracer's
         per-level rate fields as it made them, level 0 flat and the refined
         levels block-flat, RayDiagnostics); rates_mode and host_phases:
-        rays_multilevel.trace_point_sources_sparse's."""
-        rfs, diag = rays_multilevel.trace_point_sources_sparse(
-            state, self.rt.geom, stellar.sources, stellar.tables,
-            dust_approximation=stellar.dust_approximation,
-            max_pixel_level=stellar.max_pixel_level,
-            dtype=state.base.rho.dtype, rates_mode=rates_mode,
-            host_phases=host_phases)
+        rays_multilevel.trace_point_sources_sparse's; a mesh traces
+        source-parallel (rays_dist.trace_point_sources_sparse_dist)."""
+        args = (state, self.rt.geom, stellar.sources, stellar.tables)
+        kw = dict(dust_approximation=stellar.dust_approximation,
+                  max_pixel_level=stellar.max_pixel_level,
+                  dtype=state.base.rho.dtype, rates_mode=rates_mode,
+                  host_phases=host_phases)
+        rfs, diag = (
+            rays_multilevel.trace_point_sources_sparse(*args, **kw)
+            if mesh is None
+            else rays_dist.trace_point_sources_sparse_dist(*args, mesh, **kw))
         names = [f.name for f in dataclasses.fields(rays.RateFields)]
         base = dataclasses.replace(state.base, **{
             k: getattr(rfs[0], k).reshape(state.base.shape) for k in names})
@@ -622,12 +643,13 @@ class SparseMLModel:
         """The iteration step, a plain eager function: state -> state, or
         with a StellarContext state -> (state, RayDiagnostics or None), as
         step returns them.  split_compile gives the same results and fills
-        last_phase_times (_iteration)."""
-        self._check_supported(mesh)
+        last_phase_times (_iteration); a mesh runs the zones sweep and the
+        source-parallel tracer."""
+        self._check_supported(stellar, mesh)
         step = self._iteration(
             stellar if self.rt.config.run_stellar_transfer else None, "auto",
             lambda state, rfs: self._chemistry_and_sync(state),
-            split_compile)
+            split_compile, mesh)
         if stellar is None:
             return lambda state: step(state)[0]
         return step
@@ -679,9 +701,9 @@ class SparseMLModel:
         chemistry_noneq.SpeciesState a level, level 0 dense and the refined
         levels block-shaped (initial_species), the state's HI/HeI/HeII
         (and tgas with evolve_energy) synced from them each step; the
-        tracer runs in its quadrature_noneq mode.  split_compile: as
-        make_step takes it."""
-        self._check_supported(mesh)
+        tracer runs in its quadrature_noneq mode.  split_compile and mesh:
+        as make_step takes them."""
+        self._check_supported(stellar, mesh)
         tables = self.noneq_tables()
         traced = stellar is not None
 
@@ -701,7 +723,7 @@ class SparseMLModel:
                 state, base=base, levels=tuple(levels)), new_species)
 
         body = self._iteration(stellar, "quadrature_noneq", evolve_and_sync,
-                               split_compile)
+                               split_compile, mesh)
 
         def step(state: amr_sparse.SparseMLState, species):
             (state, species), diag = body(state, species)

@@ -645,23 +645,30 @@ def diffuse_sweep_sparse(k0, lv_kappas, state: SparseMLState,
     if isinstance(window, str) and window == "auto":
         window = compute_window(state)
     n = state.n
-    dtype, device = k0.dtype, k0.device
     ctx = build_ctx(k0, lv_kappas, state)
     j0_acc = torch.zeros_like(ctx[0])
     jb_acc = [torch.zeros_like(k) for k in lv_kappas]
-    for batch in zone_batches(plan, (n, n, n), dtype, device,
+    for batch in zone_batches(plan, (n, n, n), k0.dtype, k0.device,
                               _sparse_zone_bytes(
                                   state, None if window is None
                                   else window[0])):
-        izones = [z.izone for z in batch]
-        inputs = batch_inputs(batch, ctx, window, cell_size)
-        j0, jbs = sweep_zone_sparse(*inputs, uvb, plan.weight,
-                                    n_coupling_iters)
-        del inputs
-        for z, iz in enumerate(izones):
-            j0_acc = j0_acc + octants.rotate_from_sweep(
-                torch.movedim(j0[z], 1, -1), iz)
-            jb_acc = [a + octants.rotate_blocks_from_sweep(jb[z], iz)
-                      for a, jb in zip(jb_acc, jbs)]
-        del j0, jbs
+        for c0, cb in zone_contributions(batch, ctx, window, uvb, cell_size,
+                                         plan.weight, n_coupling_iters):
+            j0_acc = j0_acc + c0
+            jb_acc = [a + c for a, c in zip(jb_acc, cb)]
     return torch.movedim(j0_acc, -1, 0), jb_acc
+
+
+def zone_contributions(batch, ctx, window, uvb, cell_size: float,
+                       weight: float, n_coupling_iters: int):
+    """Each zone's contribution to the sweep, (J0 (n, n, n, 3), [J blocks
+    of each refined level]) rotated back, in the batch's order: one
+    sweep_zone_sparse over the batch of zones (MLZoneBatch, build_ctx's
+    context)."""
+    inputs = batch_inputs(batch, ctx, window, cell_size)
+    j0, jbs = sweep_zone_sparse(*inputs, uvb, weight, n_coupling_iters)
+    del inputs
+    for z, zone in enumerate(batch):
+        iz = zone.izone
+        yield (octants.rotate_from_sweep(torch.movedim(j0[z], 1, -1), iz),
+               [octants.rotate_blocks_from_sweep(jb[z], iz) for jb in jbs])

@@ -126,9 +126,12 @@ def restore_sharded(path: str, like_state, mesh=None):
     """Restore a checkpoint into the structure of like_state (for example a
     state freshly built from the input grid: the reference's
     rebuild-then-restore restart), each tensor onto its like tensor's
-    device.  With a mesh (parallel.mesh.GridMesh) a FieldState or
-    SpeciesState, or a tuple of them, goes through parallel.mesh's
-    shard_state / shard_species.  Returns (state, meta dict).
+    device.  With a mesh (parallel.mesh.GridMesh) the container goes
+    through parallel.mesh's shard functions: shard_state, shard_species,
+    shard_amr_state, shard_multilevel_state, shard_sparse_state (a
+    block-sparse noneq run's species through shard_sparse_species, their
+    blocks padded as the state's are), a tuple entry by entry.  Returns
+    (state, meta dict).
 
     TreeMismatch when the checkpoint's tensor paths differ from
     like_state's; ValueError when a tensor's shape or dtype does; a
@@ -160,18 +163,24 @@ def restore_sharded(path: str, like_state, mesh=None):
 
 
 def _shard(state, mesh):
+    from ..core.amr import AMRState, MultiLevelState
+    from ..core.amr_sparse import SparseMLState
     from ..core.chemistry_noneq import SpeciesState
     from ..core.state import FieldState
     from ..parallel import mesh as pmesh
-    if isinstance(state, FieldState):
-        return pmesh.shard_state(state, mesh)
-    if isinstance(state, SpeciesState):
-        return pmesh.shard_species(state, mesh)
+    place = {FieldState: pmesh.shard_state, SpeciesState: pmesh.shard_species,
+             AMRState: pmesh.shard_amr_state,
+             MultiLevelState: pmesh.shard_multilevel_state,
+             SparseMLState: pmesh.shard_sparse_state}
+    if type(state) in place:
+        return place[type(state)](state, mesh)
+    if (isinstance(state, tuple) and len(state) == 2
+            and isinstance(state[0], SparseMLState)):
+        return (pmesh.shard_sparse_state(state[0], mesh),
+                pmesh.shard_sparse_species(state[1], mesh))
     if isinstance(state, tuple):
         return tuple(_shard(x, mesh) for x in state)
-    raise NotImplementedError(
-        f"a {type(state).__name__} on a mesh is not ported yet: ROADMAP, "
-        f"Distribution")
+    raise TypeError(f"not a state container: {type(state).__name__}")
 
 
 def latest_checkpoint(directory: str = ".") -> str | None:

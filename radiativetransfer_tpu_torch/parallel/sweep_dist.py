@@ -18,8 +18,14 @@ collectives is written out over a leading rank axis:
    kernel #2 on the card, its plain version on the CPU; on the card several
    zones in flight at once), and the ranks' sums are added in rank order
    (the psum).
+3. `diffuse_sweep_sparse_zones` -- angle decomposition of the block-sparse
+   L-level sweep (core/sweep_sparse.py).  Each direction count's zones are
+   padded to a multiple of P with copies scaled by 0 and dealt to the ranks
+   in contiguous runs; each rank sums its zones' contributions, and the
+   ranks' sums are added in rank order.
 
-Both match core.sweep.diffuse_sweep to float rounding.
+The first two match core.sweep.diffuse_sweep, the third
+core.sweep_sparse.diffuse_sweep_sparse, to float rounding.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import dataclasses
 
 import torch
 
-from ..core import sweep_cuda
+from ..core import sweep_cuda, sweep_multilevel, sweep_sparse
 from ..core.sweep import SweepPlan, ZoneBatch, sweep_zone
 from .mesh import GridMesh, from_blocks, to_blocks
 
@@ -87,3 +93,77 @@ def diffuse_sweep_zone_parallel(kappa, plan: SweepPlan, uvb, cell_size,
         dataclasses.replace(plan, zones=plan.zones[r::p]), uvb, cell_size,
         streams=sweep_cuda.ZONE_STREAMS, ready=ready)
         for r in range(p))
+
+
+def _rank_sum(parts):
+    """The ranks' tensors added in rank order."""
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = acc + x
+    return acc
+
+
+def diffuse_sweep_sparse_zones(k0, lv_kappas, state, plan, uvb, cell_size,
+                               mesh: GridMesh,
+                               n_coupling_iters: int =
+                               sweep_multilevel.N_COUPLING_ITERS,
+                               eager_rounds: bool = False, window="auto"):
+    """Angle-decomposed block-sparse L-level sweep: args and result as
+    core.sweep_sparse.diffuse_sweep_sparse's, (J0 (3, n, n, n), [J blocks
+    (3, nb, be, be, be) of each refined level]).
+
+    The JAX package's units are its direction chunks (build_chunks); here
+    they are the plan's zones.  Each group of equal direction count is
+    padded to a multiple of P with copies of its first zone scaled by 0
+    and dealt to the ranks in contiguous runs, as shard_map deals the JAX
+    package's chunks; each rank adds its zones' contributions, in its
+    run's order, into an accumulator of its own, and the ranks'
+    accumulators are added in rank order (the psum).  The order of the adds
+    therefore differs from the JAX package's, and from the one-device
+    sweep's: the three agree to float rounding (ROADMAP section 3).  While
+    the ranks share one device they share its zone batches too (sized as
+    diffuse_sweep_sparse sizes them, over the padded group): a batch may
+    hold several ranks' zones, and its launches serve them all, which cut
+    the rank's own batches to a quarter of the zones at P = 4 and the sweep
+    ran 1.9x (128^3) to 3.6x (64^3) slower on one card (PERF.md).  A round
+    is one batch; eager_rounds synchronizes the device after each (the JAX
+    package's bounded dispatches), with the same values."""
+    L = plan.n_levels
+    if state.n_levels != L or len(lv_kappas) != L - 1:
+        raise ValueError(f"a {state.n_levels}-level state and "
+                         f"{len(lv_kappas)} block opacities for a {L}-level "
+                         f"plan")
+    if isinstance(window, str) and window == "auto":
+        window = sweep_sparse.compute_window(state)
+    n, p = state.n, mesh.n_ranks
+    dtype, device = k0.dtype, k0.device
+    ctx = sweep_sparse.build_ctx(k0, lv_kappas, state)
+    zone_bytes = sweep_sparse._sparse_zone_bytes(
+        state, None if window is None else window[0])
+    accs = [(torch.zeros_like(ctx[0]),
+             [torch.zeros_like(k) for k in lv_kappas]) for _ in range(p)]
+    groups: dict[int, list] = {}
+    for zone in plan.zones:
+        groups.setdefault(zone.ndir, []).append(zone)
+    for ndir, zones in groups.items():
+        pad = (-len(zones)) % p
+        units = zones + [zones[0]] * pad
+        scales = [1.0] * len(zones) + [0.0] * pad
+        m = len(units) // p                   # rank r's run: [r m, (r+1) m)
+        size = sweep_multilevel._zones_per_batch((n, n, n), L, ndir, dtype,
+                                                 device, zone_bytes)
+        for lo in range(0, len(units), size):     # one round: a batch
+            batch = units[lo:lo + size]
+            for u, (c0, cb) in enumerate(sweep_sparse.zone_contributions(
+                    batch, ctx, window, uvb, cell_size, plan.weight,
+                    n_coupling_iters), start=lo):
+                r, sc = u // m, scales[u]
+                if sc != 1.0:
+                    c0, cb = c0 * sc, [c * sc for c in cb]
+                j0_r, jb_r = accs[r]
+                accs[r] = (j0_r + c0, [a + c for a, c in zip(jb_r, cb)])
+            if eager_rounds and device.type == "cuda":
+                torch.cuda.synchronize(device)
+    j0 = _rank_sum([a[0] for a in accs])
+    jbs = [_rank_sum([a[1][ell] for a in accs]) for ell in range(L - 1)]
+    return torch.movedim(j0, -1, 0), jbs

@@ -1029,7 +1029,7 @@ def sparse_galaxy(n: int, directory: str, be: int = 8,
                                     refine_core=True)
     levels = grid_io.read_level_npz(os.path.join(directory,
                                                  "testgrid_velmet.npz"))
-    storage = cli._nesting(levels, cli._parser().parse_args(["cfg"]), None)
+    storage = cli._nesting(levels, cli._parser().parse_args(["cfg"]))
     t0 = time.perf_counter()
     state, _ = amr_sparse.sparse_from_level_lists(levels, True, be=be,
                                                   device=device)

@@ -144,9 +144,9 @@ def test_none_fields_stay_none_and_mesh_restore(tmp_path):
     _assert_trees_equal(back, st)
     two, like2 = _containers("two_level")
     ckpt.save_sharded(path, two, 1, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
-        ckpt.restore_sharded(path, like2,
-                             mesh=pmesh.make_grid_mesh(2, device="cpu"))
+    back2, _ = ckpt.restore_sharded(
+        path, like2, mesh=pmesh.make_grid_mesh(2, device="cpu"))
+    _assert_trees_equal(back2, two)
 
 
 def test_latest_checkpoint(tmp_path):

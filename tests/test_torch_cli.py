@@ -316,16 +316,20 @@ def _ran_one_iteration(directory, out, flags):
                 "the ingested data)") in out.splitlines()
     if "--tracer-compact" in flags:
         assert trays.LAST_COMPACT_BUCKETS[0] == 12 * 48
+    if "--mesh-shape" in flags:
+        assert "device mesh: {'gz': " in out
 
 
 # the flags refused until the port ran them keep their ids and run now
-# (match None): --ckpt-format orbax, --debug-checkify, --tracer-compact and
-# the .h4 grid; tests/test_torch_cli_slice.py and test_torch_hdf4.py hold
-# them to the JAX CLI
+# (match None): --ckpt-format orbax, --debug-checkify, --tracer-compact,
+# the .h4 grid and point sources on a mesh (a uniform and a two-level
+# grid); tests/test_torch_cli_slice.py, test_torch_hdf4.py and
+# test_torch_cli_mesh.py hold them to the JAX CLI
 @pytest.mark.parametrize("flags,mode,edit,match", [
     pytest.param(("--chemistry", "noneq", "--ckpt-format", "orbax"), 9,
                  None, None, id="flags0-9-None-Remaining I/O"),
-    (("--chemistry", "noneq", "--mesh-shape", "4"), 8, None, "Distribution"),
+    pytest.param(("--chemistry", "noneq", "--mesh-shape", "4"), 8, None,
+                 None, id="flags1-8-None-Distribution"),
     pytest.param(("--ckpt-format", "orbax"), 9, None, None,
                  id="flags2-9-None-Remaining I/O"),
     pytest.param(("--debug-checkify",), 9, None, None,
@@ -335,9 +339,12 @@ def _ran_one_iteration(directory, out, flags):
     (("--coordinator", "localhost:1234"), 9, None, "Distribution"),
     (("--num-processes", "2"), 9, None, "Distribution"),
     (("--mesh-shape", "2,2"), 9, None, "Distribution"),
-    (("--mesh-shape", "4"), 8, None, "Distribution"),
-    (("--chemistry", "noneq", "--mesh-shape", "2"), 8, _two_level_grid,
-     "a mesh on a two-level AMR grid"),
+    pytest.param(("--mesh-shape", "4"), 8, None, None,
+                 id="flags8-8-None-Distribution"),
+    pytest.param(("--chemistry", "noneq", "--mesh-shape", "2"), 8,
+                 _two_level_grid, None,
+                 id="flags9-8-_two_level_grid-a mesh on a two-level AMR "
+                    "grid"),
     pytest.param((), 9, _h4_grid, None,
                  id="flags10-9-_h4_grid-Remaining I/O"),
 ])

@@ -261,28 +261,37 @@ def test_three_levels_under_amr_depth_2_run_two_level(tmp_path):
     _assert_logs_close(logs["torch"], logs["jax"])
 
 
+_MESH_ID = (r"a mesh on a two-level AMR grid \(shard_amr_state\) is not "
+            r"ported yet: ROADMAP, Distribution$")
+
+
 @pytest.mark.parametrize("flags,mode,core,match", [
-    (("--chemistry", "noneq", "--mesh-shape", "4"), 9, False,
-     r"a mesh on a two-level AMR grid \(shard_amr_state\) is not ported "
-     r"yet: ROADMAP, Distribution$"),
-    (("--mesh-shape", "4"), 9, False, r"a mesh on a two-level AMR grid "
-     r"\(shard_amr_state\) is not ported yet: ROADMAP, Distribution$"),
-    (("--sweep-strategy", "zones"), 6, False, r"a mesh on a two-level AMR "
-     r"grid \(shard_amr_state\) is not ported yet: ROADMAP, Distribution$"),
     # refused until the port ran them: their ids kept, each runs one
     # iteration on the two-level grid (match None)
+    pytest.param(("--chemistry", "noneq", "--mesh-shape", "4"), 9, False,
+                 None, id="flags0-9-False-" + _MESH_ID),
+    pytest.param(("--mesh-shape", "4"), 9, False, None,
+                 id="flags1-9-False-" + _MESH_ID),
+    pytest.param(("--sweep-strategy", "zones"), 6, False, None,
+                 id="flags2-6-False-" + _MESH_ID),
     pytest.param(("--debug-checkify",), 9, False, None,
                  id="flags3-9-False---debug-checkify is not ported yet: "
                     "ROADMAP, core/debug\\.py$"),
     pytest.param(("--ckpt-format", "orbax"), 9, False, None,
                  id="flags4-9-False---ckpt-format orbax is not ported yet: "
                     "ROADMAP, Remaining I/O \\(io/checkpoint\\.py\\)$"),
+    # what stays refused on a mesh
+    (("--mesh-shape", "4", "--tracer-strategy", "domain"), 8, False,
+     r"--tracer-strategy domain .*rays_domain.*ROADMAP, Distribution$"),
+    (("--mesh-shape", "2,2"), 9, False,
+     r"2-D meshes are not ported yet: ROADMAP, Distribution$"),
 ])
 def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
                                         core, match):
     """Each raises NotImplementedError naming the ROADMAP item that refuses
     the run, before the grid is ingested and before any step; the flags
-    once refused run an iteration on the two-level grid."""
+    once refused run an iteration on the two-level grid (a mesh of P
+    ranks: the tracer source-parallel, the rest as on one device)."""
     from radiativetransfer_tpu_torch.core import amr, amr_sparse
     config = _inputs(tmp_path, n=8, core=core, mode=mode)
     if match is None:
@@ -292,8 +301,13 @@ def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
         if "--debug-checkify" in flags:
             assert ("checkify pre-flight passed on two-level AMR storage"
                     in out.splitlines())
-        else:
+        elif "--ckpt-format" in flags:
             assert (tmp_path / "ckpt0001" / "ftte_meta.json").exists()
+        else:
+            assert "device mesh: {'gz': " in out
+        if "noneq" in flags:
+            assert ("non-equilibrium chemistry (2 levels): dt = 1.0 Myr, "
+                    "evolve_energy = False, mesh = (4,)") in out.splitlines()
         return
 
     def no_ingestion(*args, **kwargs):

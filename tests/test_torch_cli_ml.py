@@ -234,19 +234,18 @@ def test_storage_choice_follows_the_jax_formula():
     # 80^3 + 160^3 + 320^3 cells of 17 fields: 2.54e9 bytes in f32, under
     # the limit, 5.08e9 in f64, over it
     deep = levels(80 ** 3, 8, 8)
-    assert tcli._nesting(deep, args(), None) == "ml"
-    assert tcli._nesting(deep, args(flags=["--x64"]), None) == "sparse"
+    assert tcli._nesting(deep, args()) == "ml"
+    assert tcli._nesting(deep, args(flags=["--x64"])) == "sparse"
     assert tcli._nesting(deep, args(flags=["--x64", "--chemistry",
-                                           "noneq"]), None) == "sparse"
+                                           "noneq"])) == "sparse"
     assert tcli._nesting(deep, args(flags=["--x64", "--amr-storage",
-                                           "dense"]), None) == "ml"
+                                           "dense"])) == "ml"
     assert tcli._nesting(levels(8, 8, 8), args(flags=["--amr-storage",
-                                                      "sparse"]),
-                         None) == "sparse"
-    assert tcli._nesting(deep, args(flags=["--amr-depth", "2"]),
-                         None) == "amr"
-    assert tcli._nesting(levels(8, 8), args(), None) == "amr"
-    assert tcli._nesting(levels(8, 0, 0), args(), None) == "uniform"
+                                                      "sparse"])) \
+        == "sparse"
+    assert tcli._nesting(deep, args(flags=["--amr-depth", "2"])) == "amr"
+    assert tcli._nesting(levels(8, 8), args()) == "amr"
+    assert tcli._nesting(levels(8, 0, 0), args()) == "uniform"
 
 
 _MESH = (r"a mesh on an L-level AMR grid \(shard_multilevel_state\) is not "
@@ -254,21 +253,37 @@ _MESH = (r"a mesh on an L-level AMR grid \(shard_multilevel_state\) is not "
 
 
 @pytest.mark.parametrize("flags,mode,match", [
-    (("--mesh-shape", "2"), 8, _MESH),
-    (("--mesh-shape", "2"), 1, _MESH),
-    (("--chemistry", "noneq", "--mesh-shape", "2"), 9, _MESH),
-    (("--mesh-shape", "4"), 9, r"a mesh on an L-level AMR grid "
-     r"\(shard_multilevel_state\) is not ported yet: ROADMAP, "
-     r"Distribution$"),
-    (("--sweep-strategy", "zones"), 6, r"a mesh on an L-level AMR grid "
-     r"\(shard_multilevel_state\) is not ported yet: ROADMAP, "
-     r"Distribution$"),
+    # refused until the port ran them: their ids kept, each runs one
+    # iteration on the L-level grid (match None)
+    pytest.param(("--mesh-shape", "2"), 8, None, id="flags0-8-" + _MESH),
+    pytest.param(("--mesh-shape", "2"), 1, None, id="flags1-1-" + _MESH),
+    pytest.param(("--chemistry", "noneq", "--mesh-shape", "2"), 9, None,
+                 id="flags2-9-" + _MESH),
+    pytest.param(("--mesh-shape", "4"), 9, None, id="flags3-9-" + _MESH),
+    pytest.param(("--sweep-strategy", "zones"), 6, None,
+                 id="flags4-6-" + _MESH),
+    # what stays refused on a mesh
+    (("--mesh-shape", "2", "--tracer-strategy", "domain"), 1,
+     r"--tracer-strategy domain .*rays_domain.*ROADMAP, Distribution$"),
+    (("--mesh-shape", "2,4"), 8,
+     r"2-D meshes are not ported yet: ROADMAP, Distribution$"),
+    (("--coordinator", "localhost:1234"), 9,
+     r"--coordinator .*ROADMAP, Distribution \(ranks on several cards\)$"),
 ])
 def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
                                         match):
     """Each raises NotImplementedError naming the ROADMAP item that refuses
-    the run, before the grid is ingested and before any step."""
+    the run, before the grid is ingested and before any step; the flags
+    once refused run an iteration on the L-level grid (a mesh: the tracer
+    source-parallel, the sweep and the chemistry as on one device)."""
     from radiativetransfer_tpu_torch.core import amr, amr_sparse
+    if match is None:
+        out = _run("torch", _inputs(tmp_path, n=8, mode=mode), tmp_path,
+                   "--iters", "1", "--max-pixel-level", "2", *flags)
+        assert _GRID in out.splitlines()
+        assert "device mesh: {'gz': " in out
+        assert list(_time_log(tmp_path)) == [1]
+        return
 
     def no_ingestion(*args, **kwargs):
         raise AssertionError("the grid was ingested")

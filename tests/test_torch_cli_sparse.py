@@ -314,23 +314,33 @@ def test_noneq_restart_across_packages(runs, tmp_path, writer):
 
 
 # the mesh case keeps the id it had beside the point-source and noneq
-# refusals, which are runs now
+# refusals: all three run now
 @pytest.mark.parametrize("flags,mode,match", [
     pytest.param(
-        ("--mesh-shape", "2"), 9, r"^a mesh on a block-sparse AMR grid "
-        r"\(shard_sparse_state, diffuse_sweep_sparse_zones\) is not ported "
-        r"yet: ROADMAP, Distribution$",
+        ("--mesh-shape", "2"), 9, None,
         id="flags3-9-^a mesh on a block-sparse AMR grid \\(shard_sparse_"
            "state, diffuse_sweep_sparse_zones\\) is not ported yet: "
            "ROADMAP, Distribution$"),
+    (("--mesh-shape", "2", "--tracer-strategy", "domain"), 8,
+     r"--tracer-strategy domain .*rays_domain.*ROADMAP, Distribution$"),
 ])
 def test_refusals_raise_before_any_work(tmp_path, monkeypatch, flags, mode,
                                         match):
     """Each raises NotImplementedError naming the ROADMAP item that refuses
     the run, before the grid is ingested and before any step (modes 8 and
     1 and --chemistry noneq, refused here until they were ported, run in
-    the tests above)."""
+    the tests above); a mesh, once refused, runs an iteration (the zones
+    sweep on 2 ranks)."""
     from radiativetransfer_tpu_torch.core import amr_sparse
+    if match is None:
+        out = _run("torch", _inputs(tmp_path, mode=mode), tmp_path,
+                   "--iters", "1", *flags)
+        assert _GRID in out.splitlines()
+        assert ("block-sparse deep AMR distributed over 2 devices: zones "
+                "sweep (direction chunks + psum) + source-parallel tracer"
+                in out.splitlines())
+        assert list(_time_log(tmp_path)) == [1]
+        return
 
     def no_ingestion(*args, **kwargs):
         raise AssertionError("the grid was ingested")

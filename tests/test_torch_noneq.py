@@ -514,14 +514,26 @@ def test_noneq_refusals():
     model = rt.RTModel.setup(_cfg(MODE_BOTH_STELLAR_UVB_TRANSFER), geom,
                              torch.float64, "cpu")
     _, tc = _contexts(jstate.GridGeometry(n, n, n, 50.0 * KPC), geom)
-    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
-        model.make_noneq_step(MYR, tc,
-                              mesh=tmesh.make_grid_mesh(2, device="cpu"))
-    # tracer_compact is ignored by the noneq step's trace, as in the JAX
-    # package: the step builds and traces with the default tracer
-    model.config = dataclasses.replace(model.config, tracer_compact=True)
     species = tcn.species_from_field_state(
         rt.uniform_state(n, dtype=torch.float64, device="cpu"))
+    # point sources on a mesh: the noneq step traces source-parallel (its
+    # quadrature_noneq deposits), within 1e-12 of the one-device step; the
+    # domain tracer raises naming its ROADMAP item
+    mesh = tmesh.make_grid_mesh(2, device="cpu")
+    state = rt.uniform_state(n, dtype=torch.float64, device="cpu")
+    one = model.make_noneq_step(MYR, tc, n_substeps=2)(state, species)
+    two = model.make_noneq_step(MYR, tc, n_substeps=2, mesh=mesh)(
+        tmesh.shard_state(state, mesh), tmesh.shard_species(species, mesh))
+    _assert_species_close(two[1], one[1], 1e-12)
+    _assert_peak_close(two[0].HI, one[0].HI, 1e-12, "HI")
+    model.config = dataclasses.replace(model.config, tracer_strategy="domain")
+    with pytest.raises(NotImplementedError,
+                       match="rays_domain.*ROADMAP, Distribution"):
+        model.make_noneq_step(MYR, tc, mesh=mesh)
+    # tracer_compact is ignored by the noneq step's trace, as in the JAX
+    # package: the step builds and traces with the default tracer
+    model.config = dataclasses.replace(model.config, tracer_compact=True,
+                                       tracer_strategy="sources")
     trays.LAST_COMPACT_BUCKETS.clear()
     model.make_noneq_step(MYR, tc, n_substeps=2)(
         rt.uniform_state(n, dtype=torch.float64, device="cpu"), species)

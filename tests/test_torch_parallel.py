@@ -256,7 +256,12 @@ def test_mesh_errors():
     assert tmesh.make_grid_mesh(4).device.type == "cuda"   # the card
     tm = rt.RTModel.setup(_cfg("rdma"), rt.GridGeometry(8, 8, 8, 50 * KPC),
                           torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
+    # point sources on a mesh build the source-parallel step
+    # (tests/test_torch_rays_dist.py runs it); the domain tracer raises
+    assert callable(tm.make_step(stellar=object(), mesh=mesh))
+    tm.config = dataclasses.replace(tm.config, tracer_strategy="domain")
+    with pytest.raises(NotImplementedError,
+                       match="rays_domain.*ROADMAP, Distribution"):
         tm.make_step(stellar=object(), mesh=mesh)
     with pytest.raises(TypeError, match="GridMesh"):
         tm.make_step(mesh=object())

@@ -151,28 +151,43 @@ def test_mode9_anchor_f32():
 
 def test_unported_paths_raise():
     geom = rt.GridGeometry(4, 4, 4, 50.0 * KPC)
-    tm = rt.RTModel.setup(_cfg(), geom, torch.float64, "cpu")
+    tm = rt.RTModel.setup(_cfg(MODE_BOTH_STELLAR_UVB_TRANSFER), geom,
+                          torch.float64, "cpu")
     state = rt.uniform_state(4, dtype=torch.float64, device="cpu")
-    # a 1-D mesh runs (tests/test_torch_parallel.py); point sources on a
-    # mesh and 2-D meshes are ROADMAP's "Distribution"
+    batch = trays.SourceBatch(position=np.array([[0.3, 0.4, 0.6],
+                                                 [0.7, 0.6, 0.2],
+                                                 [0.5, 0.2, 0.4]]),
+                              weight=np.array([1.0, 2.0, 1.0]),
+                              table_idx=np.zeros(3, np.int32))
+    ctx = rt.StellarContext.build(tstellar.blackbody_population(), batch,
+                                  geom, 10.0 * MYR, metal_coefs=[(0, 0.0)],
+                                  max_pixel_level=2, dtype=torch.float64,
+                                  device="cpu")
+    one, one_diag = tm.make_step(ctx)(state)
+    # point sources run on a 1-D mesh, traced source-parallel (3 sources
+    # padded to 4 over 2 ranks); 2-D meshes are ROADMAP's "Distribution"
     mesh = make_grid_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
-        tm.make_step(stellar=object(), mesh=mesh)
+    out, diag = tm.make_step(stellar=ctx, mesh=mesh)(state)
+    for name in ("HI", "HeII", "krate24", "crate26"):
+        a, b = getattr(out, name), getattr(one, name)
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+    assert diag.ndot_spectrum.shape == one_diag.ndot_spectrum.shape
     with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
         make_grid_mesh(shape=(2, 2), device="cpu")
     with pytest.raises(TypeError, match="GridMesh"):
         tm.transport_chemistry_step(state, mesh=object())
     base = tm.config
     # tracer_compact picks the compacting tracer without a mesh (it is
-    # ported: tests/test_torch_compact.py), and raises with one as the
-    # other tracers do
+    # ported: tests/test_torch_compact.py); on a mesh the source-parallel
+    # tracer runs whatever it says, as in the JAX package
     tm.config = dataclasses.replace(base, tracer_compact=True)
     assert callable(tm.make_step(stellar=object()))
-    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
-        tm.make_step(stellar=object(), mesh=mesh)
+    out_c, _ = tm.make_step(stellar=ctx, mesh=mesh)(state)
+    assert torch.equal(out_c.krate24, out.krate24)
     # the domain-decomposed tracer runs only on a mesh (not ported)
     tm.config = dataclasses.replace(base, tracer_strategy="domain")
-    with pytest.raises(NotImplementedError, match="ROADMAP, Distribution"):
+    with pytest.raises(NotImplementedError,
+                       match="rays_domain.*ROADMAP, Distribution"):
         tm.make_step(stellar=object(), mesh=mesh)
     tm.config = dataclasses.replace(base, sweep_strategy="zones")
     with pytest.raises(ValueError, match="needs a mesh"):

@@ -40,7 +40,10 @@ from radiativetransfer_tpu_torch.core import amr as tamr
 from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.core import step_amr as tstep_amr
 from radiativetransfer_tpu_torch.io import snapshot as tsnap
-from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
+from radiativetransfer_tpu_torch.parallel.mesh import (
+    make_grid_mesh,
+    shard_amr_state,
+)
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
 from test_torch_host import jax_compile_cache
 
@@ -279,14 +282,31 @@ def test_amr_snapshot_of_another_map_raises(tmp_path, stepped, reader):
 
 
 def test_mesh_raises_naming_roadmap():
-    _, tam = _models(MODE_UVB_TRANSFER_ONLY)
+    """The two-level model on a 1-D mesh (mesh.shard_amr_state): mode 8
+    through make_step and step, the tracer source-parallel (3 sources
+    padded to 4 over 2 ranks) and the rest as on one device, within 1e-12
+    of the one-device step; the domain tracer still raises naming its
+    ROADMAP item."""
+    _, tam = _models(MODE_BOTH_STELLAR_UVB_TRANSFER)
     _, ts = _states()
+    _, tc = _contexts(tam.rt.geom)
     mesh = make_grid_mesh(2, device="cpu")
-    for call in (lambda: tam.make_step(mesh=mesh),
-                 lambda: tam.step(ts, mesh=mesh)):
+    one, _ = tam.make_step(tc)(ts)
+    sharded = shard_amr_state(ts, mesh)
+    for call in (lambda: tam.make_step(tc, mesh=mesh)(sharded),
+                 lambda: tam.step(sharded, stellar=tc, mesh=mesh)):
+        out, diag = call()
+        assert _worst(out.base, one.base) <= 1e-12
+        assert _worst(out.fine, one.fine) <= 1e-12
+        assert diag.ndot_remaining.shape[0] == 3
+    base = tam.rt.config
+    tam.rt.config = dataclasses.replace(base, tracer_strategy="domain")
+    try:
         with pytest.raises(NotImplementedError,
-                           match=r"shard_amr_state.*ROADMAP, Distribution"):
-            call()
+                           match=r"rays_domain.*ROADMAP, Distribution"):
+            tam.make_step(tc, mesh=mesh)
+    finally:
+        tam.rt.config = base
 
 
 @pytest.mark.parametrize("module", [

@@ -46,7 +46,10 @@ from radiativetransfer_tpu_torch.core import chemistry_noneq as tcn
 from radiativetransfer_tpu_torch.core import rays as trays
 from radiativetransfer_tpu_torch.core import step_amr as tstep_amr
 from radiativetransfer_tpu_torch.io import snapshot as tsnap
-from radiativetransfer_tpu_torch.parallel.mesh import make_grid_mesh
+from radiativetransfer_tpu_torch.parallel.mesh import (
+    make_grid_mesh,
+    shard_multilevel_state,
+)
 from radiativetransfer_tpu_torch.tables import stellar as tstellar
 from test_torch_host import jax_compile_cache
 
@@ -371,20 +374,43 @@ def test_species_snapshot_that_does_not_fit_raises(stepped, tmp_path):
 
 
 def test_sources_and_mesh_raise_naming_roadmap():
-    """Point sources run on an L-level grid (modes 8 and 1 set up, no
-    refusal); a mesh, with or without them and in the noneq step, raises
-    naming its ROADMAP item."""
+    """Point sources run on an L-level grid, on one device and on a 1-D
+    mesh (mesh.shard_multilevel_state): mode 9 and mode 8 through
+    make_step and step (the tracer source-parallel), and a noneq mode-9
+    step, within 1e-12 of the one-device steps; the domain tracer on a
+    mesh raises naming its ROADMAP item."""
     _, t8 = _rt(MODE_BOTH_STELLAR_UVB_TRANSFER)
     ml = tstep_amr.MultiLevelModel.setup(t8, 3)
     assert ml.plan is not None
     _, ts = _states()
     mesh = make_grid_mesh(2, device="cpu")
-    item = "ROADMAP, Distribution$"
-    with pytest.raises(NotImplementedError, match=item):
-        ml.make_step(mesh=mesh)
-    with pytest.raises(NotImplementedError, match=item):
-        ml.make_step(stellar=object(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match=item):
-        ml.step(ts, stellar=object(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match=item):
-        ml.make_noneq_step(1.0, mesh=mesh)
+    sharded = shard_multilevel_state(ts, mesh)
+    tc = rt.StellarContext.build(
+        tstellar.blackbody_population(), trays.SourceBatch(
+            position=np.array([[0.4, 0.55, 0.6], [0.7, 0.3, 0.45],
+                               [0.52, 0.48, 0.51]]),
+            weight=np.array([2.0, 1.0, 1.0]),
+            table_idx=np.zeros(3, np.int32)),
+        t8.geom, 10.0 * MYR, metal_coefs=[(0, 0.0)], max_pixel_level=2,
+        dtype=F64, device="cpu")
+    assert _worst(ml.make_step(mesh=mesh)(sharded), ml.make_step()(ts)) \
+        <= 1e-12
+    one, _ = ml.make_step(tc)(ts)
+    for out, diag in (ml.make_step(stellar=tc, mesh=mesh)(sharded),
+                      ml.step(sharded, stellar=tc, mesh=mesh)):
+        assert _worst(out, one, _FIELDS + ("krate24", "crate26")) <= 1e-12
+        assert diag.ndot_spectrum.shape[0] == 3
+    species = tuple(tcn.species_from_field_state(lv)
+                    for lv in ts.levels)
+    st1, _ = ml.make_noneq_step(1.0e13, n_substeps=2)(ts, species)
+    st2, _ = ml.make_noneq_step(1.0e13, n_substeps=2, mesh=mesh)(sharded,
+                                                                species)
+    assert _worst(st2, st1, ("HI", "HeII")) <= 1e-12
+    base = ml.rt.config
+    ml.rt.config = dataclasses.replace(base, tracer_strategy="domain")
+    try:
+        with pytest.raises(NotImplementedError,
+                           match="rays_domain.*ROADMAP, Distribution$"):
+            ml.step(ts, stellar=tc, mesh=mesh)
+    finally:
+        ml.rt.config = base

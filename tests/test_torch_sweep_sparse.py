@@ -338,11 +338,12 @@ class TestCouplingDepthProduction:
 
 @pytest.mark.parametrize("what", ["stellar", "mesh", "noneq"])
 def test_unported_parts_raise(what):
-    """A mesh raises NotImplementedError naming its ROADMAP item.  The
-    point sources and the noneq step, which raised until they were
-    ported, run: the mode-8 step (make_step with a StellarContext) and a
-    mode-1 noneq step (three sources, 1 Myr, 10 substeps) on block-sparse
-    storage against the port's dense L-level steps from the same state
+    """The point sources, the noneq step and the mesh, which raised until
+    they were ported, run: the mode-8 step (make_step with a
+    StellarContext; on a 2-rank mesh too, mesh.shard_sparse_state's state:
+    the zones sweep and the source-parallel tracer) and a mode-1 noneq
+    step (three sources, 1 Myr, 10 substeps) on block-sparse storage
+    against the port's dense L-level steps from the same state
     (which test_torch_step_ml and test_torch_noneq_ml hold to the JAX
     package's; test_torch_noneq_sparse and test_torch_cli_sparse hold the
     block-sparse ones to it): every level's HI, HeII and krate24 (and the
@@ -356,14 +357,9 @@ def test_unported_parts_raise(what):
     from radiativetransfer_tpu_torch.core import chemistry_noneq as tcn
     from radiativetransfer_tpu_torch.core import rays as trays
     from radiativetransfer_tpu_torch.tables import stellar as tstellar
-    if what == "mesh":
-        _, sparse = _models(8, MODE_UVB_TRANSFER_ONLY, "torch")
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP, Distribution$"):
-            sparse.make_step(mesh=object())
-        return
-    mode = (MODE_BOTH_STELLAR_UVB_TRANSFER if what == "stellar"
-            else MODE_STELLAR_TRANSFER_THIN_UVB)
+    from radiativetransfer_tpu_torch.parallel import mesh as tmesh
+    mode = (MODE_STELLAR_TRANSFER_THIN_UVB if what == "noneq"
+            else MODE_BOTH_STELLAR_UVB_TRANSFER)
     dense, sparse = _models(8, mode, "torch")
     rt = dense.rt
     tml = port_ml(clustered_ml(8, seed=21, scale=1e-5)[0])
@@ -379,9 +375,12 @@ def test_unported_parts_raise(what):
         metal_coefs=[(0, 0.0)], max_pixel_level=3, noneq=what == "noneq",
         dtype=F64, device="cpu")
     cover = tamr.cover_masks(tml.refined, tml.levels[0].shape, "cpu")
-    if what == "stellar":
-        (out_d, diag_d), (out_s, diag_s) = (dense.make_step(ctx)(tml),
-                                            sparse.make_step(ctx)(tsp))
+    if what != "noneq":
+        mesh = tmesh.make_grid_mesh(2, device="cpu") if what == "mesh" \
+            else None
+        (out_d, diag_d), (out_s, diag_s) = (
+            dense.make_step(ctx)(tml), sparse.make_step(ctx, mesh=mesh)(
+                tsp if mesh is None else tmesh.shard_sparse_state(tsp, mesh)))
         pairs = []
     else:
         out_d, sp_d, diag_d = dense.make_noneq_step(
